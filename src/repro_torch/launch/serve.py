@@ -1,0 +1,303 @@
+"""Serving driver: the continuous-batching engine over a language model.
+
+One traffic-shaped request loop (bounded admission queue, continuous
+batching up to a concurrency limit, graceful shedding when the queue is
+full), driven by a deterministic seeded
+:class:`~repro_torch.launch.traffic.TrafficSpec`::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+        --requests 8 --max-batch 4 --queue-limit 8
+
+Prompts run through :meth:`LM.prefill` and join the running batch
+mid-flight; decode advances every active slot with a per-slot position
+vector.  Every attention sub-block is served with ``impl="pallas"``, so
+each prefill runs the flash-attention kernel once per layer.  Serving
+runs on CUDA; ``--device cpu`` asks for the CPU (where the kernel's plain
+version stands in for it), and without a card nothing runs.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.device import NoCudaCardError, resolve_device
+from repro_torch.launch.traffic import TrafficSpec
+from repro_torch.models.lm import LM
+
+
+# ---------------------------------------------------------------------------
+# shared request loop
+# ---------------------------------------------------------------------------
+
+class RequestQueue:
+    """Bounded admission queue: arrivals beyond ``limit`` are shed."""
+
+    def __init__(self, limit: int):
+        self.limit = int(limit)
+        self.items: List[Any] = []
+        self.shed: List[Any] = []
+
+    def offer(self, request) -> bool:
+        if len(self.items) >= self.limit:
+            self.shed.append(request)
+            return False
+        self.items.append(request)
+        return True
+
+    def take(self):
+        return self.items.pop(0) if self.items else None
+
+    def __len__(self):
+        return len(self.items)
+
+
+def _admit(queue: RequestQueue, pending: List[Any], upto: float) -> None:
+    while pending and pending[0].arrival_s <= upto:
+        queue.offer(pending.pop(0))
+
+
+# ---------------------------------------------------------------------------
+# LM mode: continuous batching with per-slot cache depths
+# ---------------------------------------------------------------------------
+
+class ServingEngine:
+    """Continuous-batching engine for :class:`repro_torch.models.lm.LM`.
+
+    One batched decode cache serves ``max_batch`` slots; joining
+    requests prefill at batch 1 through the full-sequence kernel and are
+    copied into their slot, so the running batch never stalls for a
+    joiner's token-by-token warmup.  Decode advances all active slots in
+    one step with a per-slot position vector.  Admission is clocked by a
+    simulated tick (``tick_s`` per engine iteration), so a fixed seed
+    replays the same admissions, sheds, and outputs on any host.
+    """
+
+    def __init__(self, model: LM, *, max_batch: int, queue_limit: int,
+                 max_context: int, tick_s: float = 0.01):
+        self.model = model
+        self.device = model.embed.device
+        self.max_batch = int(max_batch)
+        self.max_context = int(max_context)
+        self.tick_s = float(tick_s)
+        self.queue = RequestQueue(queue_limit)
+        self.cache = model.init_cache(self.max_batch, self.max_context,
+                                      dtype=torch.float32)
+        # slot i: None, or dict(req=, pos=, token=, out=[generated tokens])
+        self.slots: List[Optional[Dict[str, Any]]] = [None] * self.max_batch
+        self.completed: List[Dict[str, Any]] = []
+        self.iterations = 0
+        self.prefills = 0
+        # host clock per join / per decode step, each ending in a device sync
+        self.prefill_s: List[float] = []
+        self.decode_s: List[float] = []
+
+    def _merge_slot(self, single_cache, slot: int) -> None:
+        """Copy a batch-1 prefilled cache into slot ``slot`` of the batched
+        cache, in place: each layer's ``k[slot]`` and ``v[slot]``.  (The
+        JAX engine rebuilds every cache leaf with a dynamic update slice,
+        because its arrays are immutable.)"""
+        for dst, src in zip(self.cache, single_cache, strict=True):
+            dst["k"][slot].copy_(src["k"][0])
+            dst["v"][slot].copy_(src["v"][0])
+
+    def _join(self, req) -> None:
+        """Prefill one request (full-sequence kernel) into a free slot."""
+        slot = self.slots.index(None)
+        prompt = torch.as_tensor(req.prompt_tokens(self.model.spec.vocab)[None],
+                                 dtype=torch.long, device=self.device)
+        t0 = time.perf_counter()
+        single = self.model.init_cache(1, self.max_context, dtype=torch.float32)
+        logits, single = self.model.prefill(single, prompt)
+        self._merge_slot(single, slot)
+        first = int(torch.argmax(logits[0, -1]))  # waits for the device
+        self.prefill_s.append(time.perf_counter() - t0)
+        self.prefills += 1
+        self.slots[slot] = {"req": req, "pos": req.prompt_len,
+                            "token": first, "out": [first]}
+
+    def _decode_step(self) -> None:
+        """One engine iteration: every active slot decodes one token."""
+        t0 = time.perf_counter()
+        tokens = np.zeros((self.max_batch, 1), np.int64)
+        pos = np.zeros((self.max_batch,), np.int64)
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                tokens[i, 0] = s["token"]
+                pos[i] = s["pos"]
+        logits, self.cache = self.model.decode(
+            self.cache, torch.from_numpy(tokens).to(self.device),
+            torch.from_numpy(pos).to(self.device))
+        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        self.decode_s.append(time.perf_counter() - t0)
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            s["pos"] += 1
+            s["token"] = int(nxt[i])
+            s["out"].append(int(nxt[i]))
+            if len(s["out"]) >= s["req"].gen_len or s["pos"] + 1 >= self.max_context:
+                self.completed.append({
+                    "id": s["req"].id,
+                    "prompt_len": s["req"].prompt_len,
+                    "tokens": s["out"],
+                    "finish_iter": self.iterations,
+                })
+                self.slots[i] = None
+
+    def run(self, requests: List[Any]) -> Dict[str, Any]:
+        pending = sorted(requests, key=lambda r: (r.arrival_s, r.id))
+        now = 0.0
+        with torch.inference_mode():
+            while pending or len(self.queue) or any(s is not None for s in self.slots):
+                _admit(self.queue, pending, now)
+                if not len(self.queue) and all(s is None for s in self.slots):
+                    now = max(now, pending[0].arrival_s)
+                    _admit(self.queue, pending, now)
+                while len(self.queue) and None in self.slots:
+                    self._join(self.queue.take())
+                if any(s is not None for s in self.slots):
+                    self._decode_step()
+                self.iterations += 1
+                now += self.tick_s
+        self.completed.sort(key=lambda r: r["id"])
+        return {
+            "served": len(self.completed),
+            "shed": len(self.queue.shed),
+            "shed_ids": [r.id for r in self.queue.shed],
+            "iterations": self.iterations,
+            "prefills": self.prefills,
+            "tokens_generated": sum(len(r["tokens"]) for r in self.completed),
+        }
+
+
+def _map_sub_cfg(layers, kinds, **fields):
+    out = []
+    for layer in layers:
+        subs = tuple(
+            dataclasses.replace(s, cfg=dataclasses.replace(s.cfg, **fields))
+            if s.kind in kinds else s
+            for s in layer.subs
+        )
+        out.append(dataclasses.replace(layer, subs=subs))
+    return tuple(out)
+
+
+def _swap_attention_impl(layers, impl):
+    return _map_sub_cfg(layers, ("attention",), impl=impl)
+
+
+def _serve_lm(args):
+    """Serve ``args.arch`` with random weights (seed 0) under the traffic
+    the arguments declare.  Returns (summary, engine)."""
+    device = resolve_device(args.device)
+    arch = get_arch(args.arch)
+    spec = arch.smoke_spec_fn() if args.smoke else arch.spec()
+    spec = dataclasses.replace(spec, layers=_swap_attention_impl(spec.layers, "pallas"))
+    generator = torch.Generator(device=device).manual_seed(0)
+    model = LM(spec).init(generator, dtype=torch.float32)
+
+    traffic = _traffic_from_args(args)
+    engine = ServingEngine(
+        model, max_batch=args.max_batch, queue_limit=args.queue_limit,
+        max_context=min(traffic.max_context + 1, spec.max_position),
+        tick_s=args.tick_ms / 1e3)
+    t0 = time.perf_counter()
+    summary = engine.run(traffic.requests())
+    wall = time.perf_counter() - t0
+    summary.update({
+        "mode": "lm", "arch": spec.name, "device": str(device),
+        "traffic": traffic.to_dict(),
+        "max_batch": args.max_batch, "queue_limit": args.queue_limit,
+        "wall_s": round(wall, 3),
+        "tok_per_s": round(summary["tokens_generated"] / max(wall, 1e-9), 1),
+        "prefill_ms": [round(s * 1e3, 3) for s in engine.prefill_s],
+        "decode_ms": [round(s * 1e3, 3) for s in engine.decode_s],
+        "sample": engine.completed[0]["tokens"][:8] if engine.completed else [],
+    })
+    return summary, engine
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+def _parse_mix(text: Optional[str]) -> Optional[Dict[int, float]]:
+    """``"8,16"`` -> equal weights; ``"8:0.75,16:0.25"`` -> weighted."""
+    if not text:
+        return None
+    mix: Dict[int, float] = {}
+    for part in text.split(","):
+        if ":" in part:
+            k, w = part.split(":", 1)
+            mix[int(k)] = float(w)
+        else:
+            mix[int(part)] = 1.0
+    return mix
+
+
+def _traffic_from_args(args) -> TrafficSpec:
+    raw: Dict[str, Any] = {
+        "seed": args.seed, "n_requests": args.requests or 8,
+        "arrival": args.arrival, "rate_rps": args.rate_rps,
+    }
+    if _parse_mix(args.prompt_lens):
+        raw["prompt_lens"] = _parse_mix(args.prompt_lens)
+    if _parse_mix(args.gen_lens):
+        raw["gen_lens"] = _parse_mix(args.gen_lens)
+    return TrafficSpec.from_raw(raw)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--arch", default=None,
+                   help="serve a named LM architecture (default: the "
+                        "qwen3-1.7b smoke config)")
+    p.add_argument("--smoke", action="store_true",
+                   help="reduced same-family config")
+    p.add_argument("--requests", type=int, default=0,
+                   help="number of requests (0 = traffic default)")
+    p.add_argument("--arrival", default="burst",
+                   choices=("burst", "uniform", "poisson"))
+    p.add_argument("--rate-rps", type=float, default=8.0)
+    p.add_argument("--prompt-lens", default="",
+                   help="prompt length mix, e.g. '8,16' or '8:0.75,16:0.25'")
+    p.add_argument("--gen-lens", default="",
+                   help="generation length mix, same syntax")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-batch", type=int, default=4)
+    p.add_argument("--queue-limit", type=int, default=8)
+    p.add_argument("--tick-ms", type=float, default=10.0,
+                   help="simulated admission clock per engine iteration")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where to serve (default cuda; there is no fallback)")
+    return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    args = build_parser().parse_args(argv)
+    if args.arch is None:
+        args.arch = "qwen3-1.7b"
+        args.smoke = True
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    try:
+        summary, _ = _serve_lm(args)
+    except NoCudaCardError as e:
+        raise SystemExit(f"serve: {e}") from None
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,226 @@
+"""LM executor: embedding -> layers -> final norm -> head, with batched
+prefill and per-slot decode against preallocated KV caches.
+
+Consecutive identical layers are grouped into *segments* as in the JAX
+package, so parameter names line up (``seg_0.<layer>.subs.<i>.norm`` /
+``.inner`` for the JAX tree's ``seg_0/sub_<i>/{norm,inner}`` stacked on
+a leading layers axis).  Each segment is an ``nn.ModuleList`` of layers
+run in a Python loop.
+
+``LM(spec)`` lays out a skeleton on the meta device; :meth:`LM.init`
+draws the weights on a generator's device, and
+:func:`repro_torch.convert.lm_from_jax` loads the JAX package's weights.
+
+The decode cache is a list with one ``{"k", "v"}`` dict per layer, each
+``(B, T, KH, D)``, updated in place by :meth:`LM.prefill` and
+:meth:`LM.decode`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models.specs import LayerSpec, ModelSpec, SubBlock
+from repro_torch.nn import attention as attn
+from repro_torch.nn import initializers as init
+from repro_torch.nn import mlp as mlp_mod
+from repro_torch.nn.norms import NORM_APPLY, NORM_INIT
+
+Cache = List[Dict[str, torch.Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    spec: LayerSpec
+    count: int
+    name: str
+
+
+def build_segments(layers: Tuple[LayerSpec, ...], prefix: str = "seg") -> Tuple[Segment, ...]:
+    segments = []
+    i = 0
+    while i < len(layers):
+        j = i
+        while j < len(layers) and layers[j] == layers[i]:
+            j += 1
+        segments.append(Segment(layers[i], j - i, f"{prefix}_{len(segments)}"))
+        i = j
+    return tuple(segments)
+
+
+# ---------------------------------------------------------------------------
+# sub-block dispatch
+# ---------------------------------------------------------------------------
+
+def _sub_init(sub: SubBlock, generator, dtype):
+    if sub.kind == "attention":
+        return attn.attention_init(sub.cfg, generator, dtype)
+    if sub.kind == "mlp":
+        return mlp_mod.mlp_init(sub.cfg, generator, dtype)
+    raise ValueError(sub.kind)
+
+
+def _sub_apply(sub: SubBlock, params, x, positions):
+    if sub.kind == "attention":
+        return attn.attention_apply(params, sub.cfg, x, positions=positions)
+    if sub.kind == "mlp":
+        return mlp_mod.mlp_apply(params, sub.cfg, x)
+    raise ValueError(sub.kind)
+
+
+def _sub_prefill(sub: SubBlock, params, x, cache, pos_offset):
+    if sub.kind == "attention":
+        return attn.attention_prefill(params, sub.cfg, x, cache, pos_offset)[0]
+    if sub.kind == "mlp":
+        return mlp_mod.mlp_apply(params, sub.cfg, x)
+    raise ValueError(sub.kind)
+
+
+def _sub_decode(sub: SubBlock, params, x, cache, pos):
+    if sub.kind == "attention":
+        return attn.attention_decode(params, sub.cfg, x, cache, pos)[0]
+    if sub.kind == "mlp":
+        return mlp_mod.mlp_apply(params, sub.cfg, x)
+    raise ValueError(sub.kind)
+
+
+def _frozen(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                             for k, v in tensors.items()})
+
+
+# ---------------------------------------------------------------------------
+# layer = sequence of pre-norm residual sub-blocks
+# ---------------------------------------------------------------------------
+
+class SubBlockModule(nn.Module):
+    def __init__(self, sub: SubBlock, norm: Dict[str, torch.Tensor],
+                 inner: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.sub = sub
+        self.norm = _frozen(norm)
+        self.inner = _frozen(inner)
+
+
+class Layer(nn.Module):
+    def __init__(self, spec: LayerSpec, norm: str, d_model: int, generator, dtype):
+        super().__init__()
+        attn_subs = [i for i, s in enumerate(spec.subs) if s.kind == "attention"]
+        if len(attn_subs) != 1:
+            raise NotImplementedError(
+                "the port's decode cache holds one attention KV per layer; "
+                f"this layer has {len(attn_subs)} attention sub-blocks")
+        self.norm_kind = norm
+        self.attention_cfg = spec.subs[attn_subs[0]].cfg
+        self.subs = nn.ModuleList([
+            SubBlockModule(sub, NORM_INIT[norm](d_model, generator, dtype),
+                           _sub_init(sub, generator, dtype))
+            for sub in spec.subs])
+
+    def _residual(self, h, run):
+        for blk in self.subs:
+            x = NORM_APPLY[self.norm_kind](blk.norm, h)
+            h = h + run(blk.sub, blk.inner, x)
+        return h
+
+    def forward(self, h, positions):
+        return self._residual(h, lambda sub, p, x: _sub_apply(sub, p, x, positions))
+
+    def prefill(self, h, cache, pos_offset):
+        return self._residual(
+            h, lambda sub, p, x: _sub_prefill(sub, p, x, cache, pos_offset))
+
+    def decode(self, h, cache, pos):
+        return self._residual(h, lambda sub, p, x: _sub_decode(sub, p, x, cache, pos))
+
+
+class LM(nn.Module):
+    def __init__(self, spec: ModelSpec):
+        super().__init__()
+        self.spec = spec
+        self.segments = build_segments(spec.layers)
+        self._build(None, torch.float32)
+
+    # -- init ---------------------------------------------------------------
+
+    def _build(self, generator: Optional[torch.Generator], dtype):
+        spec = self.spec
+        self.embed = nn.Parameter(
+            init.normal(generator, (spec.vocab, spec.d_model), dtype, stddev=0.02),
+            requires_grad=False)
+        if not spec.tie_embeddings:
+            self.head = nn.Parameter(
+                init.normal(generator, (spec.d_model, spec.vocab), dtype, stddev=0.02),
+                requires_grad=False)
+        self.final_norm = _frozen(NORM_INIT[spec.norm](spec.d_model, generator, dtype))
+        for seg in self.segments:
+            self.add_module(seg.name, nn.ModuleList([
+                Layer(seg.spec, spec.norm, spec.d_model, generator, dtype)
+                for _ in range(seg.count)]))
+
+    def init(self, generator: torch.Generator, dtype=torch.float32) -> "LM":
+        """Draw every weight on ``generator``'s device (the JAX package's
+        distributions: normal(0.02) embeddings, truncated-normal
+        fan_in^-1/2 matrices, unit norms).  Returns ``self``."""
+        self._build(generator, dtype)
+        return self
+
+    def layers(self) -> List[Layer]:
+        return [layer for seg in self.segments for layer in getattr(self, seg.name)]
+
+    # -- forward ------------------------------------------------------------
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed[tokens]
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
+        h = NORM_APPLY[self.spec.norm](self.final_norm, h)
+        return h @ (self.embed.T if self.spec.tie_embeddings else self.head)
+
+    def forward(self, tokens: torch.Tensor, positions=None) -> torch.Tensor:
+        """Full-sequence forward (the JAX package's ``LM.apply``).
+        tokens: (B, S) integer -> logits (B, S, vocab)."""
+        h = self._embed(tokens)
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        for layer in self.layers():
+            h = layer(h, positions)
+        return self._head(h)
+
+    # -- decode -------------------------------------------------------------
+
+    def init_cache(self, batch: int, max_seq: int, dtype=torch.float32) -> Cache:
+        """Zeroed KV caches on the model's device, one per layer."""
+        if max_seq > self.spec.max_position:
+            raise ValueError(f"max_seq {max_seq} exceeds max_position "
+                             f"{self.spec.max_position}")
+        return [attn.init_kv_cache(layer.attention_cfg, batch, max_seq, dtype,
+                                   device=self.embed.device)
+                for layer in self.layers()]
+
+    def prefill(self, cache: Cache, tokens: torch.Tensor, pos_offset: int = 0):
+        """Batched prefill: the whole prompt in one full-sequence forward
+        that also fills the decode caches.  tokens: (B, S) integer.
+
+        Returns (logits (B, S, vocab), cache); decoding continues from
+        ``pos = pos_offset + S`` with :meth:`decode`.
+        """
+        h = self._embed(tokens)
+        for layer, c in zip(self.layers(), cache, strict=True):
+            h = layer.prefill(h, c, pos_offset)
+        return self._head(h), cache
+
+    def decode(self, cache: Cache, tokens: torch.Tensor, pos):
+        """One-step decode.  tokens: (B, 1) integer; pos: an int, or an
+        integer tensor (B,) of per-sequence positions (continuous
+        batching: each serving slot decodes at its own depth).
+
+        Returns (logits (B, 1, vocab), cache).
+        """
+        h = self._embed(tokens)
+        for layer, c in zip(self.layers(), cache, strict=True):
+            h = layer.decode(h, c, pos)
+        return self._head(h), cache
