@@ -12,15 +12,24 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    from the checkout's sources;
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16, with the time of the kernel, of the plain version and of one
-   PyTorch library call computing the same function (CUDA events around
-   10 back-to-back calls, median of 20 such runs after 3 warm-ups);
+   PyTorch library call computing the same function where there is one
+   (CUDA events around 10 back-to-back calls, median of 20 such runs
+   after 3 warm-ups): flash attention, then the SSD scan;
 4. serve: ``python -m repro_torch.launch.serve --arch qwen3-1.7b`` in
    process, at full width with random weights: 8 requests must be served,
    the kernel launched once per layer per prefill, the plain version never;
 5. prefill logits of one served request through the kernel against the
    same prefill through the plain version; then device time by kernel
    (``torch.profiler``) over a prefill and over a decode step;
-6. a JSON line per kernel, the card's name and power limit, and the
+6. nas: the hardware-in-the-loop NAS loop (search space, translator,
+   ModelBuilder, estimators measured on the card, CriteriaRunner, Study)
+   over ssm and attention mixers at zamba2-2.7b's widths: 6 trials must
+   complete, every forward of a candidate must launch ``ssm_scan`` once
+   per ssm layer and ``flash_attention`` once per attention layer, the
+   plain versions never; the best candidate's output through the kernels
+   against its output through the plain versions; device time by kernel
+   over one forward of each candidate;
+7. a JSON line per kernel, the card's name and power limit, and the
    ``{"ok": true, ...}`` line last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -52,6 +61,7 @@ FLASH_CASES = [
     (4, 1024, 16, 8, 128, True, None),
     (1, 128, 4, 2, 16, True, 32),
     (1, 200, 4, 2, 16, False, None),
+    (1, 2048, 32, 32, 80, False, None),  # the NAS loop's attention: D=80, non-causal
 ]
 TOLERANCE = {
     "float32": 1e-4,   # order of summation only
@@ -63,6 +73,45 @@ SERVE_ARGS = ["--arch", "qwen3-1.7b", "--requests", "8", "--arrival", "burst",
               "--prompt-lens", "128,512", "--gen-lens", "16", "--max-batch", "4",
               "--queue-limit", "8", "--seed", "0", "--device", "cuda"]
 LOGITS_ATOL = 1e-3
+
+# (B, L, H, G, N, P, chunk); the last is the NAS loop's shape at
+# zamba2-2.7b's widths (d_model 2560, expand 2, d_head 64, d_state 64, one
+# group, chunk 128) at batch 4 and sequence 2048
+SSM_CASES = [
+    (1, 64, 4, 2, 8, 16, 8),
+    (2, 200, 4, 1, 16, 16, 100),
+    (2, 256, 8, 2, 16, 16, 64),
+    (1, 2048, 80, 1, 64, 64, 256),
+    (4, 2048, 80, 1, 64, 64, 128),
+]
+SSM_REPORTED_CASE = (4, 2048, 80, 1, 64, 64, 128)
+# tolerances relative to max |y| and max |state| of the plain version:
+# fp32 differs by the order of summation; in bf16 the plain version
+# rounds the decayed panel to bf16 before its product with x, the kernel
+# keeps it in fp32 (the state is fp32 on both sides)
+SSM_Y_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SSM_STATE_TOL = 1e-4
+SSM_NO_LIBRARY = "no single PyTorch call computes the SSD chunked scan"
+
+# the layered NAS loop at zamba2-2.7b's published widths (configs/
+# zamba2_2_7b.py in the JAX package): Mamba2 mixers of d_model 2560,
+# d_state 64, d_head 64, expand 2, and its shared attention's 32 heads of
+# d_head 80; sequence 2048, batch 4
+NAS_SPACE = {
+    "input": [2560, 2048],  # [channels, length]
+    "output": 6,
+    "sequence": [
+        {"block": "mixer", "op_candidates": ["ssm", "attention"],
+         "type_repeat": {"type": "vary_all", "depth": [1, 2]},
+         "ssm": {"impl": ["pallas"], "d_state": [64], "d_head": [64], "expand": [2]},
+         "attention": {"impl": ["pallas"], "heads": [32]}},
+        {"block": "pool", "op_candidates": "global_avg_pool"},
+        {"block": "head", "op_candidates": "linear", "linear": {"width": [64, 128]}},
+    ],
+}
+NAS_TRIALS = 6
+NAS_BATCH = 4
+NAS_REL_TOL = 1e-3  # best candidate, kernels vs plain versions, of max |output|
 
 
 def _smi() -> str:
@@ -117,6 +166,170 @@ def profile_window(torch, label, step, warmup=2, steps=3) -> None:
         "device_ms_per_step": busy_ms if rows else "not measured",
         "device_busy_share": busy_ms / wall_ms if rows else "not measured",
         "top_kernels_ms": [[name[:70], ms] for ms, name in rows[:8]]}))
+
+
+def _ssm_inputs(torch, gen, b, l, h, g, n, p, dtype):
+    """Inputs of the scan as a Mamba2 layer gives them: x, B and C are
+    views into one (B, L, H*P + 2*G*N) activation, read through their
+    strides; dt is a softplus of a normal; a = -linspace(1, 16), the
+    layer's decays at init."""
+    import torch.nn.functional as F
+
+    xbc = torch.randn(b, l, h * p + 2 * g * n, generator=gen, device="cuda").to(dtype)
+    x = xbc[..., :h * p].reshape(b, l, h, p)
+    bm = xbc[..., h * p:h * p + g * n].reshape(b, l, g, n)
+    cm = xbc[..., h * p + g * n:].reshape(b, l, g, n)
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda") - 1.0)
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    return x, dt, a, bm, cm
+
+
+def _ssm_work(b, l, h, g, n, p, q, esize):
+    """(operations, bytes) of one scan call.  Operations: for each (batch,
+    head) and chunk, the C B^T entries on or below the diagonal and their
+    product with x (q (q + 1) (N + P)), then C S and the state update
+    (4 q N P); the masked half of the panel is not work.  Bytes: x, B, C
+    and dt read once, y and the state written once."""
+    flops = b * h * (l // q) * (q * (q + 1) * (n + p) + 4 * q * n * p)
+    nbytes = esize * (2 * b * l * h * p + 2 * b * l * g * n) + 4 * (b * l * h + h + b * h * n * p)
+    return flops, nbytes
+
+
+def nas_phase(torch, ops, ref) -> dict:
+    """The layered NAS loop of ``examples/quickstart.py::hand_wired`` on the
+    card: ``NAS_SPACE`` -> sample_architecture -> ModelBuilder -> n_params
+    (hard, 2e8), latency_s (measured, batch 4, objective) and peak_bytes
+    (batch 4, soft, 16e9, weight 0.1) on target ``h100`` -> CriteriaRunner
+    -> Study with the random sampler at seed 0.  Raises unless every
+    trial completes, every forward ran each kernel once per layer of its
+    kind, and the plain versions never ran.  Returns the counts."""
+    from repro_torch.core.builder import ModelBuilder
+    from repro_torch.core.space import parse_search_space
+    from repro_torch.core.translate import sample_architecture
+    from repro_torch.evaluation.api import CriteriaRunner, OptimizationCriteria
+    from repro_torch.evaluation.cache import EvaluationCache
+    from repro_torch.evaluation.estimators import (
+        CompiledLatencyEstimator, CompiledMemoryEstimator, ParamCountEstimator)
+    from repro_torch.search.samplers import RandomSampler
+    from repro_torch.search.study import Study
+
+    kinds = {"ssm": "ssm_scan", "attention": "flash_attention"}
+    space = parse_search_space(NAS_SPACE)
+    builder = ModelBuilder(space.input_shape, space.output_dim)
+    cache = EvaluationCache()
+    runner = CriteriaRunner([
+        OptimizationCriteria(ParamCountEstimator(), kind="hard_constraint", limit=2e8),
+        OptimizationCriteria(CompiledLatencyEstimator("h100", batch=NAS_BATCH),
+                             kind="objective"),
+        OptimizationCriteria(CompiledMemoryEstimator("h100", batch=NAS_BATCH),
+                             kind="soft_constraint", limit=16e9, weight=0.1),
+    ], cache=cache)
+    models, rows = {}, []
+
+    def objective(trial):
+        arch = sample_architecture(space, trial)
+        model = builder.build(arch)
+        models.setdefault(arch.signature(), model)  # the one the cache keeps
+        forwards = [0]
+        model.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        value = runner.evaluate(model, trial=trial)
+        torch.cuda.synchronize()
+        layers = {kernel: sum(layer.op == op for layer in arch.layers)
+                  for op, kernel in kinds.items()}
+        rows.append({
+            "trial": trial.number, "signature": arch.signature(),
+            "value": value, "latency_s": trial.user_attrs["latency_s"],
+            "peak_bytes": trial.user_attrs["peak_bytes"],
+            "n_params": trial.user_attrs["n_params"], "wall_s": time.perf_counter() - t0,
+            "forwards": forwards[0],
+            "launches": {k: ops.LAUNCHES[k] - before.get(k, 0) for k in kinds.values()},
+            "expected": {k: layers[k] * forwards[0] for k in kinds.values()},
+        })
+        return value
+
+    plain_calls = []
+
+    def counted(fn):
+        def wrapper(*a, **kw):
+            plain_calls.append(fn.__name__)
+            return fn(*a, **kw)
+        return wrapper
+
+    study = Study(name="nas-h100", sampler=RandomSampler(seed=0))
+    ops.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with mock.patch.object(ref, "ssm_scan_ref", counted(ref.ssm_scan_ref)), \
+            mock.patch.object(ref, "flash_attention_ref", counted(ref.flash_attention_ref)):
+        study.optimize(objective, NAS_TRIALS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    best = study.best_trial
+    summary = {
+        "trials": rows, "completed": len(study.completed_trials), "wall_s": wall_s,
+        "launches": launches, "plain_calls": len(plain_calls),
+        "cache": cache.stats.as_dict(),
+        "best": {"trial": best.number, "signature": rows[best.number]["signature"],
+                 "value": best.value} if best else None,
+    }
+    print("nas " + json.dumps(summary))
+    if len(study.completed_trials) != NAS_TRIALS:
+        raise AssertionError(f"nas: {len(study.completed_trials)} of {NAS_TRIALS} "
+                             f"trials completed: {[t.state for t in study.trials]}")
+    for row in rows:
+        if row["launches"] != row["expected"]:
+            raise AssertionError(f"nas: trial {row['trial']} launched {row['launches']}, "
+                                 f"expected {row['expected']} (layers x forwards)")
+        if not all(0 < row[k] < float("inf") for k in ("latency_s", "peak_bytes")):
+            raise AssertionError(f"nas: trial {row['trial']}: latency or peak not "
+                                 f"finite and positive: {row}")
+    for kernel in kinds.values():
+        if sum(row["expected"][kernel] for row in rows) == 0 or launches.get(kernel, 0) != \
+                sum(row["expected"][kernel] for row in rows):
+            raise AssertionError(f"nas: {kernel} launched {launches.get(kernel, 0)} times "
+                                 f"over the loop: {rows}")
+    if plain_calls:
+        raise AssertionError(f"nas: the plain versions ran {len(plain_calls)} times")
+
+    # the best candidate: its kernels against its plain versions on one batch
+    model = models[summary["best"]["signature"]]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    c, l = space.input_shape
+    x = torch.randn(NAS_BATCH, l, c, generator=gen, device="cuda")
+
+    def plain_ssm(x_, dt, a, b, c_, *, chunk):
+        return ref.ssm_scan_ref(x_, dt, a, b, c_, chunk=chunk)
+
+    def plain_flash(q, k, v, *, causal, window, scale=None):
+        return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), causal=causal,
+                                       window=window, scale=scale).transpose(1, 2)
+
+    with torch.inference_mode():
+        kernel_out = model(x)
+        with mock.patch.object(ops, "ssm_scan", plain_ssm), \
+                mock.patch.object(ops, "flash_attention", plain_flash):
+            plain_out = model(x)
+        torch.cuda.synchronize()
+    err = (kernel_out - plain_out).abs().max().item()
+    tol = NAS_REL_TOL * plain_out.abs().max().item()
+    finite = bool(torch.isfinite(kernel_out).all())
+    print("nas_best " + json.dumps({
+        "signature": summary["best"]["signature"], "shape": list(kernel_out.shape),
+        "finite": finite, "max_abs_out": plain_out.abs().max().item(),
+        "max_abs_err": err, "tol": tol}))
+    if not finite or kernel_out.shape != (NAS_BATCH, space.output_dim) or err > tol:
+        raise AssertionError(f"nas best candidate: max |err| {err} > {tol}, "
+                             f"finite={finite}, shape {tuple(kernel_out.shape)}")
+
+    # where the time goes: one forward of each candidate
+    for signature, cand in models.items():
+        xb = torch.zeros(NAS_BATCH, l, c, device="cuda")
+        profile_window(torch, f"nas forward B={NAS_BATCH} {signature}",
+                       lambda: float(cand(xb).sum()))
+    return summary
 
 
 def main() -> int:
@@ -209,6 +422,44 @@ def main() -> int:
             kernel_rows[(case, dtype)] = row
             print("flash_attention " + json.dumps(row))
 
+    # -- 3b. the SSD scan against its plain version -------------------------
+    ssm_rows = {}
+    for dtype in ("float32", "bfloat16"):
+        dt_ = getattr(torch, dtype)
+        for case in SSM_CASES:
+            b, l, h, g, n, p, chunk = case
+            args = _ssm_inputs(torch, gen, b, l, h, g, n, p, dt_)
+            y, state = ops.ssm_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            want_y, want_state = ref.ssm_scan_ref(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            scale_y = want_y.float().abs().max().item()
+            scale_s = want_state.abs().max().item()
+            err = (y.float() - want_y.float()).abs().max().item()
+            err_s = (state - want_state).abs().max().item()
+            tol, tol_s = SSM_Y_TOL[dtype] * scale_y, SSM_STATE_TOL * scale_s
+            finite = bool(torch.isfinite(y.float()).all() and torch.isfinite(state).all())
+            if not (y.shape == args[0].shape and y.dtype == dt_ and state.dtype == torch.float32
+                    and finite and err <= tol and err_s <= tol_s):
+                raise AssertionError(
+                    f"ssm_scan {case} {dtype}: max |err| y {err} (tol {tol}), state "
+                    f"{err_s} (tol {tol_s}), finite={finite}, shape {tuple(y.shape)}")
+            flops, nbytes = _ssm_work(b, l, h, g, n, p, chunk, torch.tensor([], dtype=dt_).element_size())
+            t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / MEM_BYTES_PER_S
+            row = {
+                "case": {"B": b, "L": l, "H": h, "G": g, "N": n, "P": p, "chunk": chunk},
+                "dtype": dtype, "max_abs_err": err, "tol": tol,
+                "max_abs_err_state": err_s, "tol_state": tol_s,
+                "ms": _time_ms(torch, lambda: ops.ssm_scan(*args, chunk=chunk)),
+                "plain_ms": _time_ms(torch, lambda: ref.ssm_scan_ref(*args, chunk=chunk)),
+                "library_ms": None, "library": SSM_NO_LIBRARY,
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            }
+            ssm_rows[(case, dtype)] = row
+            print("ssm_scan " + json.dumps(row))
+            del args, y, state, want_y, want_state
+
     # -- 4. serve at full width -------------------------------------------
     args = serve.parse_args(SERVE_ARGS)
     plain_calls = []
@@ -281,17 +532,36 @@ def main() -> int:
     profile_window(torch, "decode B=4", lambda: int(
         model.decode(decode_cache, decode_tokens, decode_pos)[0].argmax()))
 
-    # -- 6. result ---------------------------------------------------------
+    # -- 6. the NAS loop at zamba2-2.7b's widths ---------------------------
+    del decode_cache, engine, model
+    torch.cuda.empty_cache()
+    nas = nas_phase(torch, ops, ref)
+
+    # -- 7. result ---------------------------------------------------------
     served = kernel_rows[(REPORTED_CASE, "float32")]
+    scan = ssm_rows[(SSM_REPORTED_CASE, "float32")]
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:89",
         "launches": launches.get("flash_attention", 0),
+        "launches_by_path": {"serve": launches.get("flash_attention", 0),
+                             "nas": nas["launches"].get("flash_attention", 0)},
         "max_abs_err": served["max_abs_err"], "ms": served["ms"],
         "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
         "bound_by": served["bound_by"], "library_ms": served["library_ms"],
         "shape": "B=1 S=T=512 H=16 KH=8 D=128 causal float32",
+    }, {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:76",
+        "launches": nas["launches"].get("ssm_scan", 0),
+        "launches_by_path": {"nas": nas["launches"].get("ssm_scan", 0)},
+        "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],
+        "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+        "bound_by": scan["bound_by"], "library_ms": None,
+        "library": SSM_NO_LIBRARY,
+        "shape": "B=4 L=2048 H=80 G=1 N=64 P=64 chunk=128 float32",
     }]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,9 @@
 """Weights and caches carried across from the JAX package.
 
+A NAS candidate's tree is ``{"layer_<i>": {leaf: array}}`` on both sides;
+the one leaf whose layout differs is a conv's ``w``, (K, C_in, C_out) in
+the JAX package and (C_out, C_in, K) in the port.
+
 The JAX ``LM`` keeps a segment's layers stacked on a leading ``layers``
 axis under ``params[seg]["sub_<i>"]["norm" | "inner"]``; the port keeps
 one module per layer (``<seg>.<layer>.subs.<i>.norm`` / ``.inner``).
@@ -15,11 +19,15 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.builder import BuiltModel
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import LM, Cache
 from repro_torch.models.specs import ModelSpec
 
 _SUB = re.compile(r"sub_(\d+)$")
+_LAYER = re.compile(r"layer_(\d+)$")
+# op -> {leaf: axes permutation from the JAX layout to the port's}
+_CANDIDATE_LAYOUT = {"conv1d": {"w": (2, 1, 0)}}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -49,6 +57,42 @@ def _port_keys(model: LM, path: Tuple[str, ...], arr: np.ndarray):
             for i in range(seg.count)]
 
 
+def _load_checked(model, state: Dict[str, np.ndarray], device, what: str):
+    """Load numpy ``state`` into ``model`` on ``device``; raises on any
+    missing or unexpected key and any wrong shape."""
+    expected = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    missing = sorted(set(expected) - set(state))
+    unexpected = sorted(set(state) - set(expected))
+    wrong = sorted(f"{k}: {state[k].shape} != {expected[k]}"
+                   for k in set(state) & set(expected)
+                   if tuple(state[k].shape) != expected[k])
+    if missing or unexpected or wrong:
+        raise ValueError(f"JAX params do not fit {what}: missing {missing}, "
+                         f"unexpected {unexpected}, wrong shapes {wrong}")
+    tensors = {k: torch.from_numpy(np.array(v)).to(device) for k, v in state.items()}
+    model.load_state_dict(tensors, strict=True, assign=True)
+    return model
+
+
+def candidate_from_jax(model: BuiltModel, params_np: Mapping[str, Any],
+                       device="cuda") -> BuiltModel:
+    """``model`` (built by the port's ``ModelBuilder`` from the same
+    architecture) with the JAX candidate's weights: ``params_np`` is the
+    JAX ``BuiltModel.init`` tree (after ``split``) with numpy leaves.
+    Raises on any missing or unexpected leaf and any wrong shape."""
+    device = resolve_device(device)
+    state: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(params_np):
+        m = _LAYER.match(path[0])
+        if m is not None and len(path) == 2 and int(m.group(1)) < len(model.layers):
+            op = model.layers[int(m.group(1))].name.split("(")[0]
+            perm = _CANDIDATE_LAYOUT.get(op, {}).get(path[1])
+            if perm is not None and arr.ndim == len(perm):
+                arr = arr.transpose(perm)
+        state[".".join(path)] = arr
+    return _load_checked(model, state, device, f"candidate {model.arch.signature()}")
+
+
 def lm_from_jax(spec: ModelSpec, params_np: Mapping[str, Any],
                 device="cuda") -> LM:
     """The port's :class:`LM` with the JAX package's weights.
@@ -58,22 +102,11 @@ def lm_from_jax(spec: ModelSpec, params_np: Mapping[str, Any],
     """
     device = resolve_device(device)
     model = LM(spec)
-    expected = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     state: Dict[str, np.ndarray] = {}
     for path, arr in _flatten(params_np):
         for key, leaf in _port_keys(model, path, arr):
             state[key] = leaf
-    missing = sorted(set(expected) - set(state))
-    unexpected = sorted(set(state) - set(expected))
-    wrong = sorted(f"{k}: {state[k].shape} != {expected[k]}"
-                   for k in set(state) & set(expected)
-                   if tuple(state[k].shape) != expected[k])
-    if missing or unexpected or wrong:
-        raise ValueError(f"JAX params do not fit {spec.name}: missing {missing}, "
-                         f"unexpected {unexpected}, wrong shapes {wrong}")
-    tensors = {k: torch.from_numpy(np.array(v)).to(device) for k, v in state.items()}
-    model.load_state_dict(tensors, strict=True, assign=True)
-    return model
+    return _load_checked(model, state, device, spec.name)
 
 
 def cache_from_jax(spec: ModelSpec, cache_np: Mapping[str, Any],

@@ -1,4 +1,4 @@
-"""Checked wrappers around the CUDA kernels.
+"""Checked wrappers around the CUDA kernels (flash attention, the SSD scan).
 
 A wrapper checks device, dtype, shape and layout, then:
 
@@ -97,3 +97,90 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+_SSM_MAX_NP = 128
+_SSM_DEFAULT_CHUNK = 128
+
+
+def _ssm_fn():
+    fn = build.load("ssm_scan").repro_ssm_scan_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b_grouped: torch.Tensor, c_grouped: torch.Tensor, *,
+             chunk: Optional[int] = None):
+    """Mamba2 SSD scan.  x: (B, L, H, P); dt: (B, L, H); a: (H,);
+    b/c: (B, L, G, N), group layout (head h reads group h // (H // G)).
+    Returns (y (B, L, H, P) in x's dtype, final state (B, H, N, P) fp32).
+
+    ``chunk`` must divide L.  Left as None it is the JAX package's default
+    schedule: 128, halved until it divides L.
+    """
+    if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b_grouped.dim() != 4:
+        raise ValueError(f"expected x (B,L,H,P), dt (B,L,H), a (H,), b/c (B,L,G,N); "
+                         f"got {tuple(x.shape)}, {tuple(dt.shape)}, {tuple(a.shape)}, "
+                         f"{tuple(b_grouped.shape)}")
+    bsz, l, h, p = x.shape
+    g, n = b_grouped.shape[2], b_grouped.shape[3]
+    if (tuple(dt.shape) != (bsz, l, h) or tuple(a.shape) != (h,)
+            or tuple(b_grouped.shape[:2]) != (bsz, l)
+            or c_grouped.shape != b_grouped.shape or g == 0 or h % g):
+        raise ValueError(f"shapes do not agree, or G does not divide H: x "
+                         f"{tuple(x.shape)}, dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
+                         f"b {tuple(b_grouped.shape)}, c {tuple(c_grouped.shape)}")
+    if chunk is None:
+        chunk = max(min(_SSM_DEFAULT_CHUNK, l), 1)
+        while l % chunk:
+            chunk //= 2
+    if chunk <= 0 or l % chunk:
+        raise ValueError(f"chunk {chunk} does not divide the sequence {l}")
+    tensors = (x, dt, a, b_grouped, c_grouped)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"devices differ: {[str(t.device) for t in tensors]}")
+    if not (x.dtype == b_grouped.dtype == c_grouped.dtype):
+        raise ValueError(f"x, b, c dtypes differ: {x.dtype}, {b_grouped.dtype}, "
+                         f"{c_grouped.dtype}")
+
+    if x.device.type == "cpu":
+        return ref.ssm_scan_ref(x, dt, a, b_grouped, c_grouped, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan runs on cuda or cpu, not {x.device}")
+
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"the CUDA kernel takes float32 or bfloat16, not {x.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError(f"the CUDA kernel takes dt and a in float32, not "
+                         f"{dt.dtype}, {a.dtype}")
+    if n > _SSM_MAX_NP or p > _SSM_MAX_NP:
+        raise ValueError(f"the CUDA kernel takes N and P up to {_SSM_MAX_NP}, "
+                         f"not N={n}, P={p}")
+    for name, t in (("x", x), ("b", b_grouped), ("c", c_grouped)):
+        if t.stride(3) != 1 and t.shape[3] > 1:
+            raise ValueError(f"{name}'s last dim must be contiguous (stride {t.stride(3)})")
+    a = a.contiguous()
+    y = torch.empty((bsz, l, h, p), dtype=x.dtype, device=x.device)
+    state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    if bsz == 0:
+        return y, state
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _ssm_fn()(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_grouped.data_ptr(),
+            c_grouped.data_ptr(), y.data_ptr(), state.data_ptr(), _DTYPES[x.dtype],
+            bsz, l, h, g, n, p, chunk,
+            x.stride(0), x.stride(1), x.stride(2),
+            dt.stride(0), dt.stride(1), dt.stride(2),
+            b_grouped.stride(0), b_grouped.stride(1), b_grouped.stride(2),
+            c_grouped.stride(0), c_grouped.stride(1), c_grouped.stride(2), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"ssm_scan kernel launch failed: CUDA error {err} (1 is an invalid "
+            f"value: the kernel also refuses a chunk whose tiles do not fit one "
+            f"block's shared memory, which at N=P=128 is a chunk above 6144)")
+    LAUNCHES["ssm_scan"] += 1
+    return y, state

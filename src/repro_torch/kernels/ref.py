@@ -8,6 +8,7 @@ The CPU tests use them, and on a CPU tensor the wrappers in
 from __future__ import annotations
 
 from repro_torch.nn.attention import grouped_attention, make_mask
+from repro_torch.nn.ssm import ssd_chunked
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
@@ -18,3 +19,9 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
     out = grouped_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), mask, scale)
     return out.transpose(1, 2)
+
+
+def ssm_scan_ref(x, dt, a, b_mat, c_mat, *, chunk=128):
+    """x: (B, L, H, P); dt: (B, L, H); a: (H,); b/c: (B, L, G, N), G
+    dividing H -> (y (B, L, H, P), final state (B, H, N, P) fp32)."""
+    return ssd_chunked(x, dt, a, b_mat, c_mat, chunk)

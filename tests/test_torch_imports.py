@@ -33,3 +33,27 @@ def test_no_jax_or_repro_imports(path):
 
 def test_scan_covers_the_package():
     assert len(FILES) > 15 and (ROOT / "chip_smoke.py").is_file()
+
+
+def test_nas_loop_imports_without_pyyaml():
+    """The machine with the card has no PyYAML: the modules the chip
+    smoke's NAS loop runs import, and parse a dict space, with ``yaml``
+    blocked."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.modules['yaml'] = None\n"
+        "import repro_torch.core.translate, repro_torch.core.builder\n"
+        "import repro_torch.evaluation.estimators, repro_torch.search.study\n"
+        "from repro_torch.core.space import parse_search_space\n"
+        "space = parse_search_space({'input': [2, 8], 'output': 2, 'sequence': "
+        "[{'block': 'head', 'op_candidates': 'linear'}]})\n"
+        "assert 'yaml' not in [m for m, v in sys.modules.items() if v is not None]\n"
+        "print(len(space.blocks))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "1"

@@ -128,3 +128,160 @@ def test_cuda_kernel_matches_plain_version(b, s, h, kh, d, causal, window, dtype
                                    causal=causal, window=window).transpose(1, 2)
     assert out.dtype == dt and out.shape == q.shape
     assert (out.float() - want.float()).abs().max().item() <= atol
+
+
+# -- the SSD scan --------------------------------------------------------------
+
+def _ssm_inputs(seed, b, l, h, g, n, p):
+    """Step sizes and decays of a Mamba2 layer at init: dt softplus of a
+    small normal, a = -linspace(1, 16) (decays down to exp(-16 dt))."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, l, h)) - 1.0)).astype(np.float32)
+    a = -np.linspace(1.0, 16.0, h).astype(np.float32)
+    bm = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    cm = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    return x, dt, a, bm, cm
+
+
+def _rel_err(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+# (L, G, chunk): chunk 8 is the schedule's least, 100 the decrement-chosen
+# chunk of L=200, 64 a power of two below L
+SSM_CASES = [(64, 1, 8), (64, 2, 8), (200, 1, 100), (200, 2, 100), (128, 1, 64),
+             (128, 2, 64)]
+
+
+@pytest.mark.parametrize("l, g, chunk", SSM_CASES)
+def test_ssm_scan_matches_jax(l, g, chunk):
+    """fp32: y and the final state against the JAX wrapper (Pallas kernel in
+    interpret mode) and the JAX plain version, to 1e-5 of max |y| and of
+    max |state| (the sums are taken in another order)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+
+    b, h, n, p = 2, 4, 8, 16
+    args = _ssm_inputs(l + g, b, l, h, g, n, p)
+    jargs = [jnp.asarray(v) for v in args]
+    want_y, want_s = jops.ssm_scan(*jargs, chunk=chunk)
+    ref_y, ref_s = jax.jit(jref.ssm_scan_ref, static_argnames=("chunk",))(*jargs, chunk=chunk)
+    targs = [torch.from_numpy(v) for v in args]
+    got_y, got_s = ops.ssm_scan(*targs, chunk=chunk)
+    plain_y, plain_s = ref.ssm_scan_ref(*targs, chunk=chunk)
+    assert got_y.shape == (b, l, h, p) and got_s.shape == (b, h, n, p)
+    assert got_y.dtype == torch.float32 and got_s.dtype == torch.float32
+    for got, want in ((got_y, want_y), (got_s, want_s), (plain_y, ref_y), (plain_s, ref_s)):
+        assert _rel_err(got.numpy(), want) < 1e-5
+
+
+def test_ssm_scan_bf16_matches_jax():
+    """bf16 x, B, C: y in bf16 to 2e-2 of max |y| (each side rounds the
+    panel to bf16 before the product with x, at other places); the state is
+    summed in fp32 on both sides, to 1e-5 of its max."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+
+    x, dt, a, bm, cm = _ssm_inputs(7, 2, 64, 4, 2, 8, 16)
+    jx, jb, jc = (jnp.asarray(v).astype(jnp.bfloat16) for v in (x, bm, cm))
+    want_y, want_s = jops.ssm_scan(jx, jnp.asarray(dt), jnp.asarray(a), jb, jc, chunk=16)
+    tx, tb, tc = (torch.from_numpy(v).to(torch.bfloat16) for v in (x, bm, cm))
+    got_y, got_s = ops.ssm_scan(tx, torch.from_numpy(dt), torch.from_numpy(a), tb, tc,
+                                chunk=16)
+    assert got_y.dtype == torch.bfloat16 and got_s.dtype == torch.float32
+    assert _rel_err(got_y.float().numpy(), np.asarray(want_y.astype(jnp.float32))) < 2e-2
+    assert _rel_err(got_s.numpy(), want_s) < 1e-5
+
+
+def test_ssm_scan_default_chunk_is_the_jax_default():
+    """chunk=None: 128 halved until it divides L (8 at L=200)."""
+    args = [torch.from_numpy(v) for v in _ssm_inputs(3, 1, 200, 2, 1, 8, 8)]
+    y_none, s_none = ops.ssm_scan(*args)
+    y_8, s_8 = ref.ssm_scan_ref(*args, chunk=8)
+    assert torch.equal(y_none, y_8) and torch.equal(s_none, s_8)
+
+
+def test_ssm_scan_cpu_call_does_not_count_as_a_launch():
+    before = ops.LAUNCHES["ssm_scan"]
+    ops.ssm_scan(*[torch.from_numpy(v) for v in _ssm_inputs(0, 1, 16, 2, 1, 4, 4)], chunk=8)
+    assert ops.LAUNCHES["ssm_scan"] == before
+
+
+@pytest.mark.parametrize("bad, message", [
+    (dict(chunk=24), "does not divide"),
+    (dict(g=3), "G does not divide H"),
+    (dict(c_dtype=torch.float64), "dtypes differ"),
+])
+def test_ssm_scan_rejects_bad_inputs(bad, message):
+    g = bad.get("g", 2)
+    x, dt, a = torch.zeros(1, 64, 4, 8), torch.zeros(1, 64, 4), torch.zeros(4)
+    bm = torch.zeros(1, 64, g, 8)
+    cm = torch.zeros(1, 64, g, 8, dtype=bad.get("c_dtype", torch.float32))
+    with pytest.raises(ValueError, match=message):
+        ops.ssm_scan(x, dt, a, bm, cm, chunk=bad.get("chunk", 16))
+
+
+# (B, L, H, G, N, P, chunk) — the chip smoke's cases: the served NAS shape is
+# the last; chunk 256 tiles the (Q, Q) panel
+SSM_CUDA_CASES = [
+    (1, 64, 4, 2, 8, 16, 8),
+    (2, 200, 4, 1, 16, 16, 100),
+    (2, 256, 8, 2, 16, 16, 64),
+    (1, 2048, 80, 1, 64, 64, 256),
+    (4, 2048, 80, 1, 64, 64, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, y_tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("b, l, h, g, n, p, chunk", SSM_CUDA_CASES)
+def test_ssm_scan_cuda_kernel_matches_plain_version(b, l, h, g, n, p, chunk, dtype, y_tol):
+    """y to ``y_tol`` of max |y|, the fp32 state to 1e-4 of its max."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt_ = getattr(torch, dtype)
+    x, dt, a, bm, cm = (torch.from_numpy(v).cuda() for v in _ssm_inputs(l, b, l, h, g, n, p))
+    x, bm, cm = x.to(dt_), bm.to(dt_), cm.to(dt_)
+    before = ops.LAUNCHES["ssm_scan"]
+    y, s = ops.ssm_scan(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssm_scan"] == before + 1
+    want_y, want_s = ref.ssm_scan_ref(x, dt, a, bm, cm, chunk=chunk)
+    assert y.dtype == dt_ and y.shape == x.shape and s.dtype == torch.float32
+    assert _rel_err(y.float().cpu().numpy(), want_y.float().cpu().numpy()) <= y_tol
+    assert _rel_err(s.cpu().numpy(), want_s.cpu().numpy()) <= 1e-4
+
+
+def _recurrence_fp64(x, dt, a, bm, cm):
+    """The scan as its definition, one step at a time, in float64:
+    S_t = exp(dt_t a) S_{t-1} + dt_t B_t^T x_t,  y_t = C_t S_t."""
+    rep = x.shape[2] // bm.shape[2]
+    x, dt, a = x.astype(np.float64), dt.astype(np.float64), a.astype(np.float64)
+    bh = np.repeat(bm, rep, axis=2).astype(np.float64)
+    ch = np.repeat(cm, rep, axis=2).astype(np.float64)
+    state = np.zeros((x.shape[0], x.shape[2], bm.shape[3], x.shape[3]))
+    ys = []
+    for t in range(x.shape[1]):
+        state = (np.exp(dt[:, t] * a)[:, :, None, None] * state
+                 + (dt[:, t, :, None] * bh[:, t])[..., None] * x[:, t, :, None, :])
+        ys.append(np.einsum("bhn,bhnp->bhp", ch[:, t], state))
+    return np.stack(ys, 1), state
+
+
+@pytest.mark.parametrize("chunk", [8, 128, 256])
+def test_ssm_scan_plain_version_matches_the_recurrence(chunk):
+    """The chunked formulation in fp32 against the step-by-step recurrence
+    in float64, to 3e-5 of max |y| and of max |state| up to chunk 256.  The
+    error grows with the chunk: |cumsum(dt * a)| grows with it, and so does
+    the fp32 rounding of the decays taken from it."""
+    args = _ssm_inputs(11, 2, 256, 4, 2, 8, 16)
+    want_y, want_s = _recurrence_fp64(*args)
+    got_y, got_s = ops.ssm_scan(*[torch.from_numpy(v) for v in args], chunk=chunk)
+    assert _rel_err(got_y.numpy(), want_y) < 3e-5
+    assert _rel_err(got_s.numpy(), want_s) < 3e-5
