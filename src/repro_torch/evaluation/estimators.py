@@ -5,8 +5,8 @@
   * CompiledLatencyEstimator — hardware-in-the-loop: places the candidate
     on the target's device through the generator and returns its measured
     forward time (``metric="measured"``)
-  * CompiledMemoryEstimator — peak device memory of one forward, from the
-    CUDA allocator
+  * CompiledMemoryEstimator — the candidate's own peak device memory in
+    one forward, from the CUDA allocator
 
 The names are the JAX package's, so one experiment names the same
 estimators in both.  The roofline-modelled latency (``metric="modelled"``)
@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.builder import BuiltModel
+from repro_torch.device import resolve_device
 from repro_torch.evaluation.api import Estimator
 from repro_torch.evaluation.cache import EvaluationCache
 from repro_torch.explorer.registry import ESTIMATORS
@@ -87,15 +88,18 @@ class _CompiledEstimator(Estimator):
                 EvaluationCache.candidate_key(candidate))
 
     def _artifact(self, candidate: BuiltModel):
-        """The candidate with weights drawn from seed 0 on the target's
-        device, run once on a zero batch of ``self.batch`` examples."""
+        """The candidate with weights drawn from seed 0, run once on the
+        target's device on a zero batch of ``self.batch`` examples.  The
+        weights are drawn on the device (far faster than on the host) but
+        kept on the host with the batch: the generator places both on the
+        device for each run and counts them in the candidate's peak."""
 
         def produce():
-            device = self.generator.target.device
+            device = resolve_device(self.generator.target.device)
             l, c = candidate.input_shape[-1], candidate.input_shape[0]
             gen = torch.Generator(device=device).manual_seed(0)
-            model = candidate.init(gen, device)
-            x = torch.zeros((self.batch, l, c), dtype=torch.float32, device=device)
+            model = candidate.init(gen, device).to("cpu")
+            x = torch.zeros((self.batch, l, c), dtype=torch.float32)
             return self.generator.generate(model, (x,))
 
         return self.cache.get_or_compute(self._program_key("artifact", candidate),
@@ -136,8 +140,9 @@ class CompiledLatencyEstimator(_CompiledEstimator):
 
 @ESTIMATORS.register("peak_bytes")
 class CompiledMemoryEstimator(_CompiledEstimator):
-    """Peak bytes the CUDA allocator held during one forward (weights,
-    inputs and activations).  A CPU target keeps no such statistics."""
+    """Peak bytes the CUDA allocator held for one forward of the candidate
+    (its weights, inputs, activations and output), whatever else the card
+    holds.  A CPU target keeps no such statistics."""
 
     name = "peak_bytes"
 

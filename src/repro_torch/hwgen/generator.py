@@ -5,7 +5,10 @@ port runs eagerly: the kernels are ``ctypes`` calls into the CUDA
 libraries of :mod:`repro_torch.kernels`, which ``torch.compile`` cannot
 trace.  So generating an artifact here means placing the candidate and
 its inputs on the target's device and running one forward, which also
-gives the peak device memory of that forward.
+gives the candidate's peak device memory.  Between runs an artifact lives
+on the host: an evaluation cache full of artifacts holds no device
+memory, and what one candidate leaves on the card cannot show up in the
+next one's peak.
 
 Two usage modes, mirroring the paper:
   1. deploy-best: generate once for the final architecture;
@@ -17,6 +20,7 @@ the card, with the host clock on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -31,8 +35,9 @@ from repro_torch.hwgen.targets import TargetSpec, get_target
 
 @dataclasses.dataclass
 class Artifact:
-    """A candidate placed on its target's device, with the inputs it was
-    run on and what that run used."""
+    """A candidate for a target, with the inputs it was run on and what
+    that run used.  ``fn`` and ``example_args`` stay on the host; a run
+    places them on the target's device and takes them off again."""
 
     target: TargetSpec
     fn: Callable
@@ -57,8 +62,26 @@ def measurement_gate() -> threading.Lock:
     return _gate_lock
 
 
-def _move(arg, device):
-    return arg.to(device) if isinstance(arg, (torch.nn.Module, torch.Tensor)) else arg
+@contextlib.contextmanager
+def _placed(fn: Callable, example_args: Tuple, device: torch.device):
+    """Yield copies of ``example_args``' tensors on ``device``, with ``fn``
+    (a module is moved in place) there too; on exit ``fn`` goes back to
+    the host.  The caller drops the yielded copies."""
+    module = isinstance(fn, torch.nn.Module)
+    if module:
+        params = list(fn.parameters())
+        before = [p.data for p in params]
+        fn.to(device)
+    try:
+        yield tuple(a.to(device) if isinstance(a, torch.Tensor) else a
+                    for a in example_args)
+    finally:
+        if module:
+            # an inference forward leaves the weights as they were: take
+            # back the tensors they had rather than copy them off the card
+            for p, data in zip(params, before):
+                p.data = data
+            fn.to("cpu")
 
 
 class TorchGenerator:
@@ -69,24 +92,38 @@ class TorchGenerator:
 
     def generate(self, fn: Callable, example_args: Tuple) -> Artifact:
         """Place ``fn`` (a module, or a plain function) and the tensors of
-        ``example_args`` on the target's device and run ``fn`` once under
-        ``inference_mode``.  On CUDA the artifact records the peak memory
-        the allocator saw during that forward."""
+        ``example_args`` on the target's device, run ``fn`` once under
+        ``inference_mode``, and take them off the device again.
+
+        On CUDA the artifact records the candidate's own peak: the most
+        the allocator held from placement to the end of the forward, less
+        what it still holds once the candidate is off the card (what other
+        code keeps there, and library workspaces made on first use).  So
+        it counts the weights, inputs, activations and output of this
+        candidate, whatever the card held before and in whatever order
+        candidates come.  ``fn`` ends on the host even if it was given
+        on the device."""
         faults.fault_point("compile", key=self.target.name)
         device = resolve_device(self.target.device)
-        fn = _move(fn, device)
-        args = tuple(_move(a, device) for a in example_args)
+        cuda = device.type == "cuda"
+        example_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                             for a in example_args)
         memory: Dict[str, int] = {}
-        with measurement_gate(), torch.inference_mode():
-            if device.type == "cuda":
+        with measurement_gate():
+            if cuda:
                 torch.cuda.synchronize(device)
                 torch.cuda.reset_peak_memory_stats(device)
-            fn(*args)
-            if device.type == "cuda":
+            with _placed(fn, example_args, device) as args:
+                with torch.inference_mode():
+                    fn(*args)
+                del args
+            if cuda:
                 torch.cuda.synchronize(device)
                 memory["peak_bytes_per_device"] = int(
-                    torch.cuda.max_memory_allocated(device))
-        return Artifact(target=self.target, fn=fn, example_args=args, memory=memory)
+                    torch.cuda.max_memory_allocated(device)
+                    - torch.cuda.memory_allocated(device))
+        return Artifact(target=self.target, fn=fn, example_args=example_args,
+                        memory=memory)
 
 
 class HardwareManager:
@@ -108,8 +145,9 @@ class HardwareManager:
                 f"on their device only (roofline targets come with "
                 f"metric: modelled, ROADMAP.md Queue 1 item 3)")
         device = resolve_device(artifact.target.device)
-        fn, args = artifact.fn, artifact.example_args
-        with measurement_gate(), torch.inference_mode():
+        fn = artifact.fn
+        with measurement_gate(), _placed(fn, artifact.example_args, device) as args, \
+                torch.inference_mode():
             for _ in range(self.warmup):
                 fn(*args)
             if device.type == "cuda":

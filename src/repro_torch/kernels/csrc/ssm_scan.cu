@@ -28,7 +28,7 @@
 // Work split.  256 threads as a 16 x 16 grid (ty, tx), two blocks an SM
 // (at most 128 registers a thread).  For y a thread owns rows ty + 16 r
 // (r < 4) of the current 64-row tile and the columns 4 tx .. 4 tx + 3 of
-// each 64-wide group of P; its accumulators stay in registers across the
+// P (at most 64, zero-padded to 64); its accumulators stay in registers across the
 // inter-chunk product and every column tile.  For the panel it owns the
 // entries (ty + 16 r, tx + 16 c); for the state the rows 4 ty .. 4 ty + 3
 // of each 64-row group of N and the same columns as for y.  Every product
@@ -61,7 +61,9 @@ constexpr int THREADS = 256;  // a 16 x 16 grid
 constexpr int TILE = 64;      // rows of y per tile, panel columns per tile
 constexpr int RPT = TILE / 16;
 constexpr int PANEL_LD = TILE + 4;
-constexpr int MAX_NP = 128;
+constexpr int MAX_N = 128;
+constexpr int MAX_P = 64;
+constexpr int PW = 64;        // P padded: the row of the state and of the X tile
 constexpr int MAX_SMEM = 232448;  // what one block may use on sm_90
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -98,18 +100,16 @@ struct Params {
 };
 
 // Shared-memory layout, in floats.  nw: N rounded up to 64 (the state's
-// rows); ldn = nw + 4: the row of the C and B tiles; pw = 64 CG: the row
-// of the state and of the X tile; q4: Q rounded up to 4.
+// rows); ldn = nw + 4: the row of the C and B tiles; PW: the row of the
+// state and of the X tile; q4: Q rounded up to 4.
 struct Layout {
-  int nw, ldn, pw, q4;
-  __host__ __device__ Layout(int N, int Q, int cg)
-      : nw((N + 63) / 64 * 64), ldn((N + 63) / 64 * 64 + 4), pw(64 * cg), q4((Q + 3) / 4 * 4) {}
+  int nw, ldn, q4;
+  __host__ __device__ Layout(int N, int Q)
+      : nw((N + 63) / 64 * 64), ldn((N + 63) / 64 * 64 + 4), q4((Q + 3) / 4 * 4) {}
   __host__ __device__ int floats() const {
-    return nw * pw + 2 * q4 + 2 * TILE * ldn + TILE * pw + TILE * PANEL_LD;
+    return nw * PW + 2 * q4 + 2 * TILE * ldn + TILE * PW + TILE * PANEL_LD;
   }
 };
-
-int col_groups(int P) { return P <= 64 ? 1 : 2; }
 
 // Rows [row0, row0 + rows) of a (L, K) operand into a TILE x width fp32
 // tile with rows of ld floats, scaled by w[r] when w is given; entries
@@ -152,20 +152,20 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, int width, const T
   }
 }
 
-template <typename T, int CG>
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2) ssm_scan_fwd(const Params p) {
   extern __shared__ __align__(16) float smem[];
   const int N = p.N, P = p.P, Q = p.Q;
-  const Layout lay(N, Q, CG);
-  const int ldn = lay.ldn, pw = lay.pw;
+  const Layout lay(N, Q);
+  const int ldn = lay.ldn;
   const int n4 = (N + 3) & ~3;
-  float* S = smem;                 // (nw, pw) state
-  float* cs = S + lay.nw * pw;     // (Q,) inclusive cumsum of dt * a
+  float* S = smem;                 // (nw, PW) state
+  float* cs = S + lay.nw * PW;     // (Q,) inclusive cumsum of dt * a
   float* dts = cs + lay.q4;        // (Q,) dt, then exp(cs_Q - cs_j) dt_j
   float* Ct = dts + lay.q4;        // (TILE, ldn)
   float* Bt = Ct + TILE * ldn;     // (TILE, ldn): B for the panel, dt-weighted B for S
-  float* Xt = Bt + TILE * ldn;     // (TILE, pw)
-  float* panel = Xt + TILE * pw;   // (TILE, PANEL_LD)
+  float* Xt = Bt + TILE * ldn;     // (TILE, PW)
+  float* panel = Xt + TILE * PW;   // (TILE, PANEL_LD)
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4;
@@ -181,7 +181,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_fwd(const Params p) {
   const long long y_sl = (long long)p.H * P;
   T* yp = static_cast<T*>(p.y) + (long long)b * p.L * y_sl + (long long)h * P;
 
-  for (int e = tid; e < lay.nw * pw; e += THREADS) S[e] = 0.f;
+  for (int e = tid; e < lay.nw * PW; e += THREADS) S[e] = 0.f;
 
   for (int l0 = 0; l0 < p.L; l0 += Q) {
     __syncthreads();  // S is zeroed, or the last chunk's update is done
@@ -214,28 +214,25 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_fwd(const Params p) {
       __syncthreads();
 
       // inter-chunk: acc = exp(cs_i) (C_i S)
-      float acc[RPT][4 * CG];
+      float acc[RPT][4];
 #pragma unroll
       for (int r = 0; r < RPT; ++r)
 #pragma unroll
-        for (int c = 0; c < 4 * CG; ++c) acc[r][c] = 0.f;
+        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
       for (int n = 0; n < n4; n += 4) {
         float4 cv[RPT];
 #pragma unroll
         for (int r = 0; r < RPT; ++r) cv[r] = load4(Ct + (ty + 16 * r) * ldn + n);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
+          const float4 sv = load4(S + (n + k) * PW + 4 * tx);
 #pragma unroll
-          for (int gi = 0; gi < CG; ++gi) {
-            const float4 sv = load4(S + (n + k) * pw + 64 * gi + 4 * tx);
-#pragma unroll
-            for (int r = 0; r < RPT; ++r) {
-              const float c_ = get(cv[r], k);
-              acc[r][4 * gi + 0] += c_ * sv.x;
-              acc[r][4 * gi + 1] += c_ * sv.y;
-              acc[r][4 * gi + 2] += c_ * sv.z;
-              acc[r][4 * gi + 3] += c_ * sv.w;
-            }
+          for (int r = 0; r < RPT; ++r) {
+            const float c_ = get(cv[r], k);
+            acc[r][0] += c_ * sv.x;
+            acc[r][1] += c_ * sv.y;
+            acc[r][2] += c_ * sv.z;
+            acc[r][3] += c_ * sv.w;
           }
         }
       }
@@ -244,14 +241,14 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_fwd(const Params p) {
         const int i = i0 + ty + 16 * r;
         const float e = i < Q ? expf(cs[i]) : 0.f;
 #pragma unroll
-        for (int c = 0; c < 4 * CG; ++c) acc[r][c] *= e;
+        for (int c = 0; c < 4; ++c) acc[r][c] *= e;
       }
 
       // intra-chunk: the column tiles on or below the diagonal
       for (int j0 = 0; j0 <= i0; j0 += TILE) {
         const int tj = min(TILE, Q - j0);
         load_tile(Bt, ldn, n4, bp, p.b_sl, l0 + j0, tj, N, nullptr);
-        load_tile(Xt, pw, pw, xp, p.x_sl, l0 + j0, tj, P, nullptr);
+        load_tile(Xt, PW, PW, xp, p.x_sl, l0 + j0, tj, P, nullptr);
         __syncthreads();
 
         float d[RPT][4];
@@ -292,17 +289,14 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_fwd(const Params p) {
           for (int r = 0; r < RPT; ++r) pv[r] = load4(panel + (ty + 16 * r) * PANEL_LD + j);
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
+            const float4 xv = load4(Xt + (j + k) * PW + 4 * tx);
 #pragma unroll
-            for (int gi = 0; gi < CG; ++gi) {
-              const float4 xv = load4(Xt + (j + k) * pw + 64 * gi + 4 * tx);
-#pragma unroll
-              for (int r = 0; r < RPT; ++r) {
-                const float p_ = get(pv[r], k);
-                acc[r][4 * gi + 0] += p_ * xv.x;
-                acc[r][4 * gi + 1] += p_ * xv.y;
-                acc[r][4 * gi + 2] += p_ * xv.z;
-                acc[r][4 * gi + 3] += p_ * xv.w;
-              }
+            for (int r = 0; r < RPT; ++r) {
+              const float p_ = get(pv[r], k);
+              acc[r][0] += p_ * xv.x;
+              acc[r][1] += p_ * xv.y;
+              acc[r][2] += p_ * xv.z;
+              acc[r][3] += p_ * xv.w;
             }
           }
         }
@@ -315,9 +309,8 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_fwd(const Params p) {
         if (i < Q) {
           T* row = yp + (long long)(l0 + i) * y_sl;
 #pragma unroll
-          for (int c = 0; c < 4 * CG; ++c) {
-            const int col = 64 * (c / 4) + 4 * tx + (c % 4);
-            if (col < P) store(row + col, acc[r][c]);
+          for (int c = 0; c < 4; ++c) {
+            if (4 * tx + c < P) store(row + 4 * tx + c, acc[r][c]);
           }
         }
       }
@@ -329,36 +322,31 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_fwd(const Params p) {
     for (int j = tid; j < Q; j += THREADS) dts[j] *= expf(total - cs[j]);
     const float decay = expf(total);
     for (int n0 = 0; n0 < lay.nw; n0 += 64) {  // a thread owns rows n0 + 4 ty + r
-      float s[4][4 * CG];
+      float s[4][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int gi = 0; gi < CG; ++gi) {
-          const float4 sv = load4(S + (n0 + 4 * ty + r) * pw + 64 * gi + 4 * tx);
-          s[r][4 * gi + 0] = decay * sv.x;
-          s[r][4 * gi + 1] = decay * sv.y;
-          s[r][4 * gi + 2] = decay * sv.z;
-          s[r][4 * gi + 3] = decay * sv.w;
-        }
+      for (int r = 0; r < 4; ++r) {
+        const float4 sv = load4(S + (n0 + 4 * ty + r) * PW + 4 * tx);
+        s[r][0] = decay * sv.x;
+        s[r][1] = decay * sv.y;
+        s[r][2] = decay * sv.z;
+        s[r][3] = decay * sv.w;
+      }
       for (int j0 = 0; j0 < Q; j0 += TILE) {
         const int tj = min(TILE, Q - j0);
         __syncthreads();  // dts is scaled; the last tile's reads are done
         load_tile(Bt, ldn, lay.nw, bp, p.b_sl, l0 + j0, tj, N, dts + j0);
-        load_tile(Xt, pw, pw, xp, p.x_sl, l0 + j0, tj, P, nullptr);
+        load_tile(Xt, PW, PW, xp, p.x_sl, l0 + j0, tj, P, nullptr);
         __syncthreads();
         for (int j = 0; j < tj; ++j) {
           const float4 wv = load4(Bt + j * ldn + n0 + 4 * ty);
+          const float4 xv = load4(Xt + j * PW + 4 * tx);
 #pragma unroll
-          for (int gi = 0; gi < CG; ++gi) {
-            const float4 xv = load4(Xt + j * pw + 64 * gi + 4 * tx);
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const float w_ = get(wv, r);
-              s[r][4 * gi + 0] += w_ * xv.x;
-              s[r][4 * gi + 1] += w_ * xv.y;
-              s[r][4 * gi + 2] += w_ * xv.z;
-              s[r][4 * gi + 3] += w_ * xv.w;
-            }
+          for (int r = 0; r < 4; ++r) {
+            const float w_ = get(wv, r);
+            s[r][0] += w_ * xv.x;
+            s[r][1] += w_ * xv.y;
+            s[r][2] += w_ * xv.z;
+            s[r][3] += w_ * xv.w;
           }
         }
       }
@@ -366,31 +354,23 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_fwd(const Params p) {
       // before the next chunk's barrier
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int gi = 0; gi < CG; ++gi)
-          *reinterpret_cast<float4*>(S + (n0 + 4 * ty + r) * pw + 64 * gi + 4 * tx) =
-              make_float4(s[r][4 * gi + 0], s[r][4 * gi + 1], s[r][4 * gi + 2],
-                          s[r][4 * gi + 3]);
+        *reinterpret_cast<float4*>(S + (n0 + 4 * ty + r) * PW + 4 * tx) =
+            make_float4(s[r][0], s[r][1], s[r][2], s[r][3]);
     }
   }
   __syncthreads();
   float* sp = p.state + ((long long)b * p.H + h) * N * P;
-  for (int e = tid; e < N * P; e += THREADS) sp[e] = S[(e / P) * pw + e % P];
-}
-
-template <typename T, int CG>
-int launch(const Params& p, int B, cudaStream_t stream) {
-  const int smem = 4 * Layout(p.N, p.Q, CG).floats();
-  cudaError_t err = cudaFuncSetAttribute(ssm_scan_fwd<T, CG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssm_scan_fwd<T, CG><<<dim3(p.H, B), THREADS, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  for (int e = tid; e < N * P; e += THREADS) sp[e] = S[(e / P) * PW + e % P];
 }
 
 template <typename T>
-int dispatch(const Params& p, int B, cudaStream_t stream) {
-  return p.P <= 64 ? launch<T, 1>(p, B, stream) : launch<T, 2>(p, B, stream);
+int launch(const Params& p, int B, cudaStream_t stream) {
+  const int smem = 4 * Layout(p.N, p.Q).floats();
+  cudaError_t err = cudaFuncSetAttribute(ssm_scan_fwd<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssm_scan_fwd<T><<<dim3(p.H, B), THREADS, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -398,8 +378,8 @@ int dispatch(const Params& p, int B, cudaStream_t stream) {
 // dtype (of x, B and C; y is written in it): 0 = float32, 1 = bfloat16.
 // dt is fp32 (B, L, H); a is fp32 (H,), contiguous.  The caller guarantees
 // that the last dims of x, B and C are contiguous, that Q divides L and G
-// divides H.  N and P are at most 128 and the shared memory of
-// smem_bytes(N, P, Q) must fit in one block.  Returns cudaGetLastError()
+// divides H.  N is at most 128, P at most 64, and the shared
+// memory of Layout(N, Q) must fit in one block.  Returns cudaGetLastError()
 // after the launch (0 on success); the launch does not synchronise.
 extern "C" int repro_ssm_scan_fwd(
     const void* x, const void* dt, const void* a, const void* bm, const void* cm,
@@ -409,9 +389,9 @@ extern "C" int repro_ssm_scan_fwd(
     long long dt_sb, long long dt_sl, long long dt_sh,
     long long b_sb, long long b_sl, long long b_sg,
     long long c_sb, long long c_sl, long long c_sg, void* stream) {
-  if (B < 0 || L < 0 || H <= 0 || G <= 0 || H % G != 0 || N <= 0 || N > MAX_NP ||
-      P <= 0 || P > MAX_NP || Q <= 0 || L % Q != 0 ||
-      4 * Layout(N, Q, col_groups(P)).floats() > MAX_SMEM) {
+  if (B < 0 || L < 0 || H <= 0 || G <= 0 || H % G != 0 || N <= 0 || N > MAX_N ||
+      P <= 0 || P > MAX_P || Q <= 0 || L % Q != 0 ||
+      4 * Layout(N, Q).floats() > MAX_SMEM) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p{x, static_cast<const float*>(dt), static_cast<const float*>(a), bm, cm, y,
@@ -419,7 +399,7 @@ extern "C" int repro_ssm_scan_fwd(
            x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh, b_sb, b_sl, b_sg, c_sb, c_sl, c_sg};
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(p, B, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(p, B, s);
+  if (dtype == 0) return launch<float>(p, B, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(p, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

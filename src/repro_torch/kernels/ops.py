@@ -99,8 +99,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-_SSM_MAX_NP = 128
-_SSM_DEFAULT_CHUNK = 128
+_SSM_MAX_N = 128
+_SSM_MAX_P = 64
 
 
 def _ssm_fn():
@@ -112,14 +112,12 @@ def _ssm_fn():
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b_grouped: torch.Tensor, c_grouped: torch.Tensor, *,
-             chunk: Optional[int] = None):
+             b_grouped: torch.Tensor, c_grouped: torch.Tensor, *, chunk: int):
     """Mamba2 SSD scan.  x: (B, L, H, P); dt: (B, L, H); a: (H,);
     b/c: (B, L, G, N), group layout (head h reads group h // (H // G)).
     Returns (y (B, L, H, P) in x's dtype, final state (B, H, N, P) fp32).
 
-    ``chunk`` must divide L.  Left as None it is the JAX package's default
-    schedule: 128, halved until it divides L.
+    ``chunk`` must divide L.
     """
     if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b_grouped.dim() != 4:
         raise ValueError(f"expected x (B,L,H,P), dt (B,L,H), a (H,), b/c (B,L,G,N); "
@@ -133,10 +131,6 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"shapes do not agree, or G does not divide H: x "
                          f"{tuple(x.shape)}, dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
                          f"b {tuple(b_grouped.shape)}, c {tuple(c_grouped.shape)}")
-    if chunk is None:
-        chunk = max(min(_SSM_DEFAULT_CHUNK, l), 1)
-        while l % chunk:
-            chunk //= 2
     if chunk <= 0 or l % chunk:
         raise ValueError(f"chunk {chunk} does not divide the sequence {l}")
     tensors = (x, dt, a, b_grouped, c_grouped)
@@ -156,8 +150,9 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if dt.dtype != torch.float32 or a.dtype != torch.float32:
         raise ValueError(f"the CUDA kernel takes dt and a in float32, not "
                          f"{dt.dtype}, {a.dtype}")
-    if n > _SSM_MAX_NP or p > _SSM_MAX_NP:
-        raise ValueError(f"the CUDA kernel takes N and P up to {_SSM_MAX_NP}, "
+    if n > _SSM_MAX_N or p > _SSM_MAX_P:
+        raise ValueError(f"the CUDA kernel takes N up to {_SSM_MAX_N} and P up to "
+                         f"{_SSM_MAX_P} (the registry's d_head is at most 64), "
                          f"not N={n}, P={p}")
     for name, t in (("x", x), ("b", b_grouped), ("c", c_grouped)):
         if t.stride(3) != 1 and t.shape[3] > 1:
@@ -181,6 +176,6 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise RuntimeError(
             f"ssm_scan kernel launch failed: CUDA error {err} (1 is an invalid "
             f"value: the kernel also refuses a chunk whose tiles do not fit one "
-            f"block's shared memory, which at N=P=128 is a chunk above 6144)")
+            f"block's shared memory, which at N=128 is a chunk above 12288)")
     LAUNCHES["ssm_scan"] += 1
     return y, state
