@@ -32,7 +32,18 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    the best candidate's output through the kernels against its output
    through the plain versions; device time by kernel over one forward of
    each candidate;
-7. a JSON line per kernel, the card's name and power limit, and the
+7. the mLSTM scan against its plain version (fp32 and bf16, timed as in
+   3), at the xlstm-1.3b forward's shape and smaller ones;
+8. xlstm_forward: ``LM.forward`` of xlstm-1.3b at full width (random
+   weights, seed 0) over 2048 tokens with every mLSTM block on the kernel:
+   ``mlstm_scan`` launched once per mLSTM layer (42), the plain version
+   never; the logits against the same forward with ``impl="xla"``; device
+   time by kind of kernel and inside the sLSTM blocks' time loops;
+9. xlstm_serve: ``python -m repro_torch.launch.serve --arch xlstm-1.3b`` in
+   process at full width: 4 requests must be served; one prompt's prefill
+   logits (the decode step looped over the prompt) against the kernel
+   forward's logits at the same positions;
+10. a JSON line per kernel, the card's name and power limit, and the
    ``{"ok": true, ...}`` line last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -124,6 +135,34 @@ NAS_PEAK_REL = 1e-2
 # use, never a candidate's weights (the smallest is ~0.1 GB)
 NAS_HELD_SLACK = 64 << 20
 
+# (B, L, H, P, chunk, input-gate shift): the xlstm-1.3b forward's shape
+# (P = 1024, chunk 128, sequence 2048) first, batch 4 at 512, the CPU tests'
+# shapes with the decrement-chosen chunk 100 and the least chunk 8, and
+# input gates shifted by -100 (exp(-m) overflows: h must be 0, not NaN)
+MLSTM_CASES = [
+    (1, 2048, 4, 1024, 128, 0.0),
+    (4, 512, 4, 1024, 128, 0.0),
+    (2, 64, 2, 32, 16, 0.0),
+    (2, 128, 4, 16, 32, 0.0),
+    (1, 200, 2, 64, 100, 0.0),
+    (1, 64, 2, 64, 8, 0.0),
+    (2, 64, 2, 32, 16, -100.0),
+]
+MLSTM_REPORTED_CASE = MLSTM_CASES[0]
+# as for the SSD scan: each element of h within MLSTM_H_REL of its |h| (half
+# a bf16 ulp; h is rounded once) plus MLSTM_TOL of max |h| (order of
+# summation), against the fp32 plain version on the same inputs
+MLSTM_H_REL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
+MLSTM_TOL = 1e-4
+MLSTM_NO_LIBRARY = "no single PyTorch call computes the chunkwise mLSTM scan"
+
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_SEQ = 2048  # the default sequence of examples/hw_in_loop_nas_lm.py
+XLSTM_LOGITS_REL = 1e-3  # of max |logits|
+XLSTM_SERVE_ARGS = ["--arch", XLSTM_ARCH, "--requests", "4", "--arrival", "burst",
+                    "--prompt-lens", "64,128", "--gen-lens", "8", "--max-batch", "4",
+                    "--queue-limit", "4", "--seed", "0", "--device", "cuda"]
+
 
 def _smi() -> str:
     proc = subprocess.run(
@@ -204,6 +243,282 @@ def _ssm_work(b, l, h, g, n, p, q, esize):
     flops = b * h * (l // q) * (q * (q + 1) * (n + p) + 4 * q * n * p)
     nbytes = esize * (2 * b * l * h * p + 2 * b * l * g * n) + 4 * (b * l * h + h + b * h * n * p)
     return flops, nbytes
+
+
+def _mlstm_inputs(torch, gen, b, l, h, p, i_shift, dtype):
+    """q, k, v standard normal; log input gates 2 N(0, 1) + ``i_shift``; log
+    forget gates log-sigmoid(N(0, 1) + 3), an mLSTM layer's forget bias at
+    init."""
+    import torch.nn.functional as F
+
+    q, k, v = (torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    il = torch.randn(b, l, h, generator=gen, device="cuda") * 2.0 + i_shift
+    fl = F.logsigmoid(torch.randn(b, l, h, generator=gen, device="cuda") + 3.0)
+    return q, k, v, il, fl
+
+
+def _mlstm_work(b, l, h, p, q, esize):
+    """(operations, bytes) of one mLSTM scan call.  Operations: for each
+    (batch, head) and chunk, the q k^T panel and S v on or below the
+    diagonal (2 Q (Q + 1) P), q C and the C update (4 Q P^2), q . n and the
+    n update (4 Q P); the masked half of the panel is not work.  Bytes: q,
+    k, v and the gates read once, h written once."""
+    flops = b * h * (l // q) * (2 * q * (q + 1) * p + 4 * q * p * p + 4 * q * p)
+    nbytes = esize * 4 * b * l * h * p + 4 * 2 * b * l * h
+    return flops, nbytes
+
+
+def mlstm_phase(torch, ops, ref, gen) -> dict:
+    """The mLSTM scan against its fp32 plain version on the same inputs,
+    fp32 and bf16, every case of ``MLSTM_CASES``.  Returns the rows."""
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        dt_ = getattr(torch, dtype)
+        for case in MLSTM_CASES:
+            b, l, h, p, chunk, i_shift = case
+            args = _mlstm_inputs(torch, gen, b, l, h, p, i_shift, dt_)
+            out, none = ops.mlstm_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            q, k, v, il, fl = args
+            want = ref.mlstm_scan_ref(q.float(), k.float(), v.float(), il, fl, chunk=chunk)
+            torch.cuda.synchronize()
+            err_h = (out.float() - want).abs()
+            tol_h = MLSTM_H_REL[dtype] * want.abs() + MLSTM_TOL * want.abs().max()
+            err = err_h.max().item()
+            over = (err_h / tol_h.clamp_min(1e-30)).max().item()
+            finite = bool(torch.isfinite(out.float()).all())
+            if not (out.shape == q.shape and out.dtype == dt_ and none is None
+                    and finite and over <= 1):
+                raise AssertionError(
+                    f"mlstm_scan {case} {dtype}: max |err| / tol of h {over}, "
+                    f"finite={finite}, shape {tuple(out.shape)}, dtype {out.dtype}")
+            flops, nbytes = _mlstm_work(b, l, h, p, chunk, q.element_size())
+            t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / MEM_BYTES_PER_S
+            row = {
+                "case": {"B": b, "L": l, "H": h, "P": p, "chunk": chunk,
+                         "input_gate_shift": i_shift},
+                "dtype": dtype, "max_abs_err": err,
+                "tol": f"{MLSTM_H_REL[dtype]} |h| + {MLSTM_TOL} max|h| per element",
+                "max_err_over_tol": over, "max_abs_h": want.abs().max().item(),
+                "finite": finite,
+                "ms": _time_ms(torch, lambda: ops.mlstm_scan(*args, chunk=chunk)),
+                "plain_ms": _time_ms(torch, lambda: ref.mlstm_scan_ref(*args, chunk=chunk)),
+                "library_ms": None, "library": MLSTM_NO_LIBRARY,
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            }
+            rows[(case, dtype)] = row
+            print("mlstm_scan " + json.dumps(row))
+            del args, q, k, v, out, want, err_h, tol_h
+    return rows
+
+
+def _counted(calls, fn):
+    def wrapper(*a, **kw):
+        calls.append(fn.__name__)
+        return fn(*a, **kw)
+    return wrapper
+
+
+def profile_by_kind(torch, label, step, ranges=()) -> None:
+    """One run of ``step`` (which ends in a device sync) under
+    ``torch.profiler``: its host wall time, device time by kind of kernel
+    (GEMMs, the mLSTM scan, the rest), for each ``record_function`` range
+    named in ``ranges`` the host time inside it, the device time of the
+    kernels launched in it and its span on the device, and the device's
+    busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
+    kinds = {"gemm": 0.0, "mlstm_scan": 0.0, "rest": 0.0}
+    kernels, in_ranges = [], {}
+    for ev in averages:
+        on_device = str(ev.device_type).endswith("CUDA")
+        if ev.key in ranges:
+            # the range appears twice: on the host (with the device time of
+            # the kernels launched inside it) and as a span on the device
+            row = in_ranges.setdefault(ev.key, {})
+            if on_device:
+                row["device_span_ms"] = ev.self_device_time_total / 1e3
+            else:
+                row.update(kernels_device_ms=ev.device_time_total / 1e3,
+                           host_ms=ev.cpu_time_total / 1e3, calls=ev.count)
+            continue
+        if not (on_device and ev.self_device_time_total > 0):
+            continue
+        ms, low = ev.self_device_time_total / 1e3, ev.key.lower()
+        kernels.append((ms, ev.key, ev.count))
+        if "mlstm_chunk" in low:
+            kinds["mlstm_scan"] += ms
+        elif any(tag in low for tag in ("gemm", "gemv", "cutlass", "xmma")):
+            kinds["gemm"] += ms
+        else:
+            kinds["rest"] += ms
+    busy_ms = sum(ms for ms, _, _ in kernels)
+    print("profile " + json.dumps({
+        "window": label, "wall_ms": wall_ms,
+        "device_ms": busy_ms if kernels else "not measured",
+        "device_busy_share": busy_ms / wall_ms if kernels else "not measured",
+        "device_ms_by_kind": kinds if kernels else "not measured",
+        "kernel_launches": sum(n for _, _, n in kernels),
+        "ranges": in_ranges,
+        "top_kernels_ms": [[name[:70], ms, n] for ms, name, n in sorted(kernels, reverse=True)[:8]]}))
+
+
+def xlstm_forward_phase(torch, ops, ref, serve) -> dict:
+    """``LM.forward`` of xlstm-1.3b at full width over ``XLSTM_SEQ`` tokens,
+    every mLSTM block on the kernel (``serve.swap_kernel_impl``).  Raises
+    unless ``mlstm_scan`` launched once per mLSTM layer, the plain version
+    never, and the logits match the same weights' forward with
+    ``impl="xla"``.  Returns the counts and times."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+    from repro_torch.nn import xlstm as xlstm_mod
+
+    spec = get_arch(XLSTM_ARCH).spec()
+    n_mlstm = sum(sub.kind == "mlstm" for layer in spec.layers for sub in layer.subs)
+    model = LM(dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "pallas")))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, spec.vocab, (1, XLSTM_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    n_params = sum(t.numel() for t in model.state_dict().values())
+
+    plain_calls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    with mock.patch.object(ref, "mlstm_scan_ref", _counted(plain_calls, ref.mlstm_scan_ref)), \
+            torch.inference_mode():
+        ops.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        logits = model(tokens)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        model(tokens)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the same weights with every mLSTM block on its plain layer
+    plain = LM(dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "xla")))
+    plain.load_state_dict(model.state_dict(), strict=True, assign=True)
+    with torch.inference_mode():
+        before = ops.LAUNCHES["mlstm_scan"]
+        t0 = time.perf_counter()
+        plain_logits = plain(tokens)
+        torch.cuda.synchronize()
+        plain_wall = (time.perf_counter() - t0) * 1e3
+        plain_launches = ops.LAUNCHES["mlstm_scan"] - before
+    del plain
+    err = (logits - plain_logits).abs().max().item()
+    tol = XLSTM_LOGITS_REL * plain_logits.abs().max().item()
+    finite = bool(torch.isfinite(logits).all())
+    summary = {
+        "arch": spec.name, "n_params": n_params, "tokens": list(tokens.shape),
+        "wall_ms": walls, "plain_impl_wall_ms": plain_wall,
+        "mlstm_layers": n_mlstm, "mlstm_scan_launches": launches.get("mlstm_scan", 0),
+        "plain_calls": len(plain_calls), "plain_impl_kernel_launches": plain_launches,
+        "max_memory_allocated": peak, "logits_shape": list(logits.shape), "finite": finite,
+        "max_abs_logit": plain_logits.abs().max().item(), "max_abs_err": err, "tol": tol,
+    }
+    print("xlstm_forward " + json.dumps(summary))
+    if launches.get("mlstm_scan", 0) != n_mlstm or plain_calls or plain_launches:
+        raise AssertionError(f"xlstm_forward: mlstm_scan launched {launches} times "
+                             f"(expected {n_mlstm}), plain calls {len(plain_calls)}, "
+                             f"launches under impl=xla {plain_launches}")
+    if not finite or tuple(logits.shape) != (1, XLSTM_SEQ, spec.vocab) or err > tol:
+        raise AssertionError(f"xlstm_forward: logits max |err| {err} > {tol}, "
+                             f"finite={finite}, shape {tuple(logits.shape)}")
+    del logits, plain_logits
+
+    # where the time goes: the sLSTM blocks' time loops and the mLSTM blocks
+    def ranged(name, fn):
+        def wrapper(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return wrapper
+
+    with mock.patch.object(xlstm_mod, "slstm_block_apply",
+                           ranged("slstm_block", xlstm_mod.slstm_block_apply)), \
+            mock.patch.object(xlstm_mod, "mlstm_block_apply",
+                              ranged("mlstm_block", xlstm_mod.mlstm_block_apply)):
+        profile_by_kind(torch, f"xlstm forward B=1 L={XLSTM_SEQ}",
+                        lambda: float(model(tokens)[0, -1, 0]),
+                        ranges=("slstm_block", "mlstm_block"))
+    del model
+    torch.cuda.empty_cache()
+    return summary
+
+
+def xlstm_serve_phase(torch, ops, ref, serve) -> dict:
+    """``launch.serve --arch xlstm-1.3b`` at full width.  Raises unless the
+    4 requests are served with 8 tokens each and one prompt's prefill
+    logits (its decode step looped over the prompt) match the kernel
+    forward's logits at the same positions.  Returns the summary."""
+    args = serve.parse_args(XLSTM_SERVE_ARGS)
+    plain_calls = []
+    ops.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(ref, "mlstm_scan_ref", _counted(plain_calls, ref.mlstm_scan_ref)):
+        summary, engine = serve._serve_lm(args)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    model = engine.model
+    vocab = model.spec.vocab
+    out = {
+        "arch": summary["arch"], "served": summary["served"], "shed": summary["shed"],
+        "prefills": summary["prefills"], "tokens_generated": summary["tokens_generated"],
+        "wall_s": summary["wall_s"], "tok_per_s": summary["tok_per_s"],
+        "prefill_ms": summary["prefill_ms"],
+        "prompt_lens": [r["prompt_len"] for r in engine.completed],
+        "decode_ms": summary["decode_ms"], "max_memory_allocated": peak,
+        "mlstm_scan_launches": launches.get("mlstm_scan", 0),
+        "plain_calls": len(plain_calls)}
+    print("xlstm_serve " + json.dumps(out))
+    if summary["served"] != 4 or summary["shed"] != 0 or summary["prefills"] != 4:
+        raise AssertionError(f"xlstm_serve: expected 4 served, 0 shed, 4 prefills: {summary}")
+    for r in engine.completed:
+        if len(r["tokens"]) != 8 or not all(0 <= t < vocab for t in r["tokens"]):
+            raise AssertionError(f"xlstm_serve: bad generation {r}")
+
+    # the longest prompt's prefill logits against the kernel forward at the
+    # same positions
+    req = max(serve._traffic_from_args(args).requests(), key=lambda r: r.prompt_len)
+    prompt = torch.as_tensor(req.prompt_tokens(vocab)[None], dtype=torch.long, device="cuda")
+    n_mlstm = sum(sub.kind == "mlstm" for layer in model.spec.layers for sub in layer.subs)
+    with torch.inference_mode():
+        prefill_logits, _ = model.prefill(model.init_cache(1, req.prompt_len + 1), prompt)
+        before = ops.LAUNCHES["mlstm_scan"]
+        fwd_logits = model(prompt)
+        torch.cuda.synchronize()
+        fwd_launches = ops.LAUNCHES["mlstm_scan"] - before
+    err = (prefill_logits - fwd_logits).abs().max().item()
+    tol = XLSTM_LOGITS_REL * fwd_logits.abs().max().item()
+    finite = bool(torch.isfinite(prefill_logits).all())
+    print("xlstm_prefill_logits " + json.dumps({
+        "prompt_len": req.prompt_len, "shape": list(prefill_logits.shape), "finite": finite,
+        "max_abs_logit": fwd_logits.abs().max().item(), "max_abs_err": err, "tol": tol,
+        "forward_mlstm_scan_launches": fwd_launches}))
+    if fwd_launches != n_mlstm:
+        raise AssertionError(f"xlstm_serve: the forward launched mlstm_scan {fwd_launches} "
+                             f"times, expected {n_mlstm}")
+    if not finite or prefill_logits.shape != fwd_logits.shape or err > tol:
+        raise AssertionError(f"xlstm_serve: prefill logits max |err| {err} > {tol}, "
+                             f"finite={finite}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return out
 
 
 def nas_phase(torch, ops, ref) -> dict:
@@ -579,9 +894,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     nas = nas_phase(torch, ops, ref)
 
-    # -- 7. result ---------------------------------------------------------
+    # -- 7. the mLSTM scan against its plain version -----------------------
+    mlstm_rows = mlstm_phase(torch, ops, ref, gen)
+
+    # -- 8. the xlstm-1.3b forward through the kernel -----------------------
+    xfwd = xlstm_forward_phase(torch, ops, ref, serve)
+
+    # -- 9. serving xlstm-1.3b ----------------------------------------------
+    xserve = xlstm_serve_phase(torch, ops, ref, serve)
+
+    # -- 10. result --------------------------------------------------------
     served = kernel_rows[(REPORTED_CASE, "float32")]
     scan = ssm_rows[(SSM_REPORTED_CASE, "float32")]
+    mscan = mlstm_rows[(MLSTM_REPORTED_CASE, "float32")]
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -604,6 +929,18 @@ def main() -> int:
         "bound_by": scan["bound_by"], "library_ms": None,
         "library": SSM_NO_LIBRARY,
         "shape": "B=4 L=2048 H=80 G=1 N=64 P=64 chunk=128 float32",
+    }, {
+        "name": "mlstm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
+        "replaces": "src/repro/kernels/mlstm_scan.py:88",
+        "launches": xfwd["mlstm_scan_launches"],
+        "launches_by_path": {"xlstm_forward": xfwd["mlstm_scan_launches"],
+                             "xlstm_serve": xserve["mlstm_scan_launches"]},
+        "max_abs_err": mscan["max_abs_err"], "ms": mscan["ms"],
+        "plain_ms": mscan["plain_ms"], "bound_ms": mscan["bound_ms"],
+        "bound_by": mscan["bound_by"], "library_ms": None,
+        "library": MLSTM_NO_LIBRARY,
+        "shape": "B=1 L=2048 H=4 P=1024 chunk=128 float32",
     }]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

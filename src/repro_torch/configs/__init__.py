@@ -3,7 +3,7 @@ import importlib
 
 from repro_torch.configs.base import ArchConfig
 
-_ARCH_MODULES = ("qwen3_1_7b",)
+_ARCH_MODULES = ("qwen3_1_7b", "xlstm_1_3b")
 
 ARCHS = {}
 for _m in _ARCH_MODULES:

@@ -109,10 +109,21 @@ def lm_from_jax(spec: ModelSpec, params_np: Mapping[str, Any],
     return _load_checked(model, state, device, spec.name)
 
 
+# sub-block kind -> the leaves of its decode cache (the JAX package's)
+_CACHE_LEAVES = {
+    "attention": {"k", "v"},
+    "mlp": set(),
+    "mlstm": {"conv", "c", "n", "m"},
+    "slstm": {"conv", "c", "n", "m", "h"},
+}
+
+
 def cache_from_jax(spec: ModelSpec, cache_np: Mapping[str, Any],
                    device="cuda") -> Cache:
-    """The JAX decode cache (``{seg: {sub_<i>: {"k", "v"}}}``, stacked on
-    a leading layers axis) as the port's per-layer list of ``{"k", "v"}``."""
+    """The JAX decode cache (``{seg: {sub_<i>: {leaf: array}}}``, stacked
+    on a leading layers axis) as the port's per-layer list of
+    ``{sub_<i>: {leaf: tensor}}``.  Raises on any missing or unexpected
+    segment, sub-block or leaf, and on a wrong layers axis."""
     device = resolve_device(device)
     model = LM(spec)
     if set(cache_np) != {seg.name for seg in model.segments}:
@@ -125,13 +136,17 @@ def cache_from_jax(spec: ModelSpec, cache_np: Mapping[str, Any],
         if set(subs) != set(kinds):
             raise ValueError(f"{seg.name}: cache subs {sorted(subs)} != {sorted(kinds)}")
         for name, kind in kinds.items():
-            want = {"k", "v"} if kind == "attention" else set()
+            want = _CACHE_LEAVES[kind]
             if set(subs[name]) != want:
                 raise ValueError(f"{seg.name}/{name} ({kind}): cache keys "
                                  f"{sorted(subs[name])} != {sorted(want)}")
-        (attn_name,) = [n for n, k in kinds.items() if k == "attention"]
-        entry = subs[attn_name]
+            for leaf, arr in subs[name].items():
+                if np.ndim(arr) == 0 or np.shape(arr)[0] != seg.count:
+                    raise ValueError(f"{seg.name}/{name}/{leaf}: expected a leading "
+                                     f"layers axis of {seg.count}, got shape "
+                                     f"{np.shape(arr)}")
         for i in range(seg.count):
-            out.append({kv: torch.from_numpy(np.array(entry[kv][i])).to(device)
-                        for kv in ("k", "v")})
+            out.append({name: {leaf: torch.from_numpy(np.array(arr[i])).to(device)
+                               for leaf, arr in subs[name].items()}
+                        for name in kinds})
     return out

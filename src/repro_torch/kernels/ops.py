@@ -1,4 +1,5 @@
-"""Checked wrappers around the CUDA kernels (flash attention, the SSD scan).
+"""Checked wrappers around the CUDA kernels (flash attention, the SSD scan,
+the mLSTM scan).
 
 A wrapper checks device, dtype, shape and layout, then:
 
@@ -179,3 +180,87 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             f"block's shared memory, which at N=128 is a chunk above 12288)")
     LAUNCHES["ssm_scan"] += 1
     return y, state
+
+
+_MLSTM_MAX_P = 1024
+
+
+def _mlstm_fns():
+    lib = build.load("mlstm_scan")
+    fn = lib.repro_mlstm_scan_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    floats = lib.repro_mlstm_scan_scratch_floats
+    floats.argtypes = [ctypes.c_int] * 4
+    floats.restype = ctypes.c_longlong
+    return fn, floats
+
+
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               i_log: torch.Tensor, f_log: torch.Tensor, *, chunk: int):
+    """Chunkwise mLSTM (the xLSTM matrix memory).  q/k/v: (B, L, H, P);
+    i_log/f_log: (B, L, H) log-space gates.  Returns (h (B, L, H, P) in
+    q's dtype, None), as the JAX package's ``ops.mlstm_scan`` does.
+
+    ``chunk`` must divide L.  One call counts one launch, though the
+    kernel is two CUDA launches (the chunks' panels, then the state).
+    """
+    if q.dim() != 4 or i_log.dim() != 3:
+        raise ValueError(f"expected q/k/v (B,L,H,P) and i_log/f_log (B,L,H); got "
+                         f"{tuple(q.shape)}, {tuple(i_log.shape)}")
+    bsz, l, h, p = q.shape
+    if (k.shape != q.shape or v.shape != q.shape or tuple(i_log.shape) != (bsz, l, h)
+            or f_log.shape != i_log.shape):
+        raise ValueError(f"shapes do not agree: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, i_log {tuple(i_log.shape)}, "
+                         f"f_log {tuple(f_log.shape)}")
+    if chunk <= 0 or l % chunk:
+        raise ValueError(f"chunk {chunk} does not divide the sequence {l}")
+    tensors = (q, k, v, i_log, f_log)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"devices differ: {[str(t.device) for t in tensors]}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+
+    if q.device.type == "cpu":
+        return ref.mlstm_scan_ref(q, k, v, i_log, f_log, chunk=chunk), None
+    if q.device.type != "cuda":
+        raise ValueError(f"mlstm_scan runs on cuda or cpu, not {q.device}")
+
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"the CUDA kernel takes float32 or bfloat16, not {q.dtype}")
+    if i_log.dtype != torch.float32 or f_log.dtype != torch.float32:
+        raise ValueError(f"the CUDA kernel takes the gates in float32, not "
+                         f"{i_log.dtype}, {f_log.dtype}")
+    if p % 4 or p > _MLSTM_MAX_P:
+        raise ValueError(f"the CUDA kernel takes a head dim that is a multiple of 4 "
+                         f"and at most {_MLSTM_MAX_P} (xlstm-1.3b's), not P={p}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous (stride {x.stride(3)})")
+        if x.data_ptr() % (4 * x.element_size()) or any(st % 4 for st in x.stride()[:3]):
+            raise ValueError(f"{name}'s rows must start on a 4-element boundary: the "
+                             f"kernel moves 4 elements a load (strides {x.stride()})")
+    out = torch.empty((bsz, l, h, p), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out, None
+    fn, floats = _mlstm_fns()
+    scratch = torch.empty((floats(bsz, l, h, chunk),), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), i_log.data_ptr(),
+                 f_log.data_ptr(), out.data_ptr(), scratch.data_ptr(), _DTYPES[q.dtype],
+                 bsz, l, h, p, chunk,
+                 q.stride(0), q.stride(1), q.stride(2),
+                 k.stride(0), k.stride(1), k.stride(2),
+                 v.stride(0), v.stride(1), v.stride(2),
+                 i_log.stride(0), i_log.stride(1), i_log.stride(2),
+                 f_log.stride(0), f_log.stride(1), f_log.stride(2), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"mlstm_scan kernel launch failed: CUDA error {err} (1 is an invalid value: "
+            f"the kernel also refuses a chunk whose state pass does not fit one "
+            f"block's shared memory, which at P=1024 is a chunk above about 600)")
+    LAUNCHES["mlstm_scan"] += 1
+    return out, None

@@ -1,14 +1,24 @@
 """Plain PyTorch versions of the kernels.
 
-They are the math the models use (grouped attention plus a mask), so a
-kernel is validated against exactly what the XLA-path layers compute.
-The CPU tests use them, and on a CPU tensor the wrappers in
-:mod:`repro_torch.kernels.ops` run them in place of the kernel.
+Flash attention and the SSD scan are the math the models use (grouped
+attention plus a mask, ``ssd_chunked``), so those kernels are validated
+against exactly what the XLA-path layers compute.  The mLSTM scan's
+plain version is the Pallas kernel's own formulation, which differs in
+small ways from the layer's ``mlstm_chunked`` (see
+:func:`mlstm_scan_ref`); :func:`mlstm_recurrent_ref` is the step-by-step
+oracle for both.  The CPU tests use them, and on a CPU tensor the
+wrappers in :mod:`repro_torch.kernels.ops` run them in place of the
+kernel.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.nn.attention import grouped_attention, make_mask
 from repro_torch.nn.ssm import ssd_chunked
+from repro_torch.nn.xlstm import mlstm_recurrent
+
+MLSTM_BIG_NEG = -1e6  # the Pallas kernel's start value of the stabiliser
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
@@ -25,3 +35,57 @@ def ssm_scan_ref(x, dt, a, b_mat, c_mat, *, chunk=128):
     """x: (B, L, H, P); dt: (B, L, H); a: (H,); b/c: (B, L, G, N), G
     dividing H -> (y (B, L, H, P), final state (B, H, N, P) fp32)."""
     return ssd_chunked(x, dt, a, b_mat, c_mat, chunk)
+
+
+def mlstm_scan_ref(q, k, v, i_log, f_log, *, chunk):
+    """The Pallas ``mlstm_scan_blhp`` kernel's math, chunk by chunk in
+    fp32: k scaled by P^-1/2, the stabiliser starting at -1e6 (not -inf,
+    as ``mlstm_chunked`` has it), the panel product in fp32 (not cast to
+    v's dtype first).  q/k/v: (B, L, H, P); i_log/f_log: (B, L, H).
+    Returns h (B, L, H, P) in q's dtype."""
+    b, l, h, p = q.shape
+    if l % chunk:
+        raise ValueError(f"chunk {chunk} does not divide the sequence {l}")
+    qf = q.float().transpose(1, 2)  # (b,h,l,p)
+    kf = k.float().transpose(1, 2) * (p ** -0.5)
+    vf = v.float().transpose(1, 2)
+    ig = i_log.float().transpose(1, 2)  # (b,h,l)
+    fg = f_log.float().transpose(1, 2)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
+    c = torch.zeros((b, h, p, p), dtype=torch.float32, device=q.device)
+    n = torch.zeros((b, h, p), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h), MLSTM_BIG_NEG, dtype=torch.float32, device=q.device)
+    out = []
+    for l0 in range(0, l, chunk):
+        qc, kc, vc = (t[:, :, l0:l0 + chunk] for t in (qf, kf, vf))
+        igc, fgc = ig[..., l0:l0 + chunk], fg[..., l0:l0 + chunk]
+        fcum = torch.cumsum(fgc, dim=-1)  # inclusive
+        ftot = fcum[..., -1]
+        # intra log-weights a[i,j] = fcum_i - fcum_j + ig_j (j<=i); inter b[i]
+        a_log = torch.where(tri, fcum[..., :, None] - fcum[..., None, :] + igc[..., None, :],
+                            float("-inf"))
+        b_log = fcum + m[..., None]
+        m_i = torch.clamp_min(torch.maximum(torch.amax(a_log, dim=-1), b_log), MLSTM_BIG_NEG)
+        intra_w = torch.exp(a_log - m_i[..., None])  # (b,h,Q,Q)
+        inter_w = torch.exp(b_log - m_i)  # (b,h,Q)
+        s_intra = (qc @ kc.transpose(-1, -2)) * intra_w
+        h_num = s_intra @ vc + (qc @ c) * inter_w[..., None]
+        denom = s_intra.sum(dim=-1) + (qc @ n[..., None])[..., 0] * inter_w
+        denom = torch.maximum(denom.abs(), torch.exp(-m_i))
+        out.append(h_num / denom[..., None])
+        # state update to chunk end
+        w_log = ftot[..., None] - fcum + igc  # (b,h,Q)
+        m_next = torch.clamp_min(torch.maximum(ftot + m, torch.amax(w_log, dim=-1)),
+                                 MLSTM_BIG_NEG)
+        kw = kc * torch.exp(w_log - m_next[..., None])[..., None]  # (b,h,Q,P)
+        carry = torch.exp(ftot + m - m_next)
+        c = carry[..., None, None] * c + kw.transpose(-1, -2) @ vc
+        n = carry[..., None] * n + kw.sum(dim=-2)
+        m = m_next
+    return torch.cat(out, dim=2).transpose(1, 2).to(q.dtype)
+
+
+def mlstm_recurrent_ref(q, k, v, i_log, f_log):
+    """Recurrent oracle (per-step), the strictest reference: h (B, L, H, P)."""
+    h, _ = mlstm_recurrent(q, k, v, i_log, f_log)
+    return h

@@ -10,8 +10,11 @@ full), driven by a deterministic seeded
 
 Prompts run through :meth:`LM.prefill` and join the running batch
 mid-flight; decode advances every active slot with a per-slot position
-vector.  Every attention sub-block is served with ``impl="pallas"``, so
-each prefill runs the flash-attention kernel once per layer.  Serving
+vector.  Every attention and mLSTM sub-block is served with
+``impl="pallas"``, so each prefill of a transformer runs the
+flash-attention kernel once per layer.  A recurrent model (``--arch
+xlstm-1.3b``) prefills by looping its decode step over the prompt, as
+the JAX package does, so serving it runs no kernel.  Serving
 runs on CUDA; ``--device cpu`` asks for the CPU (where the kernel's plain
 version stands in for it), and without a card nothing runs.
 """
@@ -101,12 +104,14 @@ class ServingEngine:
 
     def _merge_slot(self, single_cache, slot: int) -> None:
         """Copy a batch-1 prefilled cache into slot ``slot`` of the batched
-        cache, in place: each layer's ``k[slot]`` and ``v[slot]``.  (The
-        JAX engine rebuilds every cache leaf with a dynamic update slice,
-        because its arrays are immutable.)"""
+        cache, in place: every leaf of every sub-block (K/V, recurrent
+        states), whose batch axis is the first.  (The JAX engine rebuilds
+        every cache leaf with a dynamic update slice, because its arrays
+        are immutable.)"""
         for dst, src in zip(self.cache, single_cache, strict=True):
-            dst["k"][slot].copy_(src["k"][0])
-            dst["v"][slot].copy_(src["v"][0])
+            for name, leaves in src.items():
+                for leaf, value in leaves.items():
+                    dst[name][leaf][slot].copy_(value[0])
 
     def _join(self, req) -> None:
         """Prefill one request (full-sequence kernel) into a free slot."""
@@ -190,8 +195,15 @@ def _map_sub_cfg(layers, kinds, **fields):
     return tuple(out)
 
 
-def _swap_attention_impl(layers, impl):
-    return _map_sub_cfg(layers, ("attention",), impl=impl)
+KERNEL_KINDS = ("attention", "mlstm")  # sub-blocks whose impl picks a kernel
+
+
+def swap_kernel_impl(layers, impl):
+    """``layers`` with ``impl`` set on every attention and mLSTM sub-block:
+    ``"pallas"`` runs the kernels (flash attention, the mLSTM scan),
+    ``"xla"`` their plain layers.  Plain dataclass surgery: it fits the
+    JAX package's specs too."""
+    return _map_sub_cfg(layers, KERNEL_KINDS, impl=impl)
 
 
 def _serve_lm(args):
@@ -200,7 +212,7 @@ def _serve_lm(args):
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
     spec = arch.smoke_spec_fn() if args.smoke else arch.spec()
-    spec = dataclasses.replace(spec, layers=_swap_attention_impl(spec.layers, "pallas"))
+    spec = dataclasses.replace(spec, layers=swap_kernel_impl(spec.layers, "pallas"))
     generator = torch.Generator(device=device).manual_seed(0)
     model = LM(spec).init(generator, dtype=torch.float32)
 

@@ -1,5 +1,5 @@
 """LM executor: embedding -> layers -> final norm -> head, with batched
-prefill and per-slot decode against preallocated KV caches.
+prefill and per-slot decode against preallocated caches.
 
 Consecutive identical layers are grouped into *segments* as in the JAX
 package, so parameter names line up (``seg_0.<layer>.subs.<i>.norm`` /
@@ -11,9 +11,14 @@ run in a Python loop.
 draws the weights on a generator's device, and
 :func:`repro_torch.convert.lm_from_jax` loads the JAX package's weights.
 
-The decode cache is a list with one ``{"k", "v"}`` dict per layer, each
-``(B, T, KH, D)``, updated in place by :meth:`LM.prefill` and
-:meth:`LM.decode`.
+The decode cache is a list with one dict per layer, ``{"sub_<i>": ...}``
+for each sub-block as in the JAX package: attention ``{"k", "v"}`` each
+``(B, T, KH, D)``, mLSTM ``{"conv", "c", "n", "m"}``, sLSTM ``{"conv",
+"c", "n", "m", "h"}``, ``{}`` for an mlp.  :meth:`LM.prefill` and
+:meth:`LM.decode` update it in place (attention writes into its K/V; a
+recurrent sub-block replaces its dict's tensors).  Prefill of a
+recurrent kind loops its decode step over the prompt, as the JAX
+package's ``lax.scan`` does.
 """
 from __future__ import annotations
 
@@ -27,9 +32,10 @@ from repro_torch.models.specs import LayerSpec, ModelSpec, SubBlock
 from repro_torch.nn import attention as attn
 from repro_torch.nn import initializers as init
 from repro_torch.nn import mlp as mlp_mod
+from repro_torch.nn import xlstm as xlstm_mod
 from repro_torch.nn.norms import NORM_APPLY, NORM_INIT
 
-Cache = List[Dict[str, torch.Tensor]]
+Cache = List[Dict[str, Dict[str, torch.Tensor]]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +66,10 @@ def _sub_init(sub: SubBlock, generator, dtype):
         return attn.attention_init(sub.cfg, generator, dtype)
     if sub.kind == "mlp":
         return mlp_mod.mlp_init(sub.cfg, generator, dtype)
+    if sub.kind == "mlstm":
+        return xlstm_mod.mlstm_init(sub.cfg, generator, dtype)
+    if sub.kind == "slstm":
+        return xlstm_mod.slstm_init(sub.cfg, generator, dtype)
     raise ValueError(sub.kind)
 
 
@@ -68,15 +78,35 @@ def _sub_apply(sub: SubBlock, params, x, positions):
         return attn.attention_apply(params, sub.cfg, x, positions=positions)
     if sub.kind == "mlp":
         return mlp_mod.mlp_apply(params, sub.cfg, x)
+    if sub.kind == "mlstm":
+        return xlstm_mod.mlstm_block_apply(params, sub.cfg, x)
+    if sub.kind == "slstm":
+        return xlstm_mod.slstm_block_apply(params, sub.cfg, x)
     raise ValueError(sub.kind)
 
 
+def _sub_cache_init(sub: SubBlock, batch, max_seq, dtype, device):
+    if sub.kind == "attention":
+        return attn.init_kv_cache(sub.cfg, batch, max_seq, dtype, device=device)
+    if sub.kind == "mlstm":
+        return xlstm_mod.init_mlstm_cache(sub.cfg, batch, dtype, device=device)
+    if sub.kind == "slstm":
+        return xlstm_mod.init_slstm_cache(sub.cfg, batch, dtype, device=device)
+    return {}
+
+
 def _sub_prefill(sub: SubBlock, params, x, cache, pos_offset):
+    """Full-sequence forward that also fills the decode cache.  Attention
+    runs the full-sequence kernel dispatch and writes the prompt's K/V in
+    one shot; a recurrent kind ingests the prompt by looping its decode
+    step, token by token, as the JAX package's ``lax.scan`` does."""
     if sub.kind == "attention":
         return attn.attention_prefill(params, sub.cfg, x, cache, pos_offset)[0]
     if sub.kind == "mlp":
         return mlp_mod.mlp_apply(params, sub.cfg, x)
-    raise ValueError(sub.kind)
+    ys = [_sub_decode(sub, params, x[:, t:t + 1], cache, pos_offset + t)
+          for t in range(x.shape[1])]
+    return torch.cat(ys, dim=1)
 
 
 def _sub_decode(sub: SubBlock, params, x, cache, pos):
@@ -84,7 +114,14 @@ def _sub_decode(sub: SubBlock, params, x, cache, pos):
         return attn.attention_decode(params, sub.cfg, x, cache, pos)[0]
     if sub.kind == "mlp":
         return mlp_mod.mlp_apply(params, sub.cfg, x)
-    raise ValueError(sub.kind)
+    if sub.kind == "mlstm":
+        y, new = xlstm_mod.mlstm_block_decode(params, sub.cfg, x, cache)
+    elif sub.kind == "slstm":
+        y, new = xlstm_mod.slstm_block_apply(params, sub.cfg, x, cache=cache)
+    else:
+        raise ValueError(sub.kind)
+    cache.update(new)
+    return y
 
 
 def _frozen(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
@@ -108,33 +145,32 @@ class SubBlockModule(nn.Module):
 class Layer(nn.Module):
     def __init__(self, spec: LayerSpec, norm: str, d_model: int, generator, dtype):
         super().__init__()
-        attn_subs = [i for i, s in enumerate(spec.subs) if s.kind == "attention"]
-        if len(attn_subs) != 1:
-            raise NotImplementedError(
-                "the port's decode cache holds one attention KV per layer; "
-                f"this layer has {len(attn_subs)} attention sub-blocks")
         self.norm_kind = norm
-        self.attention_cfg = spec.subs[attn_subs[0]].cfg
         self.subs = nn.ModuleList([
             SubBlockModule(sub, NORM_INIT[norm](d_model, generator, dtype),
                            _sub_init(sub, generator, dtype))
             for sub in spec.subs])
 
     def _residual(self, h, run):
-        for blk in self.subs:
+        for i, blk in enumerate(self.subs):
             x = NORM_APPLY[self.norm_kind](blk.norm, h)
-            h = h + run(blk.sub, blk.inner, x)
+            h = h + run(i, blk.sub, blk.inner, x)
         return h
 
     def forward(self, h, positions):
-        return self._residual(h, lambda sub, p, x: _sub_apply(sub, p, x, positions))
+        return self._residual(h, lambda i, sub, p, x: _sub_apply(sub, p, x, positions))
 
     def prefill(self, h, cache, pos_offset):
-        return self._residual(
-            h, lambda sub, p, x: _sub_prefill(sub, p, x, cache, pos_offset))
+        return self._residual(h, lambda i, sub, p, x: _sub_prefill(
+            sub, p, x, cache[f"sub_{i}"], pos_offset))
 
     def decode(self, h, cache, pos):
-        return self._residual(h, lambda sub, p, x: _sub_decode(sub, p, x, cache, pos))
+        return self._residual(h, lambda i, sub, p, x: _sub_decode(
+            sub, p, x, cache[f"sub_{i}"], pos))
+
+    def init_cache(self, batch, max_seq, dtype, device) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {f"sub_{i}": _sub_cache_init(blk.sub, batch, max_seq, dtype, device)
+                for i, blk in enumerate(self.subs)}
 
 
 class LM(nn.Module):
@@ -193,12 +229,12 @@ class LM(nn.Module):
     # -- decode -------------------------------------------------------------
 
     def init_cache(self, batch: int, max_seq: int, dtype=torch.float32) -> Cache:
-        """Zeroed KV caches on the model's device, one per layer."""
+        """Fresh decode caches on the model's device, one dict per layer:
+        zeroed K/V and recurrent states, the stabilisers at -1e6."""
         if max_seq > self.spec.max_position:
             raise ValueError(f"max_seq {max_seq} exceeds max_position "
                              f"{self.spec.max_position}")
-        return [attn.init_kv_cache(layer.attention_cfg, batch, max_seq, dtype,
-                                   device=self.embed.device)
+        return [layer.init_cache(batch, max_seq, dtype, self.embed.device)
                 for layer in self.layers()]
 
     def prefill(self, cache: Cache, tokens: torch.Tensor, pos_offset: int = 0):

@@ -3,8 +3,9 @@
 A model is: embedding -> [LayerSpec, ...] -> final norm -> LM head.
 Each LayerSpec is a tuple of residual *sub-blocks* (pre-norm residual:
 ``h = h + f(norm(h))``).  A standard transformer layer is
-``(attention, mlp)``.  The port builds the attention and mlp kinds; the
-other kinds of the JAX IR raise until their slice lands.
+``(attention, mlp)``; an xLSTM layer is ``(mlstm,)`` or ``(slstm,)``.
+The port builds the attention, mlp, mlstm and slstm kinds; the other
+kinds of the JAX IR raise until their slice lands.
 """
 from __future__ import annotations
 
@@ -14,9 +15,10 @@ from typing import Any, Optional, Tuple
 from repro_torch.nn.attention import AttentionConfig
 from repro_torch.nn.mlp import MLPConfig
 
-SUBBLOCK_KINDS = ("attention", "mlp")
+SUBBLOCK_KINDS = ("attention", "mlp", "mlstm", "slstm")
 # kinds of the JAX IR that arrive with a later slice of the port
-LATER_KINDS = ("cross_attention", "moe", "mamba2", "mlstm", "slstm")
+LATER_KINDS = ("cross_attention", "moe", "mamba2")
+POSITIONALS = ("rope", "none")  # "learned" arrives with a later slice
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +48,15 @@ class ModelSpec:
     layers: Tuple[LayerSpec, ...]
     norm: str = "rmsnorm"
     tie_embeddings: bool = False
+    # "rope": rotary inside attention (nothing at the LM level); "none":
+    # no positional signal (recurrent kinds)
+    positional: str = "rope"
     max_position: int = 1 << 20  # longest context a cache may be built for
+
+    def __post_init__(self):
+        if self.positional not in POSITIONALS:
+            raise NotImplementedError(
+                f"positional {self.positional!r} is not ported; the port has {POSITIONALS}")
 
     @property
     def n_layers(self) -> int:

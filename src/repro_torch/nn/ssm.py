@@ -5,7 +5,8 @@ a chunk are matrix products, and the state is carried from one chunk to
 the next.  With ``impl="pallas"`` the chunked scan is the CUDA kernel
 behind :func:`repro_torch.kernels.ops.ssm_scan` (the name is the JAX
 package's, so one spec drives both packages); :func:`ssd_chunked` is its
-plain version.  One-token decode arrives with the LM slice.
+plain version.  :func:`causal_conv1d` also has the one-step decode form
+the xLSTM blocks use; the Mamba2 decode step arrives with a later slice.
 
 Layout conventions (the JAX package's):
   x     (B, L, H, P)   inner activations, H heads of dim P
@@ -72,8 +73,16 @@ def mamba2_init(cfg: Mamba2Config, generator=None, dtype=torch.float32):
     return params
 
 
-def causal_conv1d(x, w, b):
-    """Depthwise causal conv.  x: (B,L,C), w: (W,C)."""
+def causal_conv1d(x, w, b, state=None):
+    """Depthwise causal conv.  x: (B,L,C), w: (W,C).
+
+    When ``state`` (B, W-1, C) is given, performs one-step decode (x is
+    (B, 1, C)) and also returns the updated state.
+    """
+    if state is not None:
+        window = torch.cat([state, x], dim=1)  # (B, W, C)
+        y = torch.einsum("bwc,wc->bc", window, w) + b
+        return y[:, None, :], window[:, 1:, :]
     width, length = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, width - 1, 0))
     y = xp[:, :length] * w[0]

@@ -57,3 +57,26 @@ def test_nas_loop_imports_without_pyyaml():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "1"
+
+
+def test_xlstm_path_imports_without_pyyaml():
+    """The xLSTM slice's modules (config, LM, blocks, kernels, serving)
+    import, and build the full-width spec's skeleton, with ``yaml``
+    blocked."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.modules['yaml'] = None\n"
+        "import repro_torch.launch.serve, repro_torch.convert, repro_torch.kernels.ops\n"
+        "from repro_torch.configs import get_arch\n"
+        "from repro_torch.models.lm import LM\n"
+        "model = LM(get_arch('xlstm-1.3b').spec())\n"
+        "assert 'yaml' not in [m for m, v in sys.modules.items() if v is not None]\n"
+        "print(model.spec.n_layers)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "48"

@@ -313,3 +313,154 @@ def test_ssm_scan_plain_version_matches_the_recurrence(chunk):
     got_y, got_s = ops.ssm_scan(*[torch.from_numpy(v) for v in args], chunk=chunk)
     assert _rel_err(got_y.numpy(), want_y) < 3e-5
     assert _rel_err(got_s.numpy(), want_s) < 3e-5
+
+
+# -- the mLSTM scan ------------------------------------------------------------
+
+def _mlstm_inputs(seed, b, l, h, p, f_bias=3.0, i_shift=0.0):
+    """q, k, v standard normal; log input gates 2 N(0, 1) + ``i_shift``; log
+    forget gates log-sigmoid(N(0, 1) + ``f_bias``), as tests/test_kernels.py
+    draws them (an mLSTM layer's forget bias starts at 3)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, l, h, p)).astype(np.float32) for _ in range(3))
+    il = (rng.standard_normal((b, l, h)) * 2.0 + i_shift).astype(np.float32)
+    fl = (-np.logaddexp(0.0, -(rng.standard_normal((b, l, h)) + f_bias))).astype(np.float32)
+    return q, k, v, il, fl
+
+
+# (B, L, H, P, chunk): tests/test_kernels.py's sweep shapes, the
+# decrement-chosen chunk 100 of L=200, and the schedule's least chunk, 8
+MLSTM_SHAPES = [(2, 64, 2, 32, 16), (2, 128, 4, 16, 32), (1, 200, 2, 64, 100),
+                (1, 64, 2, 64, 8)]
+
+
+@pytest.mark.parametrize("f_bias", [-2.0, 1.0, 5.0])
+@pytest.mark.parametrize("b, l, h, p, chunk", MLSTM_SHAPES)
+def test_mlstm_scan_matches_jax(b, l, h, p, chunk, f_bias):
+    """The wrapper's CPU path (the plain version, the Pallas kernel's own
+    formulation) against the JAX wrapper (Pallas in interpret mode), to 1e-4
+    of max |h|: the same sums in another order (up to 1.8e-5 measured: the
+    log-gate cumsums reach |fcum| ~ 2e2 in a chunk of 100, where an fp32
+    ulp is 1.5e-5, and a near-cancelling denominator amplifies that).  Both
+    plain versions, this
+    and ``mlstm_chunked``, against the JAX recurrent oracle at JAX's own
+    tolerance (atol 2e-4, rtol 2e-3, tests/test_kernels.py)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    from repro_torch.nn.xlstm import mlstm_chunked
+
+    args = _mlstm_inputs(l + p + int(f_bias), b, l, h, p, f_bias=f_bias)
+    jargs = [jnp.asarray(a) for a in args]
+    want, none = jops.mlstm_scan(*jargs, chunk=chunk)
+    oracle = np.asarray(jax.jit(jref.mlstm_scan_ref)(*jargs))
+    targs = [torch.from_numpy(a) for a in args]
+    got, got_none = ops.mlstm_scan(*targs, chunk=chunk)
+    assert got_none is None and none is None
+    assert got.shape == (b, l, h, p) and got.dtype == torch.float32
+    assert _rel_err(got.numpy(), want) < 1e-4
+    np.testing.assert_allclose(got.numpy(), oracle, atol=2e-4, rtol=2e-3)
+    chunked, _ = mlstm_chunked(*targs, chunk)
+    np.testing.assert_allclose(chunked.numpy(), oracle, atol=2e-4, rtol=2e-3)
+
+
+def test_mlstm_scan_with_strongly_negative_input_gates_is_finite():
+    """Input gates shifted by -100: exp(-m) overflows to inf, the denominator
+    is inf and h is 0 in the Pallas kernel; the plain version gives the
+    same finite output."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+
+    args = _mlstm_inputs(5, 1, 64, 2, 32, i_shift=-100.0)
+    want, _ = jops.mlstm_scan(*[jnp.asarray(a) for a in args], chunk=16)
+    got, _ = ops.mlstm_scan(*[torch.from_numpy(a) for a in args], chunk=16)
+    assert torch.isfinite(got).all()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_mlstm_recurrent_matches_jax():
+    """The port's step-by-step oracle against the JAX package's, to 1e-5 of
+    max |h|, and the port's plain version against it at JAX's tolerance."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+
+    args = _mlstm_inputs(9, 2, 48, 2, 16, f_bias=1.0)
+    want = np.asarray(jax.jit(jref.mlstm_scan_ref)(*[jnp.asarray(a) for a in args]))
+    targs = [torch.from_numpy(a) for a in args]
+    assert _rel_err(ref.mlstm_recurrent_ref(*targs).numpy(), want) < 1e-5
+    np.testing.assert_allclose(ref.mlstm_scan_ref(*targs, chunk=16).numpy(),
+                               ref.mlstm_recurrent_ref(*targs).numpy(), atol=2e-4, rtol=2e-3)
+
+
+def test_mlstm_scan_bf16_cpu_path_rounds_h_once():
+    """bf16 q, k, v: the plain version computes in fp32 and rounds h to bf16
+    once, so it is within half a bf16 ulp of the fp32 result on the same
+    bf16 values."""
+    q, k, v, il, fl = (torch.from_numpy(a) for a in _mlstm_inputs(3, 1, 64, 2, 32))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got, _ = ops.mlstm_scan(q, k, v, il, fl, chunk=16)
+    want, _ = ops.mlstm_scan(q.float(), k.float(), v.float(), il, fl, chunk=16)
+    assert got.dtype == torch.bfloat16
+    assert _err_over_tol(got.float().numpy(), want.numpy(), BF16_ULP / 2, of_max=1e-7) <= 1
+
+
+def test_mlstm_scan_cpu_call_does_not_count_as_a_launch():
+    before = ops.LAUNCHES["mlstm_scan"]
+    ops.mlstm_scan(*[torch.from_numpy(a) for a in _mlstm_inputs(0, 1, 16, 2, 8)], chunk=8)
+    assert ops.LAUNCHES["mlstm_scan"] == before
+
+
+@pytest.mark.parametrize("bad, message", [
+    (dict(chunk=24), "does not divide"),
+    (dict(f_shape=(1, 64, 3)), "shapes do not agree"),
+    (dict(v_dtype=torch.float64), "dtypes differ"),
+])
+def test_mlstm_scan_rejects_bad_inputs(bad, message):
+    q = k = torch.zeros(1, 64, 2, 8)
+    v = torch.zeros(1, 64, 2, 8, dtype=bad.get("v_dtype", torch.float32))
+    il, fl = torch.zeros(1, 64, 2), torch.zeros(bad.get("f_shape", (1, 64, 2)))
+    with pytest.raises(ValueError, match=message):
+        ops.mlstm_scan(q, k, v, il, fl, chunk=bad.get("chunk", 16))
+
+
+# (B, L, H, P, chunk, input-gate shift) — the chip smoke's cases: the
+# xlstm-1.3b forward's shape first, then serving-length prompts at batch 4,
+# the CPU shapes, and strongly negative input gates
+MLSTM_CUDA_CASES = [
+    (1, 2048, 4, 1024, 128, 0.0),
+    (4, 512, 4, 1024, 128, 0.0),
+    (2, 64, 2, 32, 16, 0.0),
+    (2, 128, 4, 16, 32, 0.0),
+    (1, 200, 2, 64, 100, 0.0),
+    (1, 64, 2, 64, 8, 0.0),
+    (1, 64, 2, 32, 16, -100.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, h_rel", [("float32", 0.0), ("bfloat16", BF16_ULP / 2)])
+@pytest.mark.parametrize("b, l, h, p, chunk, i_shift", MLSTM_CUDA_CASES)
+def test_mlstm_scan_cuda_kernel_matches_plain_version(b, l, h, p, chunk, i_shift, dtype, h_rel):
+    """Against the fp32 plain version on the same (bf16-valued) inputs: the
+    kernel sums in fp32 and rounds h once, so each element of h is within
+    ``h_rel`` of its |h| (half a bf16 ulp) plus 1e-4 of max |h| (order of
+    summation); finite everywhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt_ = getattr(torch, dtype)
+    q, k, v, il, fl = (torch.from_numpy(a).cuda()
+                       for a in _mlstm_inputs(l + p, b, l, h, p, i_shift=i_shift))
+    q, k, v = q.to(dt_), k.to(dt_), v.to(dt_)
+    before = ops.LAUNCHES["mlstm_scan"]
+    out, none = ops.mlstm_scan(q, k, v, il, fl, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mlstm_scan"] == before + 1 and none is None
+    want = ref.mlstm_scan_ref(q.float(), k.float(), v.float(), il, fl, chunk=chunk)
+    assert out.dtype == dt_ and out.shape == q.shape
+    assert bool(torch.isfinite(out.float()).all())
+    assert _err_over_tol(out.float().cpu().numpy(), want.cpu().numpy(), h_rel,
+                         of_max=1e-4) <= 1

@@ -17,7 +17,7 @@ from repro.models.lm import LM as JaxLM  # noqa: E402
 from repro.nn.types import split  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.convert import cache_from_jax, lm_from_jax  # noqa: E402
-from repro_torch.launch.serve import _swap_attention_impl  # noqa: E402
+from repro_torch.launch.serve import swap_kernel_impl  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 
 ATOL = 1e-4  # prefill vs the token loop in tests/test_serving.py
@@ -34,8 +34,8 @@ def _pair(impl="xla"):
         # the port's helper is plain dataclass surgery and fits both specs
         # (importing the JAX dry-run module would spoof 512 host devices
         # for every process this one starts)
-        jspec = dataclasses.replace(jspec, layers=_swap_attention_impl(jspec.layers, impl))
-        tspec = dataclasses.replace(tspec, layers=_swap_attention_impl(tspec.layers, impl))
+        jspec = dataclasses.replace(jspec, layers=swap_kernel_impl(jspec.layers, impl))
+        tspec = dataclasses.replace(tspec, layers=swap_kernel_impl(tspec.layers, impl))
     jmodel = JaxLM(jspec)
     params, _ = split(jmodel.init(jax.random.PRNGKey(0), dtype=jnp.float32))
     tmodel = lm_from_jax(tspec, _numpy(params), device="cpu")
@@ -54,8 +54,11 @@ def _close_caches(tcache, jcache, tspec):
     ported = cache_from_jax(tspec, _numpy(jcache), device="cpu")
     assert len(ported) == len(tcache) == tspec.n_layers
     for got, want in zip(tcache, ported):
-        for kv in ("k", "v"):
-            _close(got[kv], want[kv].numpy())
+        assert got.keys() == want.keys()
+        for name, leaves in want.items():
+            assert got[name].keys() == leaves.keys()
+            for leaf, value in leaves.items():
+                _close(got[name][leaf], value.numpy())
 
 
 def test_forward_logits_match_jax_apply():
@@ -101,7 +104,7 @@ def test_prefill_matches_own_token_loop():
     assert (logits - loop_logits).abs().max().item() < ATOL
     for a, b in zip(cache, loop_cache):
         for kv in ("k", "v"):
-            assert (a[kv] - b[kv]).abs().max().item() < ATOL
+            assert (a["sub_0"][kv] - b["sub_0"][kv]).abs().max().item() < ATOL
     nxt = logits[:, -1:].argmax(-1)
     lg_a, _ = tmodel.decode(cache, nxt, 8)
     lg_b, _ = tmodel.decode(loop_cache, nxt, 8)

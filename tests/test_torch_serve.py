@@ -41,15 +41,20 @@ def test_traffic_stream_matches_jax_copy(seed, arrival):
         assert np.array_equal(a.prompt_tokens(512), b.prompt_tokens(512))
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_engine_matches_jax_engine(impl):
+@pytest.mark.parametrize("arch, impl", [
+    pytest.param("qwen3-1.7b", "xla", id="xla"),
+    pytest.param("qwen3-1.7b", "pallas", id="pallas"),
+    pytest.param("xlstm-1.3b", "xla", id="xlstm-1.3b-xla"),
+    pytest.param("xlstm-1.3b", "pallas", id="xlstm-1.3b-pallas"),
+])
+def test_engine_matches_jax_engine(arch, impl):
     """The traffic of tests/test_serving.py's engine test: same summary,
-    same generated tokens per request."""
-    jspec = jax_get_arch("qwen3-1.7b").smoke_spec_fn()
+    same generated tokens per request, for each ported arch's smoke spec."""
+    jspec = jax_get_arch(arch).smoke_spec_fn()
     # the port's helper is plain dataclass surgery and fits both specs
-    jspec = dataclasses.replace(jspec, layers=tserve._swap_attention_impl(jspec.layers, impl))
-    tspec = get_arch("qwen3-1.7b").smoke_spec_fn()
-    tspec = dataclasses.replace(tspec, layers=tserve._swap_attention_impl(tspec.layers, impl))
+    jspec = dataclasses.replace(jspec, layers=tserve.swap_kernel_impl(jspec.layers, impl))
+    tspec = get_arch(arch).smoke_spec_fn()
+    tspec = dataclasses.replace(tspec, layers=tserve.swap_kernel_impl(tspec.layers, impl))
     jmodel = JaxLM(jspec)
     params, _ = split(jmodel.init(jax.random.PRNGKey(0), dtype=jnp.float32))
     tmodel = lm_from_jax(tspec, jax.tree_util.tree_map(np.asarray, params), device="cpu")
