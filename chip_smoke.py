@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port on one CUDA card (an H100, ``sm_90a``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases mlstm,xlstm_forward   # a subset, no result line
 
 Run from the root of a checkout.  Phases, each of which raises on failure
 (and the script then exits non-zero and prints no result line):
@@ -684,8 +685,24 @@ def nas_phase(torch, ops, ref) -> dict:
     return summary
 
 
-def main() -> int:
+SUBSET_PHASES = ("nas", "mlstm", "xlstm_forward", "xlstm_serve")
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--phases", default="",
+        help=f"run only these phases (comma-separated, of {', '.join(SUBSET_PHASES)}) "
+             f"after the environment and the build, and print no result line: for "
+             f"comparing two trees in one run (default: every phase)")
+    subset = [name for name in parser.parse_args(argv).phases.split(",") if name]
+    unknown = sorted(set(subset) - set(SUBSET_PHASES))
+    if unknown:
+        parser.error(f"unknown phases {unknown}; choose from {SUBSET_PHASES}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -721,6 +738,19 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+
+    if subset:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for name in subset:
+            if name == "nas":
+                nas_phase(torch, ops, ref)
+            elif name == "mlstm":
+                mlstm_phase(torch, ops, ref, gen)
+            elif name == "xlstm_forward":
+                xlstm_forward_phase(torch, ops, ref, serve)
+            else:
+                xlstm_serve_phase(torch, ops, ref, serve)
+        return 0
 
     # -- 3. kernel against plain version ----------------------------------
     def plain(q, k, v, *, causal, window, scale=None):

@@ -192,7 +192,7 @@ def _mlstm_fns():
                    + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     floats = lib.repro_mlstm_scan_scratch_floats
-    floats.argtypes = [ctypes.c_int] * 4
+    floats.argtypes = [ctypes.c_int] * 5
     floats.restype = ctypes.c_longlong
     return fn, floats
 
@@ -246,7 +246,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out, None
     fn, floats = _mlstm_fns()
-    scratch = torch.empty((floats(bsz, l, h, chunk),), dtype=torch.float32, device=q.device)
+    scratch = torch.empty((floats(bsz, l, h, p, chunk),), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), i_log.data_ptr(),
@@ -261,6 +261,6 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(
             f"mlstm_scan kernel launch failed: CUDA error {err} (1 is an invalid value: "
             f"the kernel also refuses a chunk whose state pass does not fit one "
-            f"block's shared memory, which at P=1024 is a chunk above about 600)")
+            f"block's shared memory, which at P=1024 is a chunk above about 430)")
     LAUNCHES["mlstm_scan"] += 1
     return out, None
