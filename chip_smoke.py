@@ -577,20 +577,14 @@ def nas_phase(torch, ops, ref) -> dict:
         return value
 
     plain_calls = []
-
-    def counted(fn):
-        def wrapper(*a, **kw):
-            plain_calls.append(fn.__name__)
-            return fn(*a, **kw)
-        return wrapper
-
     study = Study(name="nas-h100", sampler=RandomSampler(seed=0))
     torch.cuda.synchronize()
     held_before = torch.cuda.memory_allocated()
     ops.LAUNCHES.clear()
     t0 = time.perf_counter()
-    with mock.patch.object(ref, "ssm_scan_ref", counted(ref.ssm_scan_ref)), \
-            mock.patch.object(ref, "flash_attention_ref", counted(ref.flash_attention_ref)):
+    with mock.patch.object(ref, "ssm_scan_ref", _counted(plain_calls, ref.ssm_scan_ref)), \
+            mock.patch.object(ref, "flash_attention_ref",
+                              _counted(plain_calls, ref.flash_attention_ref)):
         study.optimize(objective, NAS_TRIALS)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -850,15 +844,10 @@ def main(argv=None) -> int:
     # -- 4. serve at full width -------------------------------------------
     args = serve.parse_args(SERVE_ARGS)
     plain_calls = []
-    real_ref = ref.flash_attention_ref
-
-    def counted_ref(*a, **kw):
-        plain_calls.append(1)
-        return real_ref(*a, **kw)
-
     ops.LAUNCHES.clear()
     torch.cuda.reset_peak_memory_stats()
-    with mock.patch.object(ref, "flash_attention_ref", counted_ref):
+    with mock.patch.object(ref, "flash_attention_ref",
+                           _counted(plain_calls, ref.flash_attention_ref)):
         summary, engine = serve._serve_lm(args)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)

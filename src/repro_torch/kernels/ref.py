@@ -16,9 +16,7 @@ import torch
 
 from repro_torch.nn.attention import grouped_attention, make_mask
 from repro_torch.nn.ssm import ssd_chunked
-from repro_torch.nn.xlstm import mlstm_recurrent
-
-MLSTM_BIG_NEG = -1e6  # the Pallas kernel's start value of the stabiliser
+from repro_torch.nn.xlstm import BIG_NEG, mlstm_recurrent
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
@@ -54,7 +52,7 @@ def mlstm_scan_ref(q, k, v, i_log, f_log, *, chunk):
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
     c = torch.zeros((b, h, p, p), dtype=torch.float32, device=q.device)
     n = torch.zeros((b, h, p), dtype=torch.float32, device=q.device)
-    m = torch.full((b, h), MLSTM_BIG_NEG, dtype=torch.float32, device=q.device)
+    m = torch.full((b, h), BIG_NEG, dtype=torch.float32, device=q.device)
     out = []
     for l0 in range(0, l, chunk):
         qc, kc, vc = (t[:, :, l0:l0 + chunk] for t in (qf, kf, vf))
@@ -65,7 +63,7 @@ def mlstm_scan_ref(q, k, v, i_log, f_log, *, chunk):
         a_log = torch.where(tri, fcum[..., :, None] - fcum[..., None, :] + igc[..., None, :],
                             float("-inf"))
         b_log = fcum + m[..., None]
-        m_i = torch.clamp_min(torch.maximum(torch.amax(a_log, dim=-1), b_log), MLSTM_BIG_NEG)
+        m_i = torch.clamp_min(torch.maximum(torch.amax(a_log, dim=-1), b_log), BIG_NEG)
         intra_w = torch.exp(a_log - m_i[..., None])  # (b,h,Q,Q)
         inter_w = torch.exp(b_log - m_i)  # (b,h,Q)
         s_intra = (qc @ kc.transpose(-1, -2)) * intra_w
@@ -76,7 +74,7 @@ def mlstm_scan_ref(q, k, v, i_log, f_log, *, chunk):
         # state update to chunk end
         w_log = ftot[..., None] - fcum + igc  # (b,h,Q)
         m_next = torch.clamp_min(torch.maximum(ftot + m, torch.amax(w_log, dim=-1)),
-                                 MLSTM_BIG_NEG)
+                                 BIG_NEG)
         kw = kc * torch.exp(w_log - m_next[..., None])[..., None]  # (b,h,Q,P)
         carry = torch.exp(ftot + m - m_next)
         c = carry[..., None, None] * c + kw.transpose(-1, -2) @ vc

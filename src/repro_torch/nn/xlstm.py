@@ -121,7 +121,6 @@ def mlstm_chunked(q, k, v, i_log, f_log, chunk, initial=None):
         m_s = torch.full((b, h), float("-inf"), dtype=torch.float32, device=q.device)
     else:
         c_s, n_s, m_s = initial
-    big_neg = torch.tensor(BIG_NEG, dtype=torch.float32, device=q.device)
     tri = torch.tril(torch.ones((qq, qq), dtype=torch.bool, device=q.device))
 
     hs = []
@@ -135,7 +134,7 @@ def mlstm_chunked(q, k, v, i_log, f_log, chunk, initial=None):
         a_log = torch.where(tri, a_log, float("-inf"))  # (b,h,qi,qj)
         b_log = fci + m_s[..., None]  # (b,h,q)
         m_i = torch.maximum(torch.amax(a_log, dim=-1), b_log)
-        m_i = torch.maximum(m_i, big_neg)  # avoid -inf - -inf
+        m_i = torch.clamp_min(m_i, BIG_NEG)  # avoid -inf - -inf
         intra_w = torch.exp(a_log - m_i[..., None])
         inter_w = torch.exp(b_log - m_i)
 
@@ -152,7 +151,7 @@ def mlstm_chunked(q, k, v, i_log, f_log, chunk, initial=None):
         # state update to chunk end
         w_log = ftot_k[..., None] - fci + ik_  # (b,h,q)
         m_next = torch.maximum(ftot_k + m_s, torch.amax(w_log, dim=-1))
-        m_next = torch.maximum(m_next, big_neg)
+        m_next = torch.clamp_min(m_next, BIG_NEG)
         kw = torch.exp(w_log - m_next[..., None])  # (b,h,q)
         kwf = kk_.float() * kw.transpose(1, 2)[..., None]  # (b,q,h,p)
         c_upd = torch.einsum("bjhp,bjhd->bhpd", kwf, vk_.float())
