@@ -322,13 +322,13 @@ def _counted(calls, fn):
     return wrapper
 
 
-def profile_by_kind(torch, label, step, ranges=()) -> None:
+def profile_by_kind(torch, label, step, ranges=()) -> dict:
     """One run of ``step`` (which ends in a device sync) under
     ``torch.profiler``: its host wall time, device time by kind of kernel
     (GEMMs, the mLSTM scan, the rest), for each ``record_function`` range
     named in ``ranges`` the host time inside it, the device time of the
     kernels launched in it and its span on the device, and the device's
-    busy share of the wall time."""
+    busy share of the wall time.  Returns the printed row."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode(), \
@@ -362,14 +362,16 @@ def profile_by_kind(torch, label, step, ranges=()) -> None:
         else:
             kinds["rest"] += ms
     busy_ms = sum(ms for ms, _, _ in kernels)
-    print("profile " + json.dumps({
+    row = {
         "window": label, "wall_ms": wall_ms,
         "device_ms": busy_ms if kernels else "not measured",
         "device_busy_share": busy_ms / wall_ms if kernels else "not measured",
         "device_ms_by_kind": kinds if kernels else "not measured",
         "kernel_launches": sum(n for _, _, n in kernels),
         "ranges": in_ranges,
-        "top_kernels_ms": [[name[:70], ms, n] for ms, name, n in sorted(kernels, reverse=True)[:8]]}))
+        "top_kernels_ms": [[name[:70], ms, n] for ms, name, n in sorted(kernels, reverse=True)[:8]]}
+    print("profile " + json.dumps(row))
+    return row
 
 
 def xlstm_forward_phase(torch, ops, ref, serve) -> dict:
@@ -424,22 +426,7 @@ def xlstm_forward_phase(torch, ops, ref, serve) -> dict:
     err = (logits - plain_logits).abs().max().item()
     tol = XLSTM_LOGITS_REL * plain_logits.abs().max().item()
     finite = bool(torch.isfinite(logits).all())
-    summary = {
-        "arch": spec.name, "n_params": n_params, "tokens": list(tokens.shape),
-        "wall_ms": walls, "plain_impl_wall_ms": plain_wall,
-        "mlstm_layers": n_mlstm, "mlstm_scan_launches": launches.get("mlstm_scan", 0),
-        "plain_calls": len(plain_calls), "plain_impl_kernel_launches": plain_launches,
-        "max_memory_allocated": peak, "logits_shape": list(logits.shape), "finite": finite,
-        "max_abs_logit": plain_logits.abs().max().item(), "max_abs_err": err, "tol": tol,
-    }
-    print("xlstm_forward " + json.dumps(summary))
-    if launches.get("mlstm_scan", 0) != n_mlstm or plain_calls or plain_launches:
-        raise AssertionError(f"xlstm_forward: mlstm_scan launched {launches} times "
-                             f"(expected {n_mlstm}), plain calls {len(plain_calls)}, "
-                             f"launches under impl=xla {plain_launches}")
-    if not finite or tuple(logits.shape) != (1, XLSTM_SEQ, spec.vocab) or err > tol:
-        raise AssertionError(f"xlstm_forward: logits max |err| {err} > {tol}, "
-                             f"finite={finite}, shape {tuple(logits.shape)}")
+    logits_shape = tuple(logits.shape)
     del logits, plain_logits
 
     # where the time goes: the sLSTM blocks' time loops and the mLSTM blocks
@@ -453,9 +440,27 @@ def xlstm_forward_phase(torch, ops, ref, serve) -> dict:
                            ranged("slstm_block", xlstm_mod.slstm_block_apply)), \
             mock.patch.object(xlstm_mod, "mlstm_block_apply",
                               ranged("mlstm_block", xlstm_mod.mlstm_block_apply)):
-        profile_by_kind(torch, f"xlstm forward B=1 L={XLSTM_SEQ}",
-                        lambda: float(model(tokens)[0, -1, 0]),
-                        ranges=("slstm_block", "mlstm_block"))
+        prof = profile_by_kind(torch, f"xlstm forward B=1 L={XLSTM_SEQ}",
+                               lambda: float(model(tokens)[0, -1, 0]),
+                               ranges=("slstm_block", "mlstm_block"))
+    summary = {
+        "arch": spec.name, "n_params": n_params, "tokens": list(tokens.shape),
+        "wall_ms": walls, "device_ms": prof["device_ms"],
+        "device_ms_source": "the profiled forward's kernels (torch.profiler)",
+        "plain_impl_wall_ms": plain_wall,
+        "mlstm_layers": n_mlstm, "mlstm_scan_launches": launches.get("mlstm_scan", 0),
+        "plain_calls": len(plain_calls), "plain_impl_kernel_launches": plain_launches,
+        "max_memory_allocated": peak, "logits_shape": list(logits_shape), "finite": finite,
+        "max_abs_err": err, "tol": tol,
+    }
+    print("xlstm_forward " + json.dumps(summary))
+    if launches.get("mlstm_scan", 0) != n_mlstm or plain_calls or plain_launches:
+        raise AssertionError(f"xlstm_forward: mlstm_scan launched {launches} times "
+                             f"(expected {n_mlstm}), plain calls {len(plain_calls)}, "
+                             f"launches under impl=xla {plain_launches}")
+    if not finite or logits_shape != (1, XLSTM_SEQ, spec.vocab) or err > tol:
+        raise AssertionError(f"xlstm_forward: logits max |err| {err} > {tol}, "
+                             f"finite={finite}, shape {logits_shape}")
     del model
     torch.cuda.empty_cache()
     return summary
