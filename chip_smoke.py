@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port on one CUDA card (an H100, ``sm_90a``).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases mlstm,xlstm_forward   # a subset, no result line
+    python3 chip_smoke.py --phases flash,nas   # a subset, no result line
 
 Run from the root of a checkout.  Phases, each of which raises on failure
 (and the script then exits non-zero and prints no result line):
@@ -15,7 +15,9 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    bf16, with the time of the kernel, of the plain version and of one
    PyTorch library call computing the same function where there is one
    (CUDA events around 10 back-to-back calls, median of 20 such runs
-   after 3 warm-ups): flash attention, then the SSD scan;
+   after 3 warm-ups; for the served and NAS flash shapes also the
+   kernel's and the library call's device time from ``torch.profiler``):
+   flash attention, then the SSD scan;
 4. serve: ``python -m repro_torch.launch.serve --arch qwen3-1.7b`` in
    process, at full width with random weights: 8 requests must be served,
    the kernel launched once per layer per prefill, the plain version never;
@@ -62,8 +64,10 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM data sheet: dense peaks and memory rate
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# NVIDIA H100 SXM data sheet: dense peaks and memory rate.  fp32 work is
+# bounded by the card's fastest route that keeps fp32 accuracy: split-TF32
+# (each product as three TF32 products) on the tensor cores, 495 / 3 TFLOP/s
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 MEM_BYTES_PER_S = 3.35e12
 
 # (B, S, H, KH, D, causal, window)
@@ -77,12 +81,18 @@ FLASH_CASES = [
     (1, 128, 4, 2, 16, True, 32),
     (1, 200, 4, 2, 16, False, None),
     (1, 2048, 32, 32, 80, False, None),  # the NAS loop's attention: D=80, non-causal
+    # ragged S inside a 64-row tile, D not a multiple of 16, group 4, and a
+    # window that crosses 64-row tiles
+    (2, 777, 8, 2, 36, True, 100),
 ]
 TOLERANCE = {
     "float32": 1e-4,   # order of summation only
     "bfloat16": 2e-2,  # the plain version rounds P to bf16 before P @ V
 }
 REPORTED_CASE = (1, 512, 16, 8, 128, True, None)  # the longer served prompt
+NAS_FLASH_CASE = (1, 2048, 32, 32, 80, False, None)
+# cases whose rows also carry device time from torch.profiler
+DEVICE_TIMED_CASES = (REPORTED_CASE, NAS_FLASH_CASE)
 
 SERVE_ARGS = ["--arch", "qwen3-1.7b", "--requests", "8", "--arrival", "burst",
               "--prompt-lens", "128,512", "--gen-lens", "16", "--max-batch", "4",
@@ -174,10 +184,13 @@ def _smi() -> str:
 
 
 def _time_ms(torch, fn, warmup=3, runs=20, calls=10) -> float:
-    """Device milliseconds of one call of ``fn``: the median over ``runs``
-    pairs of CUDA events, each around ``calls`` back-to-back calls (so the
-    host's per-call latency is hidden while the device queue stays full),
-    after ``warmup`` calls."""
+    """Milliseconds of one call of ``fn``: the median over ``runs`` pairs
+    of CUDA events, each around ``calls`` back-to-back calls, after
+    ``warmup`` calls.  That is the device time only while the device is
+    the slower side; a call whose kernels are shorter than its host path
+    (checks, ctypes, launch) leaves the device idle between launches, and
+    the events then time the host's rate.  :func:`_device_ms` reads the
+    kernels' own time."""
     for _ in range(warmup):
         fn()
     times = []
@@ -191,6 +204,24 @@ def _time_ms(torch, fn, warmup=3, runs=20, calls=10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def _device_ms(torch, fn, warmup=3, calls=20):
+    """Device milliseconds of one call of ``fn``: the time of the kernels
+    it launches under ``torch.profiler``, summed over ``calls`` calls,
+    over ``calls``; the gaps between launches do not count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if str(ev.device_type).endswith("CUDA"))
+    return total_us / 1e3 / calls if total_us > 0 else "not measured"
 
 
 def profile_window(torch, label, step, warmup=2, steps=3) -> None:
@@ -652,15 +683,10 @@ def nas_phase(torch, ops, ref) -> dict:
     def plain_ssm(x_, dt, a, b, c_, *, chunk):
         return ref.ssm_scan_ref(x_, dt, a, b, c_, chunk=chunk)
 
-    def plain_flash(q, k, v, *, causal, window, scale=None):
-        return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                       v.transpose(1, 2), causal=causal,
-                                       window=window, scale=scale).transpose(1, 2)
-
     with torch.inference_mode():
         kernel_out = model(x)
         with mock.patch.object(ops, "ssm_scan", plain_ssm), \
-                mock.patch.object(ops, "flash_attention", plain_flash):
+                mock.patch.object(ops, "flash_attention", _flash_plain):
             plain_out = model(x)
         torch.cuda.synchronize()
     err = (kernel_out - plain_out).abs().max().item()
@@ -684,7 +710,82 @@ def nas_phase(torch, ops, ref) -> dict:
     return summary
 
 
-SUBSET_PHASES = ("nas", "mlstm", "xlstm_forward", "xlstm_serve")
+def _flash_plain(q, k, v, *, causal, window, scale=None):
+    """The plain version of the flash kernel, in the wrapper's layout."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal,
+                                   window=window, scale=scale).transpose(1, 2)
+
+
+def _flash_library(q, k, v, *, causal, window):
+    """One PyTorch call computing the same attention (SDPA, KV repeated to
+    the query heads beforehand), as a yardstick: the port never calls it."""
+    import torch.nn.functional as F
+
+    from repro_torch.nn.attention import make_mask
+
+    group = q.shape[2] // k.shape[2]
+    kT = k.transpose(1, 2).repeat_interleave(group, dim=1)
+    vT = v.transpose(1, 2).repeat_interleave(group, dim=1)
+    mask = None
+    if window is not None:
+        mask = make_mask(q.shape[1], k.shape[1], causal, window, device=q.device)[0]
+    return lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kT, vT, attn_mask=mask, is_causal=causal and window is None)
+
+
+def flash_phase(torch, ops, gen) -> dict:
+    """The flash kernel against its plain version on the same inputs, fp32
+    and bf16, every case of ``FLASH_CASES``, with the kernel's, the plain
+    version's and SDPA's times; the ``DEVICE_TIMED_CASES`` also with the
+    kernel's and SDPA's device time.  Returns the rows."""
+    from repro_torch.nn.attention import make_mask
+
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for case in FLASH_CASES:
+            b, s, h, kh, d, causal, window = case
+            q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
+            k = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(dt)
+            v = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(dt)
+            kw = dict(causal=causal, window=window)
+            out = ops.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = _flash_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            if not (out.shape == q.shape and out.dtype == dt and err <= TOLERANCE[dtype]):
+                raise AssertionError(f"flash_attention {case} {dtype}: max |err| "
+                                     f"{err} > {TOLERANCE[dtype]} or bad shape/dtype")
+            pairs = int(make_mask(s, s, causal, window, device="cuda").sum())
+            flops = 4 * b * h * d * pairs
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / MEM_BYTES_PER_S
+            kernel = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
+            library = _flash_library(q, k, v, **kw)
+            row = {
+                "case": {"B": b, "S": s, "H": h, "KH": kh, "D": d,
+                         "causal": causal, "window": window},
+                "dtype": dtype, "max_abs_err": err, "tol": TOLERANCE[dtype],
+                "ms": _time_ms(torch, kernel),
+                "plain_ms": _time_ms(torch, lambda: _flash_plain(q, k, v, **kw)),
+                "library_ms": _time_ms(torch, library),
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            }
+            if case in DEVICE_TIMED_CASES:
+                row["device_ms"] = _device_ms(torch, kernel)
+                row["library_device_ms"] = _device_ms(torch, library)
+            rows[(case, dtype)] = row
+            print("flash_attention " + json.dumps(row))
+            del q, k, v, out, want
+    return rows
+
+
+SUBSET_PHASES = ("flash", "nas", "mlstm", "xlstm_forward", "xlstm_serve")
 
 
 def main(argv=None) -> int:
@@ -712,11 +813,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    import torch.nn.functional as F
-
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import serve
-    from repro_torch.nn.attention import make_mask
 
     # -- 1. environment ----------------------------------------------------
     smi = _smi()
@@ -741,7 +839,9 @@ def main(argv=None) -> int:
     if subset:
         gen = torch.Generator(device="cuda").manual_seed(0)
         for name in subset:
-            if name == "nas":
+            if name == "flash":
+                flash_phase(torch, ops, gen)
+            elif name == "nas":
                 nas_phase(torch, ops, ref)
             elif name == "mlstm":
                 mlstm_phase(torch, ops, ref, gen)
@@ -752,56 +852,8 @@ def main(argv=None) -> int:
         return 0
 
     # -- 3. kernel against plain version ----------------------------------
-    def plain(q, k, v, *, causal, window, scale=None):
-        return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                       v.transpose(1, 2), causal=causal,
-                                       window=window, scale=scale).transpose(1, 2)
-
-    def library(q, k, v, *, causal, window):
-        group = q.shape[2] // k.shape[2]
-        kT = k.transpose(1, 2).repeat_interleave(group, dim=1)
-        vT = v.transpose(1, 2).repeat_interleave(group, dim=1)
-        mask = None
-        if window is not None:
-            mask = make_mask(q.shape[1], k.shape[1], causal, window, device=q.device)[0]
-        return lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), kT, vT, attn_mask=mask,
-            is_causal=causal and window is None)
-
-    kernel_rows = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype in ("float32", "bfloat16"):
-        dt = getattr(torch, dtype)
-        for case in FLASH_CASES:
-            b, s, h, kh, d, causal, window = case
-            q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
-            k = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(dt)
-            v = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(dt)
-            kw = dict(causal=causal, window=window)
-            out = ops.flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
-            want = plain(q, k, v, **kw)
-            torch.cuda.synchronize()
-            err = (out.float() - want.float()).abs().max().item()
-            if not (out.shape == q.shape and out.dtype == dt and err <= TOLERANCE[dtype]):
-                raise AssertionError(f"flash_attention {case} {dtype}: max |err| "
-                                     f"{err} > {TOLERANCE[dtype]} or bad shape/dtype")
-            pairs = int(make_mask(s, s, causal, window, device="cuda").sum())
-            flops = 4 * b * h * d * pairs
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-            t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / MEM_BYTES_PER_S
-            row = {
-                "case": {"B": b, "S": s, "H": h, "KH": kh, "D": d,
-                         "causal": causal, "window": window},
-                "dtype": dtype, "max_abs_err": err, "tol": TOLERANCE[dtype],
-                "ms": _time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw)),
-                "plain_ms": _time_ms(torch, lambda: plain(q, k, v, **kw)),
-                "library_ms": _time_ms(torch, library(q, k, v, **kw)),
-                "bound_ms": max(t_ops, t_bytes) * 1e3,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            }
-            kernel_rows[(case, dtype)] = row
-            print("flash_attention " + json.dumps(row))
+    kernel_rows = flash_phase(torch, ops, gen)
 
     # -- 3b. the SSD scan against its plain version -------------------------
     ssm_rows = {}
@@ -891,7 +943,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         if ops.LAUNCHES["flash_attention"] != before + n_layers:
             raise AssertionError("prefill logits: the kernel did not run once per layer")
-        with mock.patch.object(ops, "flash_attention", plain):
+        with mock.patch.object(ops, "flash_attention", _flash_plain):
             plain_logits, _ = model.prefill(model.init_cache(1, 513), prompt)
         torch.cuda.synchronize()
     err = (kernel_logits - plain_logits).abs().max().item()
@@ -941,6 +993,7 @@ def main(argv=None) -> int:
         "max_abs_err": served["max_abs_err"], "ms": served["ms"],
         "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
         "bound_by": served["bound_by"], "library_ms": served["library_ms"],
+        "device_ms": served["device_ms"], "library_device_ms": served["library_device_ms"],
         "shape": "B=1 S=T=512 H=16 KH=8 D=128 causal float32",
     }, {
         "name": "ssm_scan", "route": "cuda",

@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Times versions of the flash kernel's CUDA source against each other on
+one card, in turns.
+
+    PYTHONPATH=src python scripts/flash_variants.py A.cu B.cu ...
+
+Each argument is a whole ``flash_attention.cu`` (the checkout's
+``src/repro_torch/kernels/csrc/flash_attention.cu``, an earlier one from
+``git show``, or an edited copy).  Each is built with the flags of
+``repro_torch.kernels.build`` into ``build/flash_variants/`` (the
+registers of its D=80 and D=128 kernels are printed), then, at the NAS
+and served shapes and in fp32 and bf16, held against the plain version
+and timed in turns (A, B, ..., B, A): CUDA events around back-to-back
+launches, and the kernels' device time from ``torch.profiler``.  One line
+a (shape, dtype, source), with the card's name and power limit first.
+Needs a CUDA card and ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.kernels import build, ref
+
+OUT = build.BUILD_DIR.parent / "flash_variants"
+# (B, S, H, KH, D, causal): the NAS loop's attention, the longer served
+# prompt, and D=128 over a long sequence without the causal imbalance
+SHAPES = [(1, 2048, 32, 32, 80, False), (1, 512, 16, 8, 128, True),
+          (1, 2048, 16, 8, 128, False)]
+TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _build(sources):
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {src: subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-o", str(OUT / f"{i}-{Path(src).stem}.so"), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i, src in enumerate(sources)}
+    fns = {}
+    for i, (src, proc) in enumerate(procs.items()):
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"{src}: nvcc exited {proc.returncode}\n{log}")
+        kernel = None
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                kernel = line.split("flash_fwd")[-1][:24]
+            elif "Used" in line and kernel and ("Li80E" in kernel or "Li128E" in kernel):
+                print(f"registers {src} {kernel}: {line.split(':', 1)[1].strip()}")
+        fn = ctypes.CDLL(str(OUT / f"{i}-{Path(src).stem}.so")).repro_flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[src] = fn
+    return fns
+
+
+def _launch(fn, q, k, v, o, causal):
+    b, s, h, d = q.shape
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             0 if q.dtype == torch.float32 else 1, b, s, k.shape[1], h, k.shape[2], d,
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+             int(causal), 0, d ** -0.5, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"launch failed: CUDA error {err}")
+
+
+def _event_ms(fn, runs=15, calls=10):
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def _device_ms(fn, calls=20):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if str(ev.device_type).endswith("CUDA"))
+    return round(total_us / 1e3 / calls, 4) if total_us > 0 else "not measured"
+
+
+def main(sources) -> int:
+    if not sources or not torch.cuda.is_available():
+        print(__doc__.split("\n\n")[1], file=sys.stderr)
+        return 1
+    fns = _build(sources)
+    print("card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, s, h, kh, d, causal in SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+            k = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(dtype)
+            v = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(dtype)
+            want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                           v.transpose(1, 2), causal=causal)
+            want = want.transpose(1, 2).float()
+            out = torch.empty_like(q)
+            rows = {}
+            for src in list(fns) + list(fns)[::-1]:
+                run = lambda: _launch(fns[src], q, k, v, out, causal)  # noqa: E731
+                run()
+                torch.cuda.synchronize()
+                err = (out.float() - want).abs().max().item()
+                if err > TOLERANCE[dtype]:
+                    raise SystemExit(f"{src} {(b, s, h, kh, d, causal)} {dtype}: "
+                                     f"max |err| {err} > {TOLERANCE[dtype]}")
+                rows.setdefault(src, []).append((_event_ms(run), _device_ms(run), err))
+            for src, turns in rows.items():
+                print(f"flash_variant {(b, s, h, kh, d, causal)} {str(dtype)[6:]} {src}: "
+                      f"event ms {[round(t[0], 4) for t in turns]}, "
+                      f"device ms {[t[1] for t in turns]}, "
+                      f"max |err| {max(t[2] for t in turns):.3g}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,84 +1,170 @@
-// Blockwise online-softmax GQA attention (forward) for Hopper (sm_90a).
+// Blockwise online-softmax GQA attention (forward) for Hopper (sm_90a), on
+// the tensor cores.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention_bhsd
 // (body _attn_kernel).  What it computes is the same: per query row a running
 // max m, a running denominator l and an fp32 accumulator, updated one KV tile
-// at a time; masked scores are -1e30, masked probabilities are forced to 0,
-// and the output is acc / max(l, 1e-30).
+// at a time; masked probabilities are forced to 0, and the output is
+// acc / max(l, 1e-30).
 //
 // Translation.  The Pallas kernel carries (m, l, acc) in VMEM scratch across
 // a sequential fourth grid axis.  Hopper blocks run in parallel and in no
-// order, so here one thread block owns one (batch, q-head, q-tile) and loops
-// over the KV tiles itself; (m, l, acc) live in registers for the whole loop.
-// K/V tiles are staged in shared memory (fp32, whatever the input dtype).  A
+// order, so here one block owns one (batch, q-head, q tile) and loops over the
+// KV tiles itself; (m, l, acc) stay in registers for the whole loop.  A
 // causal loop ends at the diagonal tile and a sliding-window loop starts at
 // the window's floor, so tiles the Pallas grid visits only to mask them out
-// are never loaded.  GQA is by index (kv_head = h / (H / KH)); repeated KV is
-// never built.  The kernel is given the true lengths S and T and masks
-// q_pos >= S and k_pos >= T itself: the wrapper pads nothing, and the
-// non-causal padded-tail fault of the TPU wrapper (padded KV columns attended
-// to) cannot occur.  Tensors are read in the model layout (B, S, H, D) through
-// their strides; the head dim must be contiguous, and rows must start on a
-// 4-element boundary so that each thread moves 4 elements (16 bytes in fp32,
-// 8 in bf16) a load.
-//
-// Work split.  128 threads, 4 per query row, 32 rows per block (BQ) and 32
-// KV rows per tile (BK).  Thread c of a row owns the float4 chunks
-// c, c+4, c+8, ... of the head dim: its slice of q and of the accumulator are
-// in registers.  A score is the sum of the 4 threads' partial dots, reduced
-// with two xor-shuffles, so every thread of the row holds the tile's 32
-// scores and runs the softmax update redundantly; each then adds P @ V for its
-// own chunks.  Neighbouring threads read neighbouring 16-byte chunks of a
-// shared K/V row, and the 8 rows of a warp read the same addresses
-// (broadcast), so shared loads are free of bank conflicts.  A KV tile is
-// brought in with every thread's vector loads issued before any of them is
-// stored to shared memory, so the tile costs about one memory latency, and
-// q tiles are launched longest-first (the last causal tiles have the most
-// KV tiles to visit) so that short blocks fill in behind long ones.
+// are never loaded, and q tiles are launched longest-first so that short
+// blocks fill in behind long ones.  GQA is by index (kv_head = h / (H / KH));
+// repeated KV is never built.  The kernel is given the true lengths S and T
+// and masks k_pos >= T itself: the wrapper pads nothing, so the non-causal
+// padded-tail fault of the TPU wrapper (padded KV columns attended to) cannot
+// occur.  Tensors are read in the model layout (B, S, H, D) through their
+// strides; the head dim must be contiguous and rows must start on a
+// 4-element boundary.
 //
 // Bound.  At the served shape (B=1, S=T=512, H=16, KH=8, D=128, causal) the
-// work is about 4*S*T*D*H/2 = 1.07 GFLOP and the data moved is under 10 MB,
-// so on the H100 it is bound by operations.  In fp32 they run on the CUDA
-// cores (67 TFLOP/s, about 16 us); in bf16 the tensor cores' 989 TFLOP/s would
-// be the bound, which this kernel does not reach: it computes in fp32 on the
-// CUDA cores in both dtypes.  The design answers the bound by skipping masked
-// tiles (half the work when causal), keeping shared-memory traffic
-// conflict-free and overlapping a tile's loads across its threads.  It still
-// runs an order of magnitude above the bound (PERF.md): every 4 FMAs wait on
-// a 16-byte shared load, and at the served shape only 256 blocks of 4 warps
-// (about 2 per SM) are in flight to hide latency.  Two query rows per thread,
-// mma.sync/wgmma in bf16, TMA and a pipelined KV ring are later work.
+// products are 4*S*T*D*H/2 = 1.07 GFLOP against under 10 MB moved; at the NAS
+// shape (B=1, S=T=2048, H=KH=32, D=80, non-causal) 42.9 GFLOP against 42 MB.
+// Both are bound by operations: on the tensor cores, at 989 TFLOP/s in bf16
+// and, for fp32 to fp32 accuracy, split-TF32 at 495 / 3 = 165 TFLOP/s.
+//
+// Work split.  128 threads (4 warps) a block.  Each warp owns MT tiles of 16
+// query rows (Config: two at D <= 96, one above), so a row's softmax
+// statistics live in the 4 threads of one quad of one warp (rows g and g + 8
+// of a row tile, g = lane / 4) and are never repeated across warps, and each
+// K or V fragment a warp reads feeds MT MMAs.  KV tiles are 64 rows (32 in
+// fp32 with two row tiles).  Both products run on the tensor cores with
+// mma.sync:
+//   bf16: m16n8k16 with fp32 accumulation.  K fragments come from ldmatrix,
+//     V's from ldmatrix.trans, Q's from ldmatrix (once, into registers, at
+//     D > 96).  P goes from the Q K^T accumulator straight into the A fragment
+//     of P V, rounded to bf16 in registers (as the plain version rounds P
+//     before P V), never through shared memory.
+//   fp32: split-TF32 on m16n8k8.  Plain TF32 keeps 11 bits and misses the
+//     1e-4 tolerance at D=128.  Each operand x is split as x = hi + lo, hi a
+//     TF32 value, and each product is hi*hi + hi*lo + lo*hi, for Q K^T and for
+//     P V.  The split is one integer and one float instruction (split_tf32):
+//     splitting with cvt.rna.tf32 instead makes the kernel 1.4-1.8x slower
+//     on an H100 (PERF.md).  Q stays in shared memory and is
+//     split as its fragment is loaded (hi and lo fragments of Q beside the O
+//     accumulator would not fit the registers).  P V takes P straight from
+//     the accumulator of Q K^T: the k index of that product is permuted
+//     within each 8-row step (logical k = t and t + 4 are KV rows 2t and
+//     2t + 1), so a thread's two accumulator columns are its two A elements
+//     and no shuffle is needed; V's B fragment is read with the same
+//     permutation.
+// KV tiles come through a two-stage ring in dynamic shared memory filled by
+// cp.async (16 bytes a copy in fp32, 8 in bf16: the wrapper guarantees
+// 4-element alignment, not 8): the next tile's copy is in flight while the
+// current tile's products run, with one barrier a tile.  Rows past T and head
+// dims past D are zero-filled by the copy (the head dim is padded to a
+// multiple of 16), and each shared row is padded by 16 bytes so that the
+// ldmatrix rows and the fp32 fragment loads are free of bank conflicts.
+// Shared memory: Q tile + 2 x (K + V) tiles: 169 KB in fp32 and 87 KB in bf16
+// at D=128 (one block a SM in fp32), 86 KB and 68 KB at D=80 (two blocks).
+// Masks are evaluated only on tiles that cross the diagonal, the window's
+// floor or T.
+//
+// Left for later (ROADMAP): wgmma from shared memory, TMA copies issued by a
+// producer warp, and overlapping one tile's softmax with the next tile's
+// products.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 32;
-constexpr int BK = 32;
-constexpr int THREADS = 128;  // 4 threads per query row
+constexpr int THREADS = 128;  // 4 warps
 constexpr int DMAX = 128;
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// 4 consecutive elements as fp32; p is 4-element aligned.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// -- PTX wrappers ------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
+
+// Copies BYTES from global to shared memory asynchronously; with !valid the
+// destination is zero-filled and nothing is read.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(n));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "n"(BYTES), "r"(n));
+  }
 }
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<unsigned int*>(&lo);
-  raw.y = *reinterpret_cast<unsigned int*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
+// Waits until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// d += a b on a 16x8x16 bf16 tile, fp32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b on a 16x8x8 TF32 tile, fp32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x; 2^-1e30 is 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// -- end of PTX wrappers -----------------------------------------------------
+
+// x = hi + lo exactly, hi being x with its 13 low mantissa bits cleared (a
+// TF32 value).  lo goes to the MMA as it is: the tensor core reads the top 19
+// bits of a TF32 operand, so lo loses at most 2^-10 of itself, 2^-20 of x.
+// One integer and one float instruction, where cvt.rna.tf32 twice an element
+// makes the kernel 1.4-1.8x slower on an H100.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// two floats as a bf16 pair, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 struct Params {
@@ -96,158 +182,367 @@ struct Params {
   float scale;
 };
 
-// NCH: float4 chunks of the head dim per thread (D <= 16 * NCH).
-template <typename T, int NCH>
+// Tiles for head dim DK (D padded to a multiple of 16).  Each of the 4 warps
+// owns MT 16-row tiles of queries: two where D <= 96, so that every K and V
+// fragment a warp reads from shared memory feeds two MMAs, one at D > 96,
+// where two would not fit the registers (and the served shapes need the
+// blocks).  fp32 with two row tiles takes 32-row KV tiles, so that two blocks
+// still fit a SM's shared memory.  Shared rows are LD elements, 16 bytes
+// longer than DK; the Q tile comes first, then two stages of (K, V) tiles.
+template <typename T, int DK>
+struct Config {
+  static constexpr bool BF16 = sizeof(T) == 2;
+  static constexpr int MT = DK <= 96 ? 2 : 1;
+  static constexpr int BQ = 4 * 16 * MT;
+  static constexpr int BK = (!BF16 && MT == 2) ? 32 : 64;
+  static constexpr int LD = DK + 16 / static_cast<int>(sizeof(T));
+  static constexpr int TILE = BK * LD;
+  static constexpr size_t BYTES = static_cast<size_t>(BQ * LD + 4 * TILE) * sizeof(T);
+};
+
+// Issues the copies of rows [r0, r0 + ROWS) of a (rows, D) matrix with row
+// stride `stride` into `dst` (rows of LD elements), 4 elements a copy; rows
+// >= n_rows and columns >= D are zero-filled.  Each thread keeps one
+// 4-element column (LANES threads a row: the power of two at or above DK / 4,
+// those past it idle) and walks down the rows, so a copy costs one pointer
+// step and no addresses are held across the KV loop.
+template <typename T, int DK, int LD, int ROWS>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride,
+                                          int r0, int n_rows, int D) {
+  constexpr int CH = DK / 4;
+  constexpr int LANES = CH <= 4 ? 4 : CH <= 8 ? 8 : CH <= 16 ? 16 : 32;
+  constexpr int STEP = THREADS / LANES;  // rows a pass
+  const int c = 4 * (threadIdx.x % LANES);
+  if (c >= DK) return;
+  const bool col_ok = c < D;
+  int r = threadIdx.x / LANES;
+  const T* s = src + static_cast<long long>(r0 + r) * stride + c;
+  T* d = dst + r * LD + c;
+#pragma unroll 4
+  for (; r < ROWS; r += STEP) {
+    const bool ok = col_ok && r0 + r < n_rows;
+    cp_async<4 * static_cast<int>(sizeof(T))>(d, ok ? s : src, ok);
+    s += STEP * stride;
+    d += STEP * LD;
+  }
+}
+
+template <typename T, int DK>
 __global__ void __launch_bounds__(THREADS) flash_fwd(const Params p) {
-  __shared__ __align__(16) float ks[BK][DMAX];
-  __shared__ __align__(16) float vs[BK][DMAX];
+  using C = Config<T, DK>;
+  constexpr bool BF16 = C::BF16;
+  constexpr int MT = C::MT;
+  constexpr int BQ = C::BQ;
+  constexpr int BK = C::BK;
+  constexpr int LD = C::LD;
+  constexpr int TILE = C::TILE;
+  constexpr int NT = BK / 8;  // 8-column tiles of a score row
+  constexpr int ND = DK / 8;  // 8-column tiles of an output row
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* kvs = qs + BQ * LD;  // stage s: K at kvs + 2 s TILE, V TILE after it
 
   const int tid = threadIdx.x;
-  const int row = tid >> 2;
-  const int c = tid & 3;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;   // fragment row (and row + 8)
+  const int tg = lane & 3;   // thread in the quad
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest causal tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (p.H / p.KH);
-  const int qpos = q0 + row;
-  const int nch = p.D >> 2;
-
-  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + (long long)qpos * p.q_ss + h * p.q_sh;
+  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh;
   const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh;
-
-  float4 qr[NCH];
-  float4 acc[NCH];
-#pragma unroll
-  for (int i = 0; i < NCH; ++i) {
-    const int ch = c + 4 * i;
-    qr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ch < nch && qpos < p.S) qr[i] = load4(qp + 4 * ch);
-  }
-  float m = NEG_INF;
-  float l = 0.f;
 
   int kv_lo = 0;
   int kv_hi = p.T;
   if (p.causal) kv_hi = min(p.T, q0 + BQ);
   if (p.window > 0) kv_lo = max(0, q0 - p.window + 1);
   kv_lo = (kv_lo / BK) * BK;
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + BK - 1) / BK : 0;
 
-  for (int t0 = kv_lo; t0 < kv_hi; t0 += BK) {
-    // each thread moves NCH 4-element chunks of K and of V: a tile row holds
-    // ROW_CH chunk slots, of which the first nch are the head dim
-    constexpr int ROW_CH = 4 * NCH;
-    float4 kbuf[NCH], vbuf[NCH];
+  // Q, then the first KV tile, as two copy groups
+  load_tile<T, DK, LD, BQ>(qs, qp, p.q_ss, q0, p.S, p.D);
+  cp_async_commit();
+  if (n_tiles > 0) {
+    load_tile<T, DK, LD, BK>(kvs, kp, p.k_st, kv_lo, p.T, p.D);
+    load_tile<T, DK, LD, BK>(kvs + TILE, vp, p.v_st, kv_lo, p.T, p.D);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  const T* qw = qs + warp * 16 * MT * LD;  // this warp's query rows
+  // bf16: Q's A fragments.  Held in registers at D > 96, where shared memory
+  // already limits a SM to two blocks; below that, read at each k step, so
+  // that fewer registers let more blocks share the SM.
+  constexpr bool Q_REGS = BF16 && DK > 96;
+  uint32_t qf[Q_REGS ? DK / 16 : 1][4];
+  if constexpr (Q_REGS) {
 #pragma unroll
-    for (int u = 0; u < NCH; ++u) {
-      const int f = tid + u * THREADS;
-      const int j = f / ROW_CH;
-      const int ch = f % ROW_CH;
-      const int kpos = t0 + j;
-      kbuf[u] = make_float4(0.f, 0.f, 0.f, 0.f);  // rows past T are zeros:
-      vbuf[u] = kbuf[u];                          // 0 * V, never NaN
-      if (ch < nch && kpos < p.T) {
-        kbuf[u] = load4(kp + (long long)kpos * p.k_st + 4 * ch);
-        vbuf[u] = load4(vp + (long long)kpos * p.v_st + 4 * ch);
+    for (int kk = 0; kk < DK / 16; ++kk) {
+      ldmatrix_x4(qf[kk], qw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+    }
+  }
+
+  float o[MT][ND][4];
+  float m_row[MT][2];  // rows g and g + 8 of each row tile, in log2 units
+  float l_row[MT][2];  // this thread's share of l
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
+    }
+    m_row[mt][0] = m_row[mt][1] = NEG_INF;
+    l_row[mt][0] = l_row[mt][1] = 0.f;
+  }
+  const float scale2 = p.scale * LOG2E;
+  const int qpos0 = q0 + warp * 16 * MT + g;  // row g of row tile 0
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = kv_lo + it * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // tile `it` has landed, and tile it - 1 is no longer read
+    if (it + 1 < n_tiles) {
+      T* next = kvs + ((it + 1) & 1) * 2 * TILE;
+      load_tile<T, DK, LD, BK>(next, kp, p.k_st, t0 + BK, p.T, p.D);
+      load_tile<T, DK, LD, BK>(next + TILE, vp, p.v_st, t0 + BK, p.T, p.D);
+      cp_async_commit();
+    }
+    const T* ks = kvs + (it & 1) * 2 * TILE;
+    const T* vs = ks + TILE;
+
+    // S = Q K^T: s[mt][j] is the fragment of columns t0 + 8 j .. t0 + 8 j + 7
+    float s[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
       }
     }
-    __syncthreads();  // the previous tile is no longer read
+    if constexpr (BF16) {
 #pragma unroll
-    for (int u = 0; u < NCH; ++u) {
-      const int f = tid + u * THREADS;
-      const int j = f / ROW_CH;
-      const int ch = f % ROW_CH;
-      if (ch < nch) {
-        *reinterpret_cast<float4*>(&ks[j][4 * ch]) = kbuf[u];
-        *reinterpret_cast<float4*>(&vs[j][4 * ch]) = vbuf[u];
-      }
-    }
-    __syncthreads();
-
-    float s[BK];
+      for (int kk = 0; kk < DK / 16; ++kk) {
+        uint32_t qa[MT][4];
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float dot = 0.f;
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (Q_REGS) {
 #pragma unroll
-      for (int i = 0; i < NCH; ++i) {
-        const int ch = c + 4 * i;
-        if (ch < nch) {
-          const float4 kv = *reinterpret_cast<const float4*>(&ks[j][4 * ch]);
-          dot += qr[i].x * kv.x + qr[i].y * kv.y + qr[i].z * kv.z + qr[i].w * kv.w;
+            for (int i = 0; i < 4; ++i) qa[mt][i] = qf[kk][i];
+          } else {
+            ldmatrix_x4(qa[mt], qw + (mt * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, ks + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD
+                              + kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(s[mt][j], qa[mt], kb[0], kb[1]);
+            mma_bf16(s[mt][j + 1], qa[mt], kb[2], kb[3]);
+          }
         }
       }
-      s[j] = dot;
-    }
+    } else {
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      s[j] += __shfl_xor_sync(0xffffffffu, s[j], 1);
-      s[j] += __shfl_xor_sync(0xffffffffu, s[j], 2);
-    }
-
-    unsigned valid = 0u;
-    float m_cur = NEG_INF;
+      for (int kk = 0; kk < DK / 8; ++kk) {
+        uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const int kpos = t0 + j;
-      bool ok = kpos < p.T && qpos < p.S;
-      if (p.causal) ok = ok && kpos <= qpos;
-      if (p.window > 0) ok = ok && kpos > qpos - p.window;
-      s[j] = ok ? s[j] * p.scale : NEG_INF;
-      valid |= (ok ? 1u : 0u) << j;
-      m_cur = fmaxf(m_cur, s[j]);
-    }
-    const float m_new = fmaxf(m, m_cur);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      s[j] = ((valid >> j) & 1u) ? expf(s[j] - m_new) : 0.f;
-      psum += s[j];
-    }
-    l = alpha * l + psum;
-    m = m_new;
-
-#pragma unroll
-    for (int i = 0; i < NCH; ++i) {
-      const int ch = c + 4 * i;
-      if (ch < nch) {
-        float4 a = acc[i];
-        a.x *= alpha; a.y *= alpha; a.z *= alpha; a.w *= alpha;
-#pragma unroll
-        for (int j = 0; j < BK; ++j) {
-          const float4 vv = *reinterpret_cast<const float4*>(&vs[j][4 * ch]);
-          a.x += s[j] * vv.x; a.y += s[j] * vv.y; a.z += s[j] * vv.z; a.w += s[j] * vv.w;
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* qr = reinterpret_cast<const float*>(qw) + (mt * 16 + g) * LD + kk * 8 + tg;
+          split_tf32(qr[0], ah[mt][0], al[mt][0]);
+          split_tf32(qr[8 * LD], ah[mt][1], al[mt][1]);
+          split_tf32(qr[4], ah[mt][2], al[mt][2]);
+          split_tf32(qr[8 * LD + 4], ah[mt][3], al[mt][3]);
         }
-        acc[i] = a;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float* kr = reinterpret_cast<const float*>(ks) + (j * 8 + g) * LD + kk * 8 + tg;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(kr[0], bh0, bl0);
+          split_tf32(kr[4], bh1, bl1);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_tf32(s[mt][j], al[mt], bh0, bh1);
+            mma_tf32(s[mt][j], ah[mt], bl0, bl1);
+            mma_tf32(s[mt][j], ah[mt], bh0, bh1);
+          }
+        }
+      }
+    }
+
+    // scale into log2 units, mask (a masked score is -inf, so its
+    // probability is 0 against any running max, which starts at -1e30),
+    // and update the row statistics
+    const bool need_mask = t0 + BK > p.T || (p.causal && t0 + BK - 1 > q0)
+                           || (p.window > 0 && t0 <= q0 + BQ - 1 - p.window);
+    float alpha[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][j][e] *= scale2;
+      }
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qpos = qpos0 + mt * 16 + (e >> 1) * 8;
+            const int kpos = t0 + j * 8 + tg * 2 + (e & 1);
+            bool ok = kpos < p.T;
+            if (p.causal) ok = ok && kpos <= qpos;
+            if (p.window > 0) ok = ok && kpos > qpos - p.window;
+            if (!ok) s[mt][j][e] = -INFINITY;
+          }
+        }
+      }
+      float mx[2] = {m_row[mt][0], m_row[mt][1]};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[mt][j][0], s[mt][j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[mt][j][2], s[mt][j][3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[mt][r] = exp2_approx(m_row[mt][r] - mx[r]);
+        m_row[mt][r] = mx[r];
+        l_row[mt][r] *= alpha[mt][r];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[mt][j][e] = exp2_approx(s[mt][j][e] - mx[e >> 1]);
+          l_row[mt][e >> 1] += s[mt][j][e];
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[mt][n][0] *= alpha[mt][0];
+        o[mt][n][1] *= alpha[mt][0];
+        o[mt][n][2] *= alpha[mt][1];
+        o[mt][n][3] *= alpha[mt][1];
+      }
+    }
+
+    // O += P V
+    if constexpr (BF16) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t pa[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          pa[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+          pa[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+          pa[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+          pa[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+        }
+#pragma unroll
+        for (int n = 0; n < ND; n += 2) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD
+                                    + n * 8 + (lane >> 4) * 8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(o[mt][n], pa[mt], vb[0], vb[1]);
+            mma_bf16(o[mt][n + 1], pa[mt], vb[2], vb[3]);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        // logical k = tg and tg + 4 are KV rows 2 tg and 2 tg + 1 of this step
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          split_tf32(s[mt][kk][0], ah[mt][0], al[mt][0]);
+          split_tf32(s[mt][kk][2], ah[mt][1], al[mt][1]);
+          split_tf32(s[mt][kk][1], ah[mt][2], al[mt][2]);
+          split_tf32(s[mt][kk][3], ah[mt][3], al[mt][3]);
+        }
+        const float* vr = reinterpret_cast<const float*>(vs) + (kk * 8 + 2 * tg) * LD + g;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(vr[n * 8], bh0, bl0);
+          split_tf32(vr[n * 8 + LD], bh1, bl1);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_tf32(o[mt][n], al[mt], bh0, bh1);
+            mma_tf32(o[mt][n], ah[mt], bl0, bl1);
+            mma_tf32(o[mt][n], ah[mt], bh0, bh1);
+          }
+        }
       }
     }
   }
 
-  if (qpos >= p.S) return;
-  const float den = fmaxf(l, 1e-30f);
-  T* op = static_cast<T*>(p.o) + b * p.o_sb + (long long)qpos * p.o_ss + h * p.o_sh;
+  // l over the quad, then O / l in the output dtype
+  T* op = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-  for (int i = 0; i < NCH; ++i) {
-    const int ch = c + 4 * i;
-    if (ch < nch) {
-      store4(op + 4 * ch, make_float4(acc[i].x / den, acc[i].y / den,
-                                      acc[i].z / den, acc[i].w / den));
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_row[mt][r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      const int qpos = qpos0 + mt * 16 + 8 * r;
+      if (qpos < p.S) {
+        T* orow = op + static_cast<long long>(qpos) * p.o_ss;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          const int col = n * 8 + tg * 2;
+          if (col < p.D) store2(orow + col, o[mt][n][2 * r] * inv, o[mt][n][2 * r + 1] * inv);
+        }
+      }
     }
   }
 }
 
-template <typename T>
-void launch(const Params& p, int B, cudaStream_t stream) {
+constexpr int MAX_DEVICES = 64;
+
+template <typename T, int DK>
+cudaError_t launch_dk(const Params& p, int B, cudaStream_t stream) {
+  constexpr size_t smem = Config<T, DK>::BYTES;
+  // the shared-memory limit above 48 KB is set once a device
+  static bool configured[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES || !configured[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd<T, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    if (dev >= 0 && dev < MAX_DEVICES) configured[dev] = true;
+  }
+  constexpr int BQ = Config<T, DK>::BQ;
   const dim3 grid((p.S + BQ - 1) / BQ, p.H, B);
-  if (p.D <= 16) {
-    flash_fwd<T, 1><<<grid, THREADS, 0, stream>>>(p);
-  } else if (p.D <= 32) {
-    flash_fwd<T, 2><<<grid, THREADS, 0, stream>>>(p);
-  } else if (p.D <= 64) {
-    flash_fwd<T, 4><<<grid, THREADS, 0, stream>>>(p);
-  } else {
-    flash_fwd<T, 8><<<grid, THREADS, 0, stream>>>(p);
+  flash_fwd<T, DK><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+  switch ((p.D + 15) / 16) {
+    case 1: return launch_dk<T, 16>(p, B, stream);
+    case 2: return launch_dk<T, 32>(p, B, stream);
+    case 3: return launch_dk<T, 48>(p, B, stream);
+    case 4: return launch_dk<T, 64>(p, B, stream);
+    case 5: return launch_dk<T, 80>(p, B, stream);
+    case 6: return launch_dk<T, 96>(p, B, stream);
+    case 7: return launch_dk<T, 112>(p, B, stream);
+    default: return launch_dk<T, 128>(p, B, stream);
   }
 }
 
@@ -255,9 +550,9 @@ void launch(const Params& p, int B, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  The caller guarantees D % 4 == 0,
 // D <= 128, H % KH == 0, a contiguous head dim, strides that are multiples
-// of 4 and pointers aligned to 4 elements.  Each thread stores a whole row
-// slice of 4 elements, so the output is written in the input dtype once.  Returns cudaGetLastError()
-// after the launch (0 on success); the launch does not synchronise.
+// of 4 and pointers aligned to 4 elements.  The output is written in the
+// input dtype once.  Returns the launch's error (0 on success); the launch
+// does not synchronise.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int B, int S, int T, int H, int KH, int D,
@@ -272,15 +567,9 @@ extern "C" int repro_flash_attention_fwd(
   Params p{q, k, v, o, S, T, H, KH, D,
            q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
            o_sb, o_ss, o_sh, causal, window, scale};
-  if (S > 0 && B > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) {
-      launch<float>(p, B, s);
-    } else if (dtype == 1) {
-      launch<__nv_bfloat16>(p, B, s);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (S <= 0 || B <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return static_cast<int>(launch<float>(p, B, s));
+  if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16>(p, B, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

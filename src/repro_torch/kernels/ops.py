@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -27,7 +28,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FLASH_MAX_D = 128
 
 
+@functools.cache
 def _flash_fn():
+    """The kernel's C entry point, loaded and typed once."""
     fn = build.load("flash_attention").repro_flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
@@ -104,6 +107,7 @@ _SSM_MAX_N = 128
 _SSM_MAX_P = 64
 
 
+@functools.cache
 def _ssm_fn():
     fn = build.load("ssm_scan").repro_ssm_scan_fwd
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
@@ -185,6 +189,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 _MLSTM_MAX_P = 1024
 
 
+@functools.cache
 def _mlstm_fns():
     lib = build.load("mlstm_scan")
     fn = lib.repro_mlstm_scan_fwd

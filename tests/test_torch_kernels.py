@@ -109,6 +109,10 @@ CUDA_CASES = [
     (1, 512, 16, 8, 128, True, None),
     (1, 128, 4, 2, 16, True, 32),
     (1, 200, 4, 2, 16, False, None),
+    # ragged S inside a 64-row tile, D not a multiple of 16, group 4, and a
+    # window that crosses 64-row tiles
+    (2, 777, 8, 2, 36, True, 100),
+    (1, 300, 4, 4, 80, False, None),  # the NAS loop's head dim, non-causal
 ]
 
 
@@ -128,6 +132,77 @@ def test_cuda_kernel_matches_plain_version(b, s, h, kh, d, causal, window, dtype
                                    causal=causal, window=window).transpose(1, 2)
     assert out.dtype == dt and out.shape == q.shape
     assert (out.float() - want.float()).abs().max().item() <= atol
+
+
+def _tf32(x, rounding):
+    """x as a TF32 value (10 mantissa bits).  ``"rna"``: to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds (on the magnitude bits,
+    so for both signs).  ``"trunc"``: toward zero, the low 13 bits cleared,
+    as the tensor core reads an fp32 word given as a TF32 operand."""
+    bits = x.contiguous().view(torch.int32)
+    if rounding == "rna":
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a, b, terms, rounding):
+    """a @ b as the tensor cores take it from TF32 operands: each product
+    exact in fp32, the sums in fp32.  ``terms=3`` is split-TF32, each
+    operand x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and the
+    product hi*hi + hi*lo + lo*hi; ``terms=1`` is plain TF32."""
+    a_hi, b_hi = _tf32(a, rounding), _tf32(b, rounding)
+    out = a_hi @ b_hi
+    if terms == 3:
+        out = (_tf32(a - a_hi, rounding) @ b_hi + a_hi @ _tf32(b - b_hi, rounding)
+               + out)
+    return out
+
+
+def _tf32_flash(q, k, v, terms, rounding, block=64):
+    """The fp32 CUDA kernel's arithmetic: for each 64-key tile, S = Q K^T
+    and P V through :func:`_tf32_matmul`, the running max and denominator
+    in fp32.  q/k/v: (B, H, S, D), non-causal."""
+    scale = q.shape[-1] ** -0.5
+    m = torch.full(q.shape[:-1], -1e30)
+    l = torch.zeros(q.shape[:-1])
+    o = torch.zeros_like(q)
+    for t0 in range(0, k.shape[-2], block):
+        kt = k[..., t0:t0 + block, :].transpose(-1, -2)
+        s = _tf32_matmul(q, kt, terms, rounding) * scale
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + _tf32_matmul(p, v[..., t0:t0 + block, :], terms, rounding)
+        m = m_new
+    return o / l[..., None]
+
+
+@pytest.mark.parametrize("rounding", ["trunc", "rna"])
+@pytest.mark.parametrize("d", [80, 128])
+def test_split_tf32_holds_the_fp32_tolerance_and_plain_tf32_does_not(d, rounding):
+    """The fp32 kernel computes both products in split-TF32 on the tensor
+    cores, splitting by truncation (``"trunc"``: hi is x with its low bits
+    cleared, lo the exact rest, read by the tensor core through its top
+    bits); ``"rna"`` splits with ``cvt.rna``.  Modelled here in torch on
+    random inputs (scores of order 1), either is within the 1e-4 fp32
+    tolerance of the plain version, and plain TF32 (one product, 11 bits)
+    is not: the design holds the tolerance the kernel is checked against."""
+    q, k, v = (torch.from_numpy(_bhsd(x)) for x in _inputs(d, 1, 256, 4, 4, d))
+    want = ref.flash_attention_ref(q, k, v, causal=False, window=None)
+    err3 = (_tf32_flash(q, k, v, 3, rounding) - want).abs().max().item()
+    err1 = (_tf32_flash(q, k, v, 1, rounding) - want).abs().max().item()
+    assert err3 <= 1e-4
+    assert err1 > 1e-4
+
+
+def test_tf32_rounding_of_the_model():
+    """rna: 1 + 2^-11 (a tie) rounds away from zero to 1 + 2^-10, in both
+    signs, and 1 + 2^-12 down to 1; trunc: both down, toward zero."""
+    x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12, 3.0])
+    np.testing.assert_array_equal(_tf32(x, "rna").numpy(),
+                                  [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0, 3.0])
+    np.testing.assert_array_equal(_tf32(x, "trunc").numpy(), [1.0, -1.0, 1.0, 3.0])
 
 
 # -- the SSD scan --------------------------------------------------------------
