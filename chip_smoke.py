@@ -36,7 +36,9 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    through the plain versions; device time by kernel over one forward of
    each candidate;
 7. the mLSTM scan against its plain version (fp32 and bf16, timed as in
-   3), at the xlstm-1.3b forward's shape and smaller ones;
+   3), at the xlstm-1.3b forward's shape and smaller ones; the forward's
+   shape and batch 4 at 512 also with the kernel's device time from
+   ``torch.profiler``, in all and for each of its two launches;
 8. xlstm_forward: ``LM.forward`` of xlstm-1.3b at full width (random
    weights, seed 0) over 2048 tokens with every mLSTM block on the kernel:
    ``mlstm_scan`` launched once per mLSTM layer (42), the plain version
@@ -148,8 +150,10 @@ NAS_HELD_SLACK = 64 << 20
 
 # (B, L, H, P, chunk, input-gate shift): the xlstm-1.3b forward's shape
 # (P = 1024, chunk 128, sequence 2048) first, batch 4 at 512, the CPU tests'
-# shapes with the decrement-chosen chunk 100 and the least chunk 8, and
-# input gates shifted by -100 (exp(-m) overflows: h must be 0, not NaN)
+# shapes with the decrement-chosen chunk 100 and the least chunk 8, input
+# gates shifted by -100 (exp(-m) overflows: h must be 0, not NaN), a P that
+# is not a multiple of 8 with a chunk that is not a multiple of 16 (the MMA
+# tiles' zero-fill and masks), and chunk 256 at the full P
 MLSTM_CASES = [
     (1, 2048, 4, 1024, 128, 0.0),
     (4, 512, 4, 1024, 128, 0.0),
@@ -158,8 +162,14 @@ MLSTM_CASES = [
     (1, 200, 2, 64, 100, 0.0),
     (1, 64, 2, 64, 8, 0.0),
     (2, 64, 2, 32, 16, -100.0),
+    (1, 96, 2, 36, 24, 0.0),
+    (1, 1024, 2, 1024, 256, 0.0),
 ]
 MLSTM_REPORTED_CASE = MLSTM_CASES[0]
+# cases whose rows also carry device time, in all and by pass (the panel
+# launch, then the state launch)
+MLSTM_DEVICE_TIMED_CASES = (MLSTM_CASES[0], MLSTM_CASES[1])
+MLSTM_PASSES = {"panel_device_ms": "mlstm_chunk_panel", "state_device_ms": "mlstm_chunk_state"}
 # as for the SSD scan: each element of h within MLSTM_H_REL of its |h| (half
 # a bf16 ulp; h is rounded once) plus MLSTM_TOL of max |h| (order of
 # summation), against the fp32 plain version on the same inputs
@@ -206,10 +216,10 @@ def _time_ms(torch, fn, warmup=3, runs=20, calls=10) -> float:
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, warmup=3, calls=20):
-    """Device milliseconds of one call of ``fn``: the time of the kernels
-    it launches under ``torch.profiler``, summed over ``calls`` calls,
-    over ``calls``; the gaps between launches do not count."""
+def _device_times(torch, fn, warmup=3, calls=20) -> dict:
+    """Device milliseconds of one call of ``fn`` by kernel name: the time of
+    the kernels it launches under ``torch.profiler``, summed over ``calls``
+    calls, over ``calls``; the gaps between launches do not count."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -219,9 +229,18 @@ def _device_ms(torch, fn, warmup=3, calls=20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                   if str(ev.device_type).endswith("CUDA"))
-    return total_us / 1e3 / calls if total_us > 0 else "not measured"
+    return {ev.key: ev.self_device_time_total / 1e3 / calls for ev in prof.key_averages()
+            if str(ev.device_type).endswith("CUDA")}
+
+
+def _measured(ms):
+    return ms if ms > 0 else "not measured"
+
+
+def _device_ms(torch, fn, warmup=3, calls=20):
+    """Device milliseconds of one call of ``fn`` (:func:`_device_times`,
+    summed over its kernels)."""
+    return _measured(sum(_device_times(torch, fn, warmup, calls).values()))
 
 
 def profile_window(torch, label, step, warmup=2, steps=3) -> None:
@@ -327,6 +346,7 @@ def mlstm_phase(torch, ops, ref, gen) -> dict:
                     f"finite={finite}, shape {tuple(out.shape)}, dtype {out.dtype}")
             flops, nbytes = _mlstm_work(b, l, h, p, chunk, q.element_size())
             t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / MEM_BYTES_PER_S
+            kernel = lambda: ops.mlstm_scan(*args, chunk=chunk)  # noqa: E731
             row = {
                 "case": {"B": b, "L": l, "H": h, "P": p, "chunk": chunk,
                          "input_gate_shift": i_shift},
@@ -334,12 +354,17 @@ def mlstm_phase(torch, ops, ref, gen) -> dict:
                 "tol": f"{MLSTM_H_REL[dtype]} |h| + {MLSTM_TOL} max|h| per element",
                 "max_err_over_tol": over, "max_abs_h": want.abs().max().item(),
                 "finite": finite,
-                "ms": _time_ms(torch, lambda: ops.mlstm_scan(*args, chunk=chunk)),
+                "ms": _time_ms(torch, kernel),
                 "plain_ms": _time_ms(torch, lambda: ref.mlstm_scan_ref(*args, chunk=chunk)),
                 "library_ms": None, "library": MLSTM_NO_LIBRARY,
                 "bound_ms": max(t_ops, t_bytes) * 1e3,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             }
+            if case in MLSTM_DEVICE_TIMED_CASES:
+                times = _device_times(torch, kernel)
+                row["device_ms"] = _measured(sum(times.values()))
+                for key, name in MLSTM_PASSES.items():
+                    row[key] = _measured(sum(ms for k, ms in times.items() if name in k))
             rows[(case, dtype)] = row
             print("mlstm_scan " + json.dumps(row))
             del args, q, k, v, out, want, err_h, tol_h
@@ -1016,7 +1041,8 @@ def main(argv=None) -> int:
         "max_abs_err": mscan["max_abs_err"], "ms": mscan["ms"],
         "plain_ms": mscan["plain_ms"], "bound_ms": mscan["bound_ms"],
         "bound_by": mscan["bound_by"], "library_ms": None,
-        "library": MLSTM_NO_LIBRARY,
+        "library": MLSTM_NO_LIBRARY, "device_ms": mscan["device_ms"],
+        **{key: mscan[key] for key in MLSTM_PASSES},
         "shape": "B=1 L=2048 H=4 P=1024 chunk=128 float32",
     }]}))
     print(_smi())

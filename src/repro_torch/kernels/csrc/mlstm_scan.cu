@@ -22,67 +22,145 @@
 // block's 227 KB of shared memory, and one block per (batch, head) would put
 // 4 blocks on 132 SMs.  The value columns of C and h are independent: only
 // the panel q k^T, its row sums, q . n and the stabiliser are shared across
-// them.  So the call is two launches:
+// them.  So a call is two launches in both paths: a panel pass (the chunks'
+// stabilised, masked panels S, their row sums, the per-row scalars and the
+// chunk's n update u = sum_j k_j P^-1/2 exp(w_j - m'), all chunks in
+// parallel; the scalar m chain over the gates is run by every block up to its
+// chunk), then a state pass, one block per (batch, head, 32 value columns),
+// that loops over the chunks in order with its (P, 32) slice of C (128 KB at
+// P = 1024) and n in shared memory: h = S v + exp(b - m) q C, then the state
+// update.  The panel, u and the scalars are computed once per chunk, not once
+// per column block; only panel tiles on or below the diagonal are computed.
 //
-// 1. mlstm_chunk_panel, one block per (batch, head, chunk), all in parallel.
-//    Warp 0 runs the scalar m chain over the gates of the chunks before this
-//    one (it depends on the gates only).  The block then writes the chunk's
-//    stabilised, masked panel S (transposed, to global scratch), its row
-//    sums, exp(b_i - m_i), exp(-m_i), the state weights exp(w_j - m'), the
-//    carry exp(ftot + m - m') and the chunk's n update sum_j k_j exp(w_j - m').
-//    The panel is computed in 64 x 64 tiles, only those on or below the
-//    diagonal; the tiles above it are written as zeros.
-// 2. mlstm_chunk_state, one block per (batch, head, 32 value columns),
-//    loops over the chunks in order with its (P, 32) slice of C (128 KB at
-//    P = 1024) and n in shared memory: h = S v + exp(b - m) q C, then the
-//    state update.  Each block computes q . n for the denominator (1/32 of
-//    its products) rather than a third launch.
+// bf16 inputs (namespace tc): the four products, q k^T, q C, S v and the
+// update k^T (w v) (the state weights and P^-1/2 moved onto v), run on the
+// tensor cores with mma.sync m16n8k16 and fp32 accumulation.  q, k and v are
+// exact in bf16 and go in unsplit (q k^T is one product).  The fp32 operand
+// (C, S or w v) is split into two bf16 terms, x = hi + lo with hi = bf16(x),
+// so each of those products is two MMAs and keeps about 16 bits of that
+// operand; w v is split once a chunk into shared memory, C and S as their
+// fragments are loaded.  Rounding any of them to bf16 once misses the 1e-4
+// tolerance (tests/test_torch_kernels.py models both).  The panel pass is one
+// block of 4 warps per (batch, head, chunk, 64 x 64 tile on or below the
+// diagonal): 3 blocks a chunk at Q = 128, 192 at the forward shape, where the
+// fp32 path has 64; the diagonal tile's upper right quarter is skipped and
+// the tiles above the diagonal are neither computed nor written.  The state
+// pass has 8 warps, each 32 x 16 of a 128-row block of h and 32 x 32 of a
+// 256-row block of the C update.  Tiles of q, k, v and S come from L2
+// through a two-stage cp.async ring in dynamic shared memory, bf16 tiles as
+// bf16, read by ldmatrix (rows padded 16 bytes) or, for the fp32 C slice,
+// by scalar loads with its columns swizzled by row; a staged tile's products
+// go into a fresh accumulator added to the total in fp32, since the tensor
+// cores add into their accumulator with truncation.
 //
-// Work split.  256 threads.  Every product is a tile of 64 (panel) or 128
-// (pass 2) rows times a k-major operand staged in shared memory 32
-// reduction steps at a time; a thread owns a 4 x 4 block of the output, so
-// two 16-byte shared loads feed 16 FMAs.  Pass 2's tiles are double-
-// buffered: the next tile is read from global memory into registers while
-// the block computes on the current one, and stored transposed (q) with
-// neighbouring threads on neighbouring words.  Staged tiles have rows of
-// 68 or 132 floats.  Inputs are read through their strides (the last dim
-// contiguous and rows aligned to 4 elements), fp32 or bf16, converted to
-// fp32 as they are staged; gates are fp32; all sums are fp32; h is written
-// in q's dtype.  Chunks need not be powers of two (100 for L = 200): rows
-// and columns past Q or P are zero-filled and masked.
+// fp32 inputs (namespace simt): the products on the CUDA cores, 4 x 4
+// register blocks fed by 16-byte shared loads, each sum in the order of the
+// plain version's fp32 matrix products (ascending over P or over the chunk).
+// Tensor-core versions of the fp32 path were built and measured on an H100
+// (PERF.md, scripts/mlstm_variants.py): split-TF32 (three TF32 products)
+// and fp64 products (mma.sync m16n8k8 .f64) run the call in 1.27 and 1.39 ms
+// against 2.91, and stay within the kernel's 1e-4 tolerance of the plain
+// version (fp64: closer to a float64 plain version than the fp32 one is),
+// but the xlstm-1.3b forward amplifies per-layer differences of 1e-7 into
+// its logits: with either, the logits land 1.04 and 1.82 times their 1e-3
+// tolerance away from impl="xla", whose own fp32 rounding sits 0.72 times it
+// from the float64 result; this path, which sums as the xla path's products
+// do, lands at 0.27.
 //
 // Bound.  At the forward shape of xlstm-1.3b (B = 1, L = 2048, H = 4,
-// P = 1024, Q = 128) a call is about 36.5 GFLOP of unmasked fp32 products
-// (2 Q (Q + 1) P + 4 Q P^2 per chunk and head: the panel and S v on or
-// below the diagonal, q C and the C update) and moves about 0.13 GB, so on
-// the H100 it is bound by operations: about 0.55 ms at the CUDA cores'
-// 67 TFLOP/s.  The design answers it by computing the panel and the n
-// update once per chunk (not once per column block), only the panel tiles
-// on or below the diagonal, by 4 x 4 register blocks, by overlapping tile
-// loads with the products, and by filling 128 SMs at B = 1.  The products
-// run on the CUDA cores, not the tensor cores; the masked half of the
-// diagonal tiles is computed and discarded; every column block streams the
-// whole of q and k from L2.  Those are later work (PERF.md has the
-// measured time).
+// P = 1024, Q = 128) a call is about 36.6 GFLOP of products (2 Q (Q + 1) P +
+// 4 Q P^2 + 4 Q P per chunk and head: the panel and S v on or below the
+// diagonal, q C, the C update, q . n and the n update) and moves about
+// 0.13 GB (fp32), so on the H100 it is bound by operations: 0.222 ms at
+// split-TF32's 165 TFLOP/s (chip_smoke.py's fp32 bound; 0.55 ms at the CUDA
+// cores' 67), 0.037 ms in bf16 at 989 TFLOP/s.
+//
+// What still holds it back (PERF.md has the measured times): in bf16, every
+// one of the 32 column blocks of a head streams the whole chunk's q and k
+// from L2 (about 1.1 GB a call), which alone takes about 0.6 ms of the state
+// pass, and the state pass is one block of 8 warps a SM (C's slice fills
+// shared memory), so copies and products overlap only in part; a
+// thread-block cluster sharing the staged tiles would divide the streaming.
+// mma.sync, not wgmma; every thread issues copies.  The fp32 path is bound
+// by the CUDA cores and by the xla path's order of sums.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int RB = 64;       // rows of a product tile (chunk rows, panel columns, rows of P)
-constexpr int TV = 32;       // value columns per pass-2 block
-constexpr int KT = 32;       // reduction steps per staged tile
-constexpr int LDA = RB + 4;  // row of a staged k-major tile
-constexpr int RB2 = 128;     // rows of a pass-2 tile (chunk rows, rows of P)
-constexpr int LDA2 = RB2 + 4;
-constexpr int MAX_P = 1024;
-constexpr int MAX_SMEM = 232448;  // what one block may use on sm_90
 constexpr float BIG_NEG = -1e6f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_P = 1024;
+constexpr int MAX_SMEM = 232448;  // what one block may use on sm_90
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// -- PTX wrappers ------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copies BYTES from global to shared memory asynchronously; with !valid the
+// destination is zero-filled and nothing is read.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(n));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "n"(BYTES), "r"(n));
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Waits until none of this thread's committed copy groups is pending.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// d += a b on a 16x8x16 bf16 tile, fp32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// -- end of PTX wrappers -----------------------------------------------------
+
+// two floats as a bf16 pair, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// x0, x1 as two bf16 terms each: hi = bf16(x), lo = bf16(x - hi), packed in
+// pairs (x0 in the low half)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 // 4 consecutive elements as fp32; p is aligned to 4 elements.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -93,11 +171,28 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 __device__ __forceinline__ float get(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+// ===========================================================================
+// fp32: the chunk's products on the CUDA cores, in the plain version's order
+// ===========================================================================
+
+namespace simt {
+
+constexpr int THREADS = 256;
+constexpr int RB = 64;       // rows of a product tile (chunk rows, panel columns, rows of P)
+constexpr int TV = 32;       // value columns per pass-2 block
+constexpr int KT = 32;       // reduction steps per staged tile
+constexpr int LDA = RB + 4;  // row of a staged k-major tile
+constexpr int RB2 = 128;     // rows of a pass-2 tile (chunk rows, rows of P)
+constexpr int LDA2 = RB2 + 4;
 
 struct Params {
   const void* q;
@@ -529,12 +624,677 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace simt
+
+// ===========================================================================
+// bf16: the chunk's products on the tensor cores
+// ===========================================================================
+
+namespace tc {
+
+// acc += tile in fp32, element by element.  A staged tile's products are
+// summed into a fresh accumulator and added here, so that no MMA
+// accumulator runs over more than one tile: the tensor cores add into their
+// accumulator with truncation, which over the hundreds of MMAs of a product
+// over P = 1024 costs measurable accuracy (PERF.md).
+template <int M, int N>
+__device__ __forceinline__ void add_into(float (&acc)[M][N][4], const float (&tile)[M][N][4]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] += tile[m][n][e];
+}
+
+// Issues the copies of a ROWS x COLS tile (4 elements a copy) into dst,
+// rows of LD elements: element (r, c) from src[r * stride + c], or zero
+// where !ok(r, c) (ok is asked once a 4-element group, at its first column).
+template <int THREADS, int ROWS, int COLS, int LD, typename T, class Ok>
+__device__ __forceinline__ void stage(T* dst, const T* src, long long stride, Ok ok) {
+  constexpr int G = COLS / 4;
+  for (int e = threadIdx.x; e < ROWS * G; e += THREADS) {
+    const int r = e / G, c = 4 * (e % G);
+    const bool valid = ok(r, c);
+    cp_async<4 * static_cast<int>(sizeof(T))>(dst + r * LD + c,
+                                              valid ? src + r * stride + c : src, valid);
+  }
+}
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ig;
+  const float* fg;
+  void* h;          // (B, L, H, P), contiguous
+  float* panel;     // (B H nc, Q64, Q64): S[i][j]; tiles above the diagonal unwritten
+  float* rowpart;   // (B H nc, Q64 / 64, Q64): row sums of S over each 64-column tile
+  float* scal;      // (B H nc, 3, Q64): exp(b - m), exp(-m), exp(w - m')
+  float* u;         // (B H nc, P): sum_j k_j P^-1/2 exp(w_j - m'), the chunk's n update
+  float* carry;     // (B H nc): exp(ftot + m - m')
+  int L, H, P, Q, nc;
+  float scale;
+  long long q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh;
+  long long i_sb, i_sl, i_sh, f_sb, f_sl, f_sh;
+};
+
+// The floats of scratch a call needs (panel, rowpart, scal, u, carry), in
+// that order.
+__host__ __device__ inline long long scratch_floats(int B, int L, int H, int P, int Q) {
+  const long long chunks = (long long)B * H * (L / Q);
+  const long long q64 = round_up(Q, 64);
+  return chunks * (q64 * q64 + (q64 / 64 + 3) * q64 + P + 1);
+}
+
+// ---------------------------------------------------------------------------
+// pass 1: the chunk's panel and per-row scalars, one block per 64 x 64 tile
+// ---------------------------------------------------------------------------
+
+constexpr int THREADS1 = 128;  // 4 warps, each 32 x 32 of the tile
+constexpr int TILE = 64;
+
+template <typename T>
+struct Panel {
+  static constexpr int KP = 128 / static_cast<int>(sizeof(T));     // P columns a stage
+  static constexpr int LD = KP + 16 / static_cast<int>(sizeof(T));  // 144-byte rows
+  static constexpr int STAGE = 2 * TILE * LD;                      // q tile, then k tile
+};
+
+template <typename T>
+__host__ inline int panel_smem(int Q) {
+  return 4 * (9 * round_up(Q, TILE) + 208) +
+         2 * Panel<T>::STAGE * static_cast<int>(sizeof(T));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS1) mlstm_chunk_panel(Params p) {
+  using Cfg = Panel<T>;
+  constexpr int KP = Cfg::KP, LD = Cfg::LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Q = p.Q, q64 = round_up(Q, TILE);
+  float* wf = reinterpret_cast<float*>(smem);  // (4, q64): each warp's fcum
+  float* wi = wf + 4 * q64;                    // (4, q64): each warp's input gates
+  float* kwall = wi + 4 * q64;                 // (q64,): exp(w_j - m')
+  float* mrow = kwall + q64;                   // (64,): m_i of the tile's rows
+  float* part = mrow + TILE;                   // (2, 64): halves of row maxima, row sums
+  float* sc = part + 2 * TILE;                 // (16,): gate summaries, the chain's result
+  T* ring = reinterpret_cast<T*>(sc + 16);     // 2 stages of (q tile, k tile)
+
+  // tiles in row order: (0,0), (1,0), (1,1), (2,0), ...
+  int ti = 0, tj = blockIdx.x;
+  while (tj > ti) tj -= ++ti;
+  const int c = blockIdx.y, bh = blockIdx.z, h = bh % p.H, b = bh / p.H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long chunk_id = (long long)bh * p.nc + c;
+  const int i0 = ti * TILE, j0 = tj * TILE;
+  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + (long long)c * Q * p.q_sl;
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh + (long long)c * Q * p.k_sl;
+  const int nstage = (p.P + KP - 1) / KP;
+  auto issue = [&](int s, int buf) {
+    T* dst = ring + buf * Cfg::STAGE;
+    const int p0 = s * KP;
+    stage<THREADS1, TILE, KP, LD>(dst, qp + (long long)i0 * p.q_sl + p0, p.q_sl,
+                                  [&](int r, int cc) { return i0 + r < Q && p0 + cc < p.P; });
+    stage<THREADS1, TILE, KP, LD>(dst + TILE * LD, kp + (long long)j0 * p.k_sl + p0, p.k_sl,
+                                  [&](int r, int cc) { return j0 + r < Q && p0 + cc < p.P; });
+  };
+  issue(0, 0);  // the first tiles are in flight while the scalars are computed
+  cp_async_commit();
+
+  // 1. the m chain over the chunks up to this one: each warp sums the gates
+  // of one chunk (fcum an inclusive shuffle scan 32 steps at a time), then
+  // thread 0 carries m over them in order
+  const float* igp = p.ig + b * p.i_sb + h * p.i_sh;
+  const float* fgp = p.fg + b * p.f_sb + h * p.f_sh;
+  float m = BIG_NEG;  // thread 0's
+  for (int base = 0; base <= c; base += 4) {
+    const int cc = base + warp;
+    if (cc <= c) {
+      float* fw = wf + warp * q64;
+      float* iw = wi + warp * q64;
+      const long long l0 = (long long)cc * Q;
+      float run = 0.f;
+      for (int s0 = 0; s0 < Q; s0 += 32) {
+        const int j = s0 + lane;
+        float f = j < Q ? fgp[(l0 + j) * p.f_sl] : 0.f;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float o = __shfl_up_sync(FULL, f, off);
+          if (lane >= off) f += o;
+        }
+        f += run;
+        if (j < Q) {
+          fw[j] = f;
+          iw[j] = igp[(l0 + j) * p.i_sl];
+        }
+        run = __shfl_sync(FULL, f, 31);
+      }
+      __syncwarp();
+      const float ftot = fw[Q - 1];
+      float wmax = -INFINITY;
+      for (int j = lane; j < Q; j += 32) wmax = fmaxf(wmax, ftot - fw[j] + iw[j]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) wmax = fmaxf(wmax, __shfl_xor_sync(FULL, wmax, off));
+      if (lane == 0) {
+        sc[2 * warp] = ftot;
+        sc[2 * warp + 1] = wmax;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 0; w < 4 && base + w <= c; ++w) {
+        const float ftot = sc[2 * w];
+        const float m_next = fmaxf(fmaxf(ftot + m, sc[2 * w + 1]), BIG_NEG);
+        if (base + w == c) {
+          sc[8] = m;
+          sc[9] = m_next;
+          sc[10] = ftot;
+        }
+        m = m_next;
+      }
+    }
+    __syncthreads();
+  }
+  const float m_prev = sc[8], m_next = sc[9], ftot = sc[10];
+  const float* fcum = wf + (c & 3) * q64;  // this chunk's, from the last round
+  const float* igs = wi + (c & 3) * q64;
+
+  // 2. per-row scalars: the stabiliser m_i is the row max of the same a_ij
+  // the panel weights use (two halves of the j range; max is exact in any
+  // order, so every tile of the row gets the same m_i)
+  for (int j = tid; j < q64; j += THREADS1)
+    kwall[j] = j < Q ? expf(ftot - fcum[j] + igs[j] - m_next) : 0.f;
+  {
+    const int r = tid & (TILE - 1), half = tid / TILE, i = i0 + r;
+    float amax = -INFINITY;
+    if (i < Q) {
+      const float fi = fcum[i];
+      for (int j = half; j <= i; j += 2) amax = fmaxf(amax, fi - fcum[j] + igs[j]);
+    }
+    part[half * TILE + r] = amax;
+  }
+  __syncthreads();
+  if (tid < TILE) {
+    const int i = i0 + tid;
+    float mi = 0.f, iw = 0.f, e = 0.f;
+    if (i < Q) {
+      const float b_log = fcum[i] + m_prev;
+      mi = fmaxf(fmaxf(fmaxf(part[tid], part[TILE + tid]), b_log), BIG_NEG);
+      iw = expf(b_log - mi);
+      e = expf(-mi);
+    }
+    mrow[tid] = mi;
+    if (tj == 0) {
+      float* scal = p.scal + chunk_id * 3 * q64;
+      scal[i] = iw;
+      scal[q64 + i] = e;
+      scal[2 * q64 + i] = kwall[i];
+    }
+  }
+  if (blockIdx.x == 0 && tid == 0) p.carry[chunk_id] = expf(ftot + m_prev - m_next);
+
+  // 3. the chunk's n update u = sum_j (k_j P^-1/2) exp(w_j - m'), its
+  // columns shared among the chunk's tiles
+  for (int e = tid + THREADS1 * blockIdx.x; 4 * e < p.P; e += THREADS1 * gridDim.x) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < Q; ++j) {
+      const float4 x = load4(kp + j * p.k_sl + 4 * e);
+      const float w = kwall[j];
+      acc.x += x.x * p.scale * w;
+      acc.y += x.y * p.scale * w;
+      acc.z += x.z * p.scale * w;
+      acc.w += x.w * p.scale * w;
+    }
+    *reinterpret_cast<float4*>(p.u + chunk_id * p.P + 4 * e) = acc;
+  }
+
+  // 4. the tile of q k^T on the tensor cores.  Warp (wr, wc) owns rows
+  // 32 wr.. and columns 32 wc.. of the tile; the diagonal tile's upper right
+  // quarter is all masked and not computed.
+  const int wr = warp >> 1, wc = warp & 1;
+  const bool active = !(ti == tj && wc > wr) && i0 + 32 * wr < Q && j0 + 32 * wc < Q;
+  float acc[2][4][4] = {};
+  for (int s = 0; s < nstage; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // tile s has landed, and tile s - 1 is no longer read
+    if (s + 1 < nstage) {
+      issue(s + 1, (s + 1) & 1);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const T* qs = ring + (s & 1) * Cfg::STAGE + 32 * wr * LD;
+    const T* ks = ring + (s & 1) * Cfg::STAGE + (TILE + 32 * wc) * LD;
+    float tile[2][4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KP / 16; ++kk) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldmatrix_x4(a[mt], qs + (16 * mt + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int n = 0; n < 4; n += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, ks + (n * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                            ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(tile[mt][n], a[mt], kb[0], kb[1]);
+          mma_bf16(tile[mt][n + 1], a[mt], kb[2], kb[3]);
+        }
+      }
+    }
+    add_into(acc, tile);
+  
+  }
+
+  // 5. stabilise and mask, write the tile of S and its row sums
+  float* panel = p.panel + chunk_id * q64 * q64;
+  float rs[2][2] = {};
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int il = 32 * wr + 16 * mt + g + 8 * hr, i = i0 + il;
+      const float fi = i < Q ? fcum[i] : 0.f, mi = mrow[il];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int j = j0 + 32 * wc + 8 * n + 2 * t4;
+        float s0 = 0.f, s1 = 0.f;
+        if (i < Q && j <= i && j < Q)
+          s0 = static_cast<float>(acc[mt][n][2 * hr]) * p.scale *
+               expf(fi - fcum[j] + igs[j] - mi);
+        if (i < Q && j + 1 <= i && j + 1 < Q)
+          s1 = static_cast<float>(acc[mt][n][2 * hr + 1]) * p.scale *
+               expf(fi - fcum[j + 1] + igs[j + 1] - mi);
+        store2(panel + (long long)i * q64 + j, s0, s1);
+        rs[mt][hr] += s0 + s1;
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float v = rs[mt][hr];
+      v += __shfl_xor_sync(FULL, v, 1);
+      v += __shfl_xor_sync(FULL, v, 2);
+      if (t4 == 0) part[wc * TILE + 32 * wr + 16 * mt + g + 8 * hr] = v;
+    }
+  }
+  __syncthreads();
+  if (tid < TILE)
+    p.rowpart[(chunk_id * (q64 / TILE) + tj) * q64 + i0 + tid] = part[tid] + part[TILE + tid];
+}
+
+// ---------------------------------------------------------------------------
+// pass 2: h and the state, one block per (batch, head, 32 value columns)
+// ---------------------------------------------------------------------------
+
+constexpr int THREADS2 = 256;  // 8 warps
+constexpr int TV = 32;         // value columns a block
+constexpr int RB = 128;        // chunk rows of h a round: warp (wr, wc) owns 32 x 16 of them
+constexpr int PB = 256;        // rows of C a round of the update: 32 a warp
+constexpr int LDV = 40;        // rows of the staged v tile and of w v (elements)
+
+template <typename T>
+struct State {
+  static constexpr int E = static_cast<int>(sizeof(T));
+  static constexpr int KS = 128 / E;             // P columns of a staged q tile
+  static constexpr int LDQ = KS + 16 / E;        // 144-byte rows
+  static constexpr int LDS = 40;                 // rows of a staged fp32 S tile (32 columns)
+  static constexpr int KJ = 64 / E;              // chunk rows of a staged k tile
+  static constexpr int LDK = PB + 8;
+  static constexpr int Q_BYTES = RB * LDQ * E;
+  static constexpr int SV_BYTES = RB * LDS * 4 + 32 * LDV * E;
+  static constexpr int K_BYTES = KJ * LDK * E;
+  static constexpr int STAGE_BYTES =
+      Q_BYTES > SV_BYTES ? (Q_BYTES > K_BYTES ? Q_BYTES : K_BYTES)
+                         : (SV_BYTES > K_BYTES ? SV_BYTES : K_BYTES);
+};
+
+// C's slice holds column col of row p at col ^ swz(p), so that the rows a
+// warp's B fragments read fall on different banks
+__device__ __forceinline__ int swz(int p) { return ((p >> 1) & 3) << 3; }
+
+template <typename T>
+__host__ inline int state_smem(int P, int Q) {
+  const int pp = round_up(P, 64), q32 = round_up(Q, 32), qr = round_up(Q, RB);
+  return 4 * (pp * TV + pp) + q32 * LDV * 4 + 4 * (3 * qr + THREADS2) +
+         2 * State<T>::STAGE_BYTES;
+}
+
+// A contraction over n staged tiles through the two-stage ring: tile s + 1
+// is copied while the block computes on tile s, one barrier a tile.
+// issue(s, buf) issues the copies of tile s into stage buf, body(s, buf)
+// computes on it.
+template <class Issue, class Body>
+__device__ __forceinline__ void pipeline(int n, Issue issue, Body body) {
+  if (n <= 0) return;
+  __syncthreads();  // the ring's previous readers are done
+  issue(0, 0);
+  cp_async_commit();
+  for (int s = 0; s < n; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // tile s has landed, and tile s - 1 is no longer read
+    if (s + 1 < n) {
+      issue(s + 1, (s + 1) & 1);
+      cp_async_commit();
+    }
+    body(s, s & 1);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS2, 1) mlstm_chunk_state(Params p) {
+  using Cfg = State<T>;
+  constexpr int KS = Cfg::KS, LDQ = Cfg::LDQ, LDS = Cfg::LDS, KJ = Cfg::KJ, LDK = Cfg::LDK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Q = p.Q, P = p.P;
+  const int q64 = round_up(Q, TILE), q32 = round_up(Q, 32), qr = round_up(Q, RB);
+  const int pp = round_up(P, 64);
+  float* Cs = reinterpret_cast<float*>(smem);  // (pp, TV): this block's columns of C
+  float* ns = Cs + pp * TV;                    // (pp,)
+  // (q32, LDV): w_j P^-1/2 v_j as two bf16 terms, hi (q32, LDV), then lo
+  float* wvf = ns + pp;
+  __nv_bfloat16* wvh = reinterpret_cast<__nv_bfloat16*>(wvf);
+  __nv_bfloat16* wvl = wvh + q32 * LDV;
+  float* rsum = wvf + q32 * LDV;  // (qr,): row sums of S
+  float* riw = rsum + qr;         // (qr,): exp(b - m)
+  float* re = riw + qr;           // (qr,): exp(-m)
+  float* red = re + qr;           // (THREADS2,): q . n halves
+  unsigned char* ring = reinterpret_cast<unsigned char*>(red + THREADS2);
+
+  const int t0 = blockIdx.x * TV, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  T* hb = static_cast<T*>(p.h) + ((long long)b * p.L * p.H + h) * P;
+  const long long h_sl = (long long)p.H * P;
+
+  for (int e = tid; e < pp * TV; e += THREADS2) Cs[e] = 0.f;
+  for (int e = tid; e < pp; e += THREADS2) ns[e] = 0.f;
+
+  for (int c = 0; c < p.nc; ++c) {
+    const long long chunk_id = ((long long)b * p.H + h) * p.nc + c;
+    const long long l0 = (long long)c * Q;
+    const float* panel = p.panel + chunk_id * q64 * q64;
+    const float* scal = p.scal + chunk_id * 3 * q64;
+    const float* rp = p.rowpart + chunk_id * (q64 / TILE) * q64;
+    const T* qc = qb + l0 * p.q_sl;
+    const T* kc = kb + l0 * p.k_sl;
+    const T* vc = vb + l0 * p.v_sl;
+    __syncthreads();  // the previous chunk is done with w v, the row scalars and C
+
+    // the chunk's row scalars, the state weights, and v (bf16: w v, as two
+    // terms)
+    for (int i = tid; i < qr; i += THREADS2) {
+      float s = 0.f, iw = 0.f, e = 0.f;
+      if (i < Q) {
+        for (int tj = 0; tj <= i / TILE; ++tj) s += rp[tj * q64 + i];
+        iw = scal[i];
+        e = scal[q64 + i];
+      }
+      rsum[i] = s;
+      riw[i] = iw;
+      re[i] = e;
+    }
+    for (int e = tid; e < q32 * (TV / 4); e += THREADS2) {
+      const int j = e / (TV / 4), col = 4 * (e % (TV / 4));
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < Q && t0 + col < P) x = load4(vc + j * p.v_sl + t0 + col);
+      const float w = j < Q ? scal[2 * q64 + j] * p.scale : 0.f;
+      x = make_float4(x.x * w, x.y * w, x.z * w, x.w * w);
+      uint32_t h01, l01, h23, l23;
+      split_bf16(x.x, x.y, h01, l01);
+      split_bf16(x.z, x.w, h23, l23);
+      *reinterpret_cast<uint2*>(wvh + j * LDV + col) = make_uint2(h01, h23);
+      *reinterpret_cast<uint2*>(wvl + j * LDV + col) = make_uint2(l01, l23);
+    
+    }
+    const float carry = p.carry[chunk_id];
+
+    // h, RB rows of the chunk at a time
+    const int wr = warp & 3, wc = warp >> 2;
+    for (int i0 = 0; i0 < Q; i0 += RB) {
+      const int r0 = 32 * wr;  // the warp's first row in the round
+      const bool rows_ok = i0 + r0 < Q;
+      float acc[2][2][4] = {};
+      float qn = 0.f;
+      const int qrow = tid & (RB - 1), qhalf = tid / RB;
+
+      // inter: q C over P, and q . n on the CUDA cores
+      pipeline(
+          (P + KS - 1) / KS,
+          [&](int s, int buf) {
+            const int p0 = s * KS;
+            stage<THREADS2, RB, KS, LDQ>(reinterpret_cast<T*>(ring + buf * Cfg::STAGE_BYTES),
+                                         qc + (long long)i0 * p.q_sl + p0, p.q_sl,
+                                         [&](int r, int cc) { return i0 + r < Q && p0 + cc < P; });
+          },
+          [&](int s, int buf) {
+            const T* A = reinterpret_cast<const T*>(ring + buf * Cfg::STAGE_BYTES);
+            const int p0 = s * KS;
+            {
+              const T* ar = A + qrow * LDQ + qhalf * (KS / 2);
+              const float* nr = ns + p0 + qhalf * (KS / 2);
+#pragma unroll
+              for (int kk = 0; kk < KS / 2; kk += 4) {
+                const float4 x = load4(ar + kk);
+                const float4 n4 = *reinterpret_cast<const float4*>(nr + kk);
+                qn += x.x * n4.x + x.y * n4.y + x.z * n4.z + x.w * n4.w;
+              }
+            }
+            if (!rows_ok) return;
+            float tile[2][2][4] = {};
+#pragma unroll
+            for (int kk = 0; kk < KS / 16; ++kk) {
+              uint32_t a[2][4];
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt)
+                ldmatrix_x4(a[mt], A + (r0 + 16 * mt + (lane & 15)) * LDQ + kk * 16 +
+                                       (lane >> 4) * 8);
+#pragma unroll
+              for (int nt = 0; nt < 2; ++nt) {
+                const int col = 16 * wc + 8 * nt + g, pr = p0 + 16 * kk + 2 * t4;
+                uint32_t bh0, bl0, bh1, bl1;
+                split_bf16(Cs[pr * TV + (col ^ swz(pr))],
+                           Cs[(pr + 1) * TV + (col ^ swz(pr + 1))], bh0, bl0);
+                split_bf16(Cs[(pr + 8) * TV + (col ^ swz(pr + 8))],
+                           Cs[(pr + 9) * TV + (col ^ swz(pr + 9))], bh1, bl1);
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt) {
+                  mma_bf16(tile[mt][nt], a[mt], bl0, bl1);
+                  mma_bf16(tile[mt][nt], a[mt], bh0, bh1);
+                }
+              }
+            }
+            add_into(acc, tile);
+          
+          });
+      red[tid] = qn;
+      // exp(b_i - m_i) q C, to which S v is added
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const float iw = riw[i0 + r0 + 16 * mt + g + 8 * hr];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            acc[mt][nt][2 * hr] *= iw;
+            acc[mt][nt][2 * hr + 1] *= iw;
+          }
+        }
+      }
+
+      // intra: S v over the columns j < i0 + RB (S is 0 above the diagonal
+      // and past Q; the tiles above the diagonal are zero-filled, not read)
+      pipeline(
+          (min(Q, i0 + RB) + 31) / 32,
+          [&](int s, int buf) {
+            float* Sd = reinterpret_cast<float*>(ring + buf * Cfg::STAGE_BYTES);
+            T* Vd = reinterpret_cast<T*>(Sd + RB * LDS);
+            const int j0 = 32 * s;
+            stage<THREADS2, RB, 32, LDS>(Sd, panel + (long long)i0 * q64 + j0, q64,
+                                         [&](int r, int) {
+                                           return i0 + r < Q && j0 / TILE <= (i0 + r) / TILE;
+                                         });
+            stage<THREADS2, 32, TV, LDV>(Vd, vc + (long long)j0 * p.v_sl + t0, p.v_sl,
+                                         [&](int r, int cc) { return j0 + r < Q && t0 + cc < P; });
+          },
+          [&](int s, int buf) {
+            const float* S = reinterpret_cast<const float*>(ring + buf * Cfg::STAGE_BYTES);
+            const T* V = reinterpret_cast<const T*>(S + RB * LDS);
+            const int j0 = 32 * s;
+            if (!rows_ok) return;
+#pragma unroll
+            for (int kk = 0; kk < 2; ++kk) {
+              if (j0 + 16 * kk > i0 + r0 + 31) break;  // the warp's rows are all above
+              uint32_t ah[2][4], al[2][4];
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                const float* sr = S + (r0 + 16 * mt + g) * LDS + 16 * kk + 2 * t4;
+                const float2 x0 = *reinterpret_cast<const float2*>(sr);
+                const float2 x1 = *reinterpret_cast<const float2*>(sr + 8 * LDS);
+                const float2 x2 = *reinterpret_cast<const float2*>(sr + 8);
+                const float2 x3 = *reinterpret_cast<const float2*>(sr + 8 * LDS + 8);
+                split_bf16(x0.x, x0.y, ah[mt][0], al[mt][0]);
+                split_bf16(x1.x, x1.y, ah[mt][1], al[mt][1]);
+                split_bf16(x2.x, x2.y, ah[mt][2], al[mt][2]);
+                split_bf16(x3.x, x3.y, ah[mt][3], al[mt][3]);
+              }
+              uint32_t vf[4];
+              ldmatrix_x4_trans(vf, V + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
+                                        16 * wc + (lane >> 4) * 8);
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                mma_bf16(acc[mt][0], al[mt], vf[0], vf[1]);
+                mma_bf16(acc[mt][0], ah[mt], vf[0], vf[1]);
+                mma_bf16(acc[mt][1], al[mt], vf[2], vf[3]);
+                mma_bf16(acc[mt][1], ah[mt], vf[2], vf[3]);
+              }
+            }
+          
+          });
+
+      // h = (S v + exp(b - m) q C) / max(|row sum + exp(b - m) q . n|, exp(-m))
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int il = r0 + 16 * mt + g + 8 * hr, i = i0 + il;
+          if (i >= Q) continue;
+          const float qn_i = red[il] + red[RB + il];
+          const float den = fmaxf(fabsf(rsum[i] + qn_i * riw[i]), re[i]);
+          T* out = hb + (l0 + i) * h_sl + t0;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int col = 16 * wc + 8 * nt + 2 * t4;
+            if (t0 + col < P)
+              store2(out + col, static_cast<float>(acc[mt][nt][2 * hr] / den),
+                     static_cast<float>(acc[mt][nt][2 * hr + 1] / den));
+          }
+        }
+      }
+    }
+
+    // the state update, PB rows of C at a time: C <- carry C + k^T (w v)
+    for (int p0 = 0; p0 < P; p0 += PB) {
+      const int pw = 32 * warp;  // the warp's rows of C in the round
+      const bool rows_ok = p0 + pw < P;
+      float acc[2][4][4] = {};
+      pipeline(
+          (Q + KJ - 1) / KJ,
+          [&](int s, int buf) {
+            const int j0 = s * KJ;
+            stage<THREADS2, KJ, PB, LDK>(reinterpret_cast<T*>(ring + buf * Cfg::STAGE_BYTES),
+                                         kc + (long long)j0 * p.k_sl + p0, p.k_sl,
+                                         [&](int r, int cc) { return j0 + r < Q && p0 + cc < P; });
+          },
+          [&](int s, int buf) {
+            const T* K = reinterpret_cast<const T*>(ring + buf * Cfg::STAGE_BYTES) + pw;
+            const int j0 = s * KJ;
+            if (!rows_ok) return;
+#pragma unroll
+            for (int kk = 0; kk < KJ / 16; ++kk) {
+              uint32_t a[2][4];
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt)
+                ldmatrix_x4_trans(a[mt], K + (16 * kk + (lane & 7) + (lane >> 4) * 8) * LDK +
+                                             16 * mt + ((lane >> 3) & 1) * 8);
+#pragma unroll
+              for (int nt = 0; nt < 4; nt += 2) {
+                const int off = (j0 + 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
+                                nt * 8 + (lane >> 4) * 8;
+                uint32_t bh[4], bl[4];
+                ldmatrix_x4_trans(bh, wvh + off);
+                ldmatrix_x4_trans(bl, wvl + off);
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt) {
+                  mma_bf16(acc[mt][nt], a[mt], bl[0], bl[1]);
+                  mma_bf16(acc[mt][nt], a[mt], bh[0], bh[1]);
+                  mma_bf16(acc[mt][nt + 1], a[mt], bl[2], bl[3]);
+                  mma_bf16(acc[mt][nt + 1], a[mt], bh[2], bh[3]);
+                }
+              }
+            }
+          
+          });
+      // rows of C are this warp's alone
+      if (rows_ok) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int pr = p0 + pw + 16 * mt + g + 8 * hr;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              const int col = 8 * nt + 2 * t4;
+              float2* cp = reinterpret_cast<float2*>(Cs + pr * TV + (col ^ swz(pr)));
+              const float2 old = *cp;
+              *cp = make_float2(carry * old.x + static_cast<float>(acc[mt][nt][2 * hr]),
+                                carry * old.y + static_cast<float>(acc[mt][nt][2 * hr + 1]));
+            }
+          }
+        }
+      }
+    }
+    const float* u = p.u + chunk_id * P;
+    for (int e = tid; e < P; e += THREADS2) ns[e] = carry * ns[e] + u[e];
+  }
+}
+
+template <typename T>
+int launch(const Params& p, int B, cudaStream_t stream) {
+  const int smem1 = panel_smem<T>(p.Q), smem2 = state_smem<T>(p.P, p.Q);
+  if (smem1 > MAX_SMEM || smem2 > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(mlstm_chunk_panel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(mlstm_chunk_state<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem2);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = round_up(p.Q, TILE) / TILE;
+  mlstm_chunk_panel<T><<<dim3(tiles * (tiles + 1) / 2, p.nc, B * p.H), THREADS1, smem1, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mlstm_chunk_state<T><<<dim3((p.P + TV - 1) / TV, p.H, B), THREADS2, smem2, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// Floats of fp32 scratch repro_mlstm_scan_fwd needs for these sizes.
+// Floats of fp32 scratch repro_mlstm_scan_fwd needs for these sizes (the
+// larger of the two paths' layouts).
 extern "C" long long repro_mlstm_scan_scratch_floats(int B, int L, int H, int P, int Q) {
   if (B < 0 || L < 0 || H <= 0 || P <= 0 || Q <= 0 || L % Q != 0) return -1;
-  return scratch_floats(B, L, H, P, Q);
+  const long long a = simt::scratch_floats(B, L, H, P, Q), b = tc::scratch_floats(B, L, H, P, Q);
+  return a > b ? a : b;
 }
 
 // dtype (of q, k and v; h is written in it): 0 = float32, 1 = bfloat16.
@@ -543,10 +1303,10 @@ extern "C" long long repro_mlstm_scan_scratch_floats(int B, int L, int H, int P,
 // rows start on 4-element boundaries, that P is a multiple of 4 and at most
 // 1024, that Q divides L, and that scratch holds
 // repro_mlstm_scan_scratch_floats(B, L, H, P, Q) floats; h is (B, L, H, P)
-// contiguous.  Returns cudaErrorInvalidValue for sizes it does not take (also a
-// chunk whose pass-2 shared memory does not fit one block: above about 430
-// at P = 1024), else cudaGetLastError() after the launches (0 on success);
-// the launches do not synchronise.
+// contiguous.  Returns cudaErrorInvalidValue for sizes it does not take (also
+// a chunk whose state pass does not fit one block's shared memory: at
+// P = 1024, above 416 in fp32 and above 256 in bf16), else cudaGetLastError()
+// after the launches (0 on success); the launches do not synchronise.
 extern "C" int repro_mlstm_scan_fwd(
     const void* q, const void* k, const void* v, const void* i_log, const void* f_log,
     void* h, void* scratch, int dtype, int B, int L, int H, int P, int Q,
@@ -556,22 +1316,34 @@ extern "C" int repro_mlstm_scan_fwd(
     long long i_sb, long long i_sl, long long i_sh,
     long long f_sb, long long f_sl, long long f_sh, void* stream) {
   if (B < 0 || L < 0 || H <= 0 || P <= 0 || P > MAX_P || P % 4 != 0 || Q <= 0 ||
-      L % Q != 0 || panel_smem(Q) > MAX_SMEM || state_smem(P, Q) > MAX_SMEM) {
+      L % Q != 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || L == 0) return 0;
   const int nc = L / Q;
   const long long chunks = (long long)B * H * nc;
-  const long long q64 = round_up(Q, RB);
+  const long long q64 = round_up(Q, 64);
+  const float scale = 1.0f / sqrtf(static_cast<float>(P));
   float* base = static_cast<float*>(scratch);
-  Params p{q, k, v, static_cast<const float*>(i_log), static_cast<const float*>(f_log), h,
-           base, base + chunks * q64 * q64, base + chunks * (q64 * q64 + 4 * q64),
-           base + chunks * (q64 * q64 + 4 * q64 + P),
-           L, H, P, Q, nc, 1.0f / sqrtf(static_cast<float>(P)),
-           q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
-           i_sb, i_sl, i_sh, f_sb, f_sl, f_sh};
+  const float* ig = static_cast<const float*>(i_log);
+  const float* fg = static_cast<const float*>(f_log);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, B, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, B, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    if (simt::panel_smem(Q) > MAX_SMEM || simt::state_smem(P, Q) > MAX_SMEM)
+      return static_cast<int>(cudaErrorInvalidValue);
+    float* rows = base + chunks * q64 * q64;
+    float* u = rows + chunks * 4 * q64;
+    simt::Params p{q, k, v, ig, fg, h, base, rows, u, u + chunks * P, L, H, P, Q, nc, scale,
+                   q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
+                   i_sb, i_sl, i_sh, f_sb, f_sl, f_sh};
+    return simt::launch<float>(p, B, s);
+  }
+  if (nc > 65535 || (long long)B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  float* rowpart = base + chunks * q64 * q64;
+  float* scal = rowpart + chunks * (q64 / tc::TILE) * q64;
+  float* u = scal + chunks * 3 * q64;
+  tc::Params p{q, k, v, ig, fg, h, base, rowpart, scal, u, u + chunks * P, L, H, P, Q, nc, scale,
+               q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
+               i_sb, i_sl, i_sh, f_sb, f_sl, f_sh};
+  return tc::launch<__nv_bfloat16>(p, B, s);
 }

@@ -266,6 +266,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(
             f"mlstm_scan kernel launch failed: CUDA error {err} (1 is an invalid value: "
             f"the kernel also refuses a chunk whose state pass does not fit one "
-            f"block's shared memory, which at P=1024 is a chunk above about 430)")
+            f"block's shared memory, which at P=1024 is a chunk above 416 in fp32 and "
+            f"above 256 in bf16)")
     LAUNCHES["mlstm_scan"] += 1
     return out, None

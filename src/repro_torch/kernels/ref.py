@@ -35,24 +35,26 @@ def ssm_scan_ref(x, dt, a, b_mat, c_mat, *, chunk=128):
     return ssd_chunked(x, dt, a, b_mat, c_mat, chunk)
 
 
-def mlstm_scan_ref(q, k, v, i_log, f_log, *, chunk):
+def mlstm_scan_ref(q, k, v, i_log, f_log, *, chunk, dtype=torch.float32):
     """The Pallas ``mlstm_scan_blhp`` kernel's math, chunk by chunk in
     fp32: k scaled by P^-1/2, the stabiliser starting at -1e6 (not -inf,
     as ``mlstm_chunked`` has it), the panel product in fp32 (not cast to
     v's dtype first).  q/k/v: (B, L, H, P); i_log/f_log: (B, L, H).
-    Returns h (B, L, H, P) in q's dtype."""
+    Returns h (B, L, H, P) in q's dtype.  ``dtype`` is that of every sum
+    and product (float64 gives a yardstick for the fp32 version's own
+    rounding)."""
     b, l, h, p = q.shape
     if l % chunk:
         raise ValueError(f"chunk {chunk} does not divide the sequence {l}")
-    qf = q.float().transpose(1, 2)  # (b,h,l,p)
-    kf = k.float().transpose(1, 2) * (p ** -0.5)
-    vf = v.float().transpose(1, 2)
-    ig = i_log.float().transpose(1, 2)  # (b,h,l)
-    fg = f_log.float().transpose(1, 2)
+    qf = q.to(dtype).transpose(1, 2)  # (b,h,l,p)
+    kf = k.to(dtype).transpose(1, 2) * (p ** -0.5)
+    vf = v.to(dtype).transpose(1, 2)
+    ig = i_log.to(dtype).transpose(1, 2)  # (b,h,l)
+    fg = f_log.to(dtype).transpose(1, 2)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
-    c = torch.zeros((b, h, p, p), dtype=torch.float32, device=q.device)
-    n = torch.zeros((b, h, p), dtype=torch.float32, device=q.device)
-    m = torch.full((b, h), BIG_NEG, dtype=torch.float32, device=q.device)
+    c = torch.zeros((b, h, p, p), dtype=dtype, device=q.device)
+    n = torch.zeros((b, h, p), dtype=dtype, device=q.device)
+    m = torch.full((b, h), BIG_NEG, dtype=dtype, device=q.device)
     out = []
     for l0 in range(0, l, chunk):
         qc, kc, vc = (t[:, :, l0:l0 + chunk] for t in (qf, kf, vf))

@@ -482,6 +482,88 @@ def test_mlstm_scan_bf16_cpu_path_rounds_h_once():
     assert _err_over_tol(got.float().numpy(), want.numpy(), BF16_ULP / 2, of_max=1e-7) <= 1
 
 
+def _bf16_terms(x, n):
+    """x as ``n`` bf16 terms: hi = bf16(x), then bf16 of what is left."""
+    terms = []
+    for _ in range(n):
+        terms.append(x.bfloat16().float())
+        x = x - terms[-1]
+    return terms
+
+
+def _mlstm_products(q, k, v, i_log, f_log, chunk, scheme):
+    """The CUDA kernel's arithmetic: :func:`ref.mlstm_scan_ref` with its four
+    products, q k^T, S v, q C and the state update k^T (w v) (the weights
+    moved onto v, as the kernel has them), taken as the tensor cores take
+    them.  ``"split-tf32"``: every operand split in two TF32 terms, three
+    products; ``"tf32"``: one product of TF32 operands.  ``"bf16x2"``: q,
+    k, v exact (bf16 inputs) and the fp32 operand (S, C, w v) as two bf16
+    terms (the bf16 kernel); ``"bf16"``: that operand rounded to bf16 once.
+    Sums in fp32."""
+    def mm(a, b, fp32_side):
+        if scheme in ("split-tf32", "tf32"):
+            return _tf32_matmul(a, b, 3 if scheme == "split-tf32" else 1, "trunc")
+        n = 2 if scheme == "bf16x2" else 1
+        if fp32_side == "a":
+            return sum(t @ b for t in _bf16_terms(a, n))
+        if fp32_side == "b":
+            return sum(a @ t for t in _bf16_terms(b, n))
+        return a @ b
+
+    b, l, h, p = q.shape
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    ig, fg = i_log.transpose(1, 2), f_log.transpose(1, 2)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    c = torch.zeros((b, h, p, p))
+    n = torch.zeros((b, h, p))
+    m = torch.full((b, h), -1e6)
+    out = []
+    for l0 in range(0, l, chunk):
+        qc, kc, vc = (t[:, :, l0:l0 + chunk] for t in (qf, kf, vf))
+        fcum = torch.cumsum(fg[..., l0:l0 + chunk], -1)
+        igc, ftot = ig[..., l0:l0 + chunk], fcum[..., -1]
+        a_log = torch.where(tri, fcum[..., :, None] - fcum[..., None, :] + igc[..., None, :],
+                            float("-inf"))
+        b_log = fcum + m[..., None]
+        m_i = torch.clamp_min(torch.maximum(a_log.amax(-1), b_log), -1e6)
+        s = mm(qc, kc.transpose(-1, -2), None) * p ** -0.5 * torch.exp(a_log - m_i[..., None])
+        iw = torch.exp(b_log - m_i)
+        num = mm(s, vc, "a") + mm(qc, c, "b") * iw[..., None]
+        den = torch.maximum((s.sum(-1) + (qc @ n[..., None])[..., 0] * iw).abs(), torch.exp(-m_i))
+        out.append(num / den[..., None])
+        w_log = ftot[..., None] - fcum + igc
+        m_next = torch.clamp_min(torch.maximum(ftot + m, w_log.amax(-1)), -1e6)
+        w = torch.exp(w_log - m_next[..., None]) * p ** -0.5
+        carry = torch.exp(ftot + m - m_next)
+        c = carry[..., None, None] * c + mm(kc.transpose(-1, -2), vc * w[..., None], "b")
+        n = carry[..., None] * n + (kc * w[..., None]).sum(-2)
+        m = m_next
+    return torch.cat(out, 2).transpose(1, 2)
+
+
+@pytest.mark.parametrize("f_bias", [-2.0, 3.0])
+@pytest.mark.parametrize("dtype, scheme, cheaper", [("float32", "split-tf32", "tf32"),
+                                                    ("bfloat16", "bf16x2", "bf16")])
+def test_mlstm_scan_product_split_holds_the_tolerance_and_the_cheaper_one_does_not(
+        dtype, scheme, cheaper, f_bias):
+    """The scheme of the CUDA kernel's products, modelled in torch as
+    :func:`test_split_tf32_holds_the_fp32_tolerance_and_plain_tf32_does_not`
+    models flash's: at P = 256, chunk 64, it is within 1e-4 of max |h| of
+    the fp32 plain version on the same inputs (the kernel's fp32 tolerance,
+    and the part of the bf16 one left beside h's rounding), and the cheaper
+    scheme (plain TF32; the fp32 operands rounded to bf16) is not.  The bf16
+    kernel takes ``"bf16x2"``.  The fp32 kernel sums on the CUDA cores in
+    the plain version's order: split-TF32 on the tensor cores holds this
+    tolerance, but moved the xlstm-1.3b forward's logits past theirs on the
+    card (PERF.md)."""
+    q, k, v, il, fl = (torch.from_numpy(a) for a in _mlstm_inputs(7, 1, 256, 2, 256, f_bias=f_bias))
+    q, k, v = (t.to(getattr(torch, dtype)).float() for t in (q, k, v))
+    want = ref.mlstm_scan_ref(q, k, v, il, fl, chunk=64)
+    tol = 1e-4 * want.abs().max().item()
+    assert (_mlstm_products(q, k, v, il, fl, 64, scheme) - want).abs().max().item() <= tol
+    assert (_mlstm_products(q, k, v, il, fl, 64, cheaper) - want).abs().max().item() > tol
+
+
 def test_mlstm_scan_cpu_call_does_not_count_as_a_launch():
     before = ops.LAUNCHES["mlstm_scan"]
     ops.mlstm_scan(*[torch.from_numpy(a) for a in _mlstm_inputs(0, 1, 16, 2, 8)], chunk=8)
@@ -512,6 +594,10 @@ MLSTM_CUDA_CASES = [
     (1, 200, 2, 64, 100, 0.0),
     (1, 64, 2, 64, 8, 0.0),
     (1, 64, 2, 32, 16, -100.0),
+    # P not a multiple of 8 and a chunk not a multiple of 16 (the MMA tiles'
+    # zero-fill and masks), and chunk 256 at the full P
+    (1, 96, 2, 36, 24, 0.0),
+    (1, 1024, 2, 1024, 256, 0.0),
 ]
 
 
