@@ -43,7 +43,10 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    weights, seed 0) over 2048 tokens with every mLSTM block on the kernel:
    ``mlstm_scan`` launched once per mLSTM layer (42), the plain version
    never; the logits against the same forward with ``impl="xla"``; device
-   time by kind of kernel and inside the sLSTM blocks' time loops;
+   time by kind of kernel and inside the sLSTM blocks' time loops; then
+   the same forward with the weights in bf16, which runs the kernel's
+   bf16 path: 42 launches, each launch's h against the fp32 plain version
+   on that layer's own inputs, finite logits, device time by kind;
 9. xlstm_serve: ``python -m repro_torch.launch.serve --arch xlstm-1.3b`` in
    process at full width: 4 requests must be served; one prompt's prefill
    logits (the decode step looped over the prompt) against the kernel
@@ -57,7 +60,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -185,64 +187,6 @@ XLSTM_SERVE_ARGS = ["--arch", XLSTM_ARCH, "--requests", "4", "--arrival", "burst
                     "--queue-limit", "4", "--seed", "0", "--device", "cuda"]
 
 
-def _smi() -> str:
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    return proc.stdout.strip().splitlines()[0] if proc.returncode == 0 else \
-        f"nvidia-smi failed: {proc.stderr.strip()}"
-
-
-def _time_ms(torch, fn, warmup=3, runs=20, calls=10) -> float:
-    """Milliseconds of one call of ``fn``: the median over ``runs`` pairs
-    of CUDA events, each around ``calls`` back-to-back calls, after
-    ``warmup`` calls.  That is the device time only while the device is
-    the slower side; a call whose kernels are shorter than its host path
-    (checks, ctypes, launch) leaves the device idle between launches, and
-    the events then time the host's rate.  :func:`_device_ms` reads the
-    kernels' own time."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
-def _device_times(torch, fn, warmup=3, calls=20) -> dict:
-    """Device milliseconds of one call of ``fn`` by kernel name: the time of
-    the kernels it launches under ``torch.profiler``, summed over ``calls``
-    calls, over ``calls``; the gaps between launches do not count."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {ev.key: ev.self_device_time_total / 1e3 / calls for ev in prof.key_averages()
-            if str(ev.device_type).endswith("CUDA")}
-
-
-def _measured(ms):
-    return ms if ms > 0 else "not measured"
-
-
-def _device_ms(torch, fn, warmup=3, calls=20):
-    """Device milliseconds of one call of ``fn`` (:func:`_device_times`,
-    summed over its kernels)."""
-    return _measured(sum(_device_times(torch, fn, warmup, calls).values()))
-
-
 def profile_window(torch, label, step, warmup=2, steps=3) -> None:
     """Print the host wall time of ``step`` (which ends in a device
     sync), the device time by kernel under ``torch.profiler``, and the
@@ -323,6 +267,8 @@ def _mlstm_work(b, l, h, p, q, esize):
 def mlstm_phase(torch, ops, ref, gen) -> dict:
     """The mLSTM scan against its fp32 plain version on the same inputs,
     fp32 and bf16, every case of ``MLSTM_CASES``.  Returns the rows."""
+    from repro_torch.kernels import timing
+
     rows = {}
     for dtype in ("float32", "bfloat16"):
         dt_ = getattr(torch, dtype)
@@ -354,17 +300,17 @@ def mlstm_phase(torch, ops, ref, gen) -> dict:
                 "tol": f"{MLSTM_H_REL[dtype]} |h| + {MLSTM_TOL} max|h| per element",
                 "max_err_over_tol": over, "max_abs_h": want.abs().max().item(),
                 "finite": finite,
-                "ms": _time_ms(torch, kernel),
-                "plain_ms": _time_ms(torch, lambda: ref.mlstm_scan_ref(*args, chunk=chunk)),
+                "ms": timing.event_ms(kernel),
+                "plain_ms": timing.event_ms(lambda: ref.mlstm_scan_ref(*args, chunk=chunk)),
                 "library_ms": None, "library": MLSTM_NO_LIBRARY,
                 "bound_ms": max(t_ops, t_bytes) * 1e3,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             }
             if case in MLSTM_DEVICE_TIMED_CASES:
-                times = _device_times(torch, kernel)
-                row["device_ms"] = _measured(sum(times.values()))
+                times = timing.device_times(kernel)
+                row["device_ms"] = timing.measured(sum(times.values()))
                 for key, name in MLSTM_PASSES.items():
-                    row[key] = _measured(sum(ms for k, ms in times.items() if name in k))
+                    row[key] = timing.measured(sum(ms for k, ms in times.items() if name in k))
             rows[(case, dtype)] = row
             print("mlstm_scan " + json.dumps(row))
             del args, q, k, v, out, want, err_h, tol_h
@@ -384,11 +330,12 @@ def profile_by_kind(torch, label, step, ranges=()) -> dict:
     (GEMMs, the mLSTM scan, the rest), for each ``record_function`` range
     named in ``ranges`` the host time inside it, the device time of the
     kernels launched in it and its span on the device, and the device's
-    busy share of the wall time.  Returns the printed row."""
+    busy share of the wall time.  The host's operators are recorded only
+    when ``ranges`` are asked for.  Returns the printed row."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), \
-            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * bool(ranges) + [ProfilerActivity.CUDA]
+    with torch.inference_mode(), profile(activities=activities) as prof:
         t0 = time.perf_counter()
         step()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -517,6 +464,84 @@ def xlstm_forward_phase(torch, ops, ref, serve) -> dict:
     if not finite or logits_shape != (1, XLSTM_SEQ, spec.vocab) or err > tol:
         raise AssertionError(f"xlstm_forward: logits max |err| {err} > {tol}, "
                              f"finite={finite}, shape {logits_shape}")
+    del model
+    torch.cuda.empty_cache()
+    return summary
+
+
+def xlstm_forward_bf16_phase(torch, ops, ref, serve) -> dict:
+    """The forward of :func:`xlstm_forward_phase` with the same weights in
+    bf16 (``LM.init`` draws in fp32 and rounds; the gate projections stay
+    fp32), so that every mLSTM block runs the kernel's bf16 path.  Raises
+    unless ``mlstm_scan`` launched once per mLSTM layer and the plain
+    version never, every launch's h holds the kernel's bf16 tolerance
+    against the fp32 plain version on that layer's own inputs, and the
+    logits are finite and of the expected shape.  The logits are not held
+    against another forward: with random weights this model moves its
+    logits by about their own size under rounding to bf16 (the plain bf16
+    forward lands as far from the fp32 one as the kernel's does;
+    ``scripts/xlstm_logits_variants.py --bf16``).  Returns the counts and
+    times."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+
+    spec = get_arch(XLSTM_ARCH).spec()
+    n_mlstm = sum(sub.kind == "mlstm" for layer in spec.layers for sub in layer.subs)
+    tokens = torch.randint(0, spec.vocab, (1, XLSTM_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    model = LM(dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "pallas")))
+    model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
+
+    plain_calls = []
+    with mock.patch.object(ref, "mlstm_scan_ref", _counted(plain_calls, ref.mlstm_scan_ref)), \
+            torch.inference_mode():
+        ops.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        logits = model(tokens)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = dict(ops.LAUNCHES)
+    finite = bool(torch.isfinite(logits).all())
+    logits_shape = tuple(logits.shape)
+    del logits
+
+    # every launch against the fp32 plain version on its own inputs
+    overs, kernel = [], ops.mlstm_scan
+
+    def checked(q, k, v, i_log, f_log, *, chunk):
+        h, none = kernel(q, k, v, i_log, f_log, chunk=chunk)
+        want = ref.mlstm_scan_ref(q.float(), k.float(), v.float(), i_log, f_log, chunk=chunk)
+        tol = MLSTM_H_REL["bfloat16"] * want.abs() + MLSTM_TOL * want.abs().max()
+        overs.append(((h.float() - want).abs() / tol.clamp_min(1e-30)).max().item())
+        return h, none
+
+    with mock.patch.object(ops, "mlstm_scan", checked), torch.inference_mode():
+        model(tokens)
+
+    prof = profile_by_kind(torch, f"xlstm forward bf16 B=1 L={XLSTM_SEQ}",
+                           lambda: float(model(tokens)[0, -1, 0]))
+    summary = {
+        "arch": spec.name, "dtype": "bfloat16", "tokens": list(tokens.shape), "wall_ms": wall,
+        "device_ms": prof["device_ms"],
+        "device_ms_source": "the profiled forward's kernels (torch.profiler)",
+        "mlstm_layers": n_mlstm, "mlstm_scan_launches": launches.get("mlstm_scan", 0),
+        "plain_calls": len(plain_calls),
+        "h_max_err_over_tol_by_layer": overs,
+        "h_tol": f"{MLSTM_H_REL['bfloat16']} |h| + {MLSTM_TOL} max|h| per element, "
+                 f"against the fp32 plain version on the layer's own inputs",
+        "logits_shape": list(logits_shape), "finite": finite,
+    }
+    print("xlstm_forward_bf16 " + json.dumps(summary))
+    if launches.get("mlstm_scan", 0) != n_mlstm or plain_calls:
+        raise AssertionError(f"xlstm_forward_bf16: mlstm_scan launched {launches} times "
+                             f"(expected {n_mlstm}), plain calls {len(plain_calls)}")
+    if len(overs) != n_mlstm or max(overs) > 1:
+        raise AssertionError(f"xlstm_forward_bf16: h max |err| / tol by layer {overs}")
+    if not finite or logits_shape != (1, XLSTM_SEQ, spec.vocab):
+        raise AssertionError(f"xlstm_forward_bf16: logits finite={finite}, "
+                             f"shape {logits_shape}")
     del model
     torch.cuda.empty_cache()
     return summary
@@ -766,6 +791,7 @@ def flash_phase(torch, ops, gen) -> dict:
     and bf16, every case of ``FLASH_CASES``, with the kernel's, the plain
     version's and SDPA's times; the ``DEVICE_TIMED_CASES`` also with the
     kernel's and SDPA's device time.  Returns the rows."""
+    from repro_torch.kernels import timing
     from repro_torch.nn.attention import make_mask
 
     rows = {}
@@ -795,22 +821,23 @@ def flash_phase(torch, ops, gen) -> dict:
                 "case": {"B": b, "S": s, "H": h, "KH": kh, "D": d,
                          "causal": causal, "window": window},
                 "dtype": dtype, "max_abs_err": err, "tol": TOLERANCE[dtype],
-                "ms": _time_ms(torch, kernel),
-                "plain_ms": _time_ms(torch, lambda: _flash_plain(q, k, v, **kw)),
-                "library_ms": _time_ms(torch, library),
+                "ms": timing.event_ms(kernel),
+                "plain_ms": timing.event_ms(lambda: _flash_plain(q, k, v, **kw)),
+                "library_ms": timing.event_ms(library),
                 "bound_ms": max(t_ops, t_bytes) * 1e3,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             }
             if case in DEVICE_TIMED_CASES:
-                row["device_ms"] = _device_ms(torch, kernel)
-                row["library_device_ms"] = _device_ms(torch, library)
+                row["device_ms"] = timing.device_ms(kernel)
+                row["library_device_ms"] = timing.device_ms(library)
             rows[(case, dtype)] = row
             print("flash_attention " + json.dumps(row))
             del q, k, v, out, want
     return rows
 
 
-SUBSET_PHASES = ("flash", "nas", "mlstm", "xlstm_forward", "xlstm_serve")
+SUBSET_PHASES = ("flash", "nas", "mlstm", "xlstm_forward", "xlstm_forward_bf16",
+                 "xlstm_serve")
 
 
 def main(argv=None) -> int:
@@ -838,11 +865,11 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, ops, ref, timing
     from repro_torch.launch import serve
 
     # -- 1. environment ----------------------------------------------------
-    smi = _smi()
+    smi = timing.card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {smi}")
@@ -872,6 +899,8 @@ def main(argv=None) -> int:
                 mlstm_phase(torch, ops, ref, gen)
             elif name == "xlstm_forward":
                 xlstm_forward_phase(torch, ops, ref, serve)
+            elif name == "xlstm_forward_bf16":
+                xlstm_forward_bf16_phase(torch, ops, ref, serve)
             else:
                 xlstm_serve_phase(torch, ops, ref, serve)
         return 0
@@ -913,8 +942,8 @@ def main(argv=None) -> int:
                 "max_err_over_tol": over, "max_abs_y": want_y.abs().max().item(),
                 "rms_y": want_y.square().mean().sqrt().item(),
                 "max_abs_err_state": err_s, "tol_state": tol_s,
-                "ms": _time_ms(torch, lambda: ops.ssm_scan(*args, chunk=chunk)),
-                "plain_ms": _time_ms(torch, lambda: ref.ssm_scan_ref(*args, chunk=chunk)),
+                "ms": timing.event_ms(lambda: ops.ssm_scan(*args, chunk=chunk)),
+                "plain_ms": timing.event_ms(lambda: ref.ssm_scan_ref(*args, chunk=chunk)),
                 "library_ms": None, "library": SSM_NO_LIBRARY,
                 "bound_ms": max(t_ops, t_bytes) * 1e3,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1000,6 +1029,7 @@ def main(argv=None) -> int:
 
     # -- 8. the xlstm-1.3b forward through the kernel -----------------------
     xfwd = xlstm_forward_phase(torch, ops, ref, serve)
+    xfwd16 = xlstm_forward_bf16_phase(torch, ops, ref, serve)
 
     # -- 9. serving xlstm-1.3b ----------------------------------------------
     xserve = xlstm_serve_phase(torch, ops, ref, serve)
@@ -1037,6 +1067,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/mlstm_scan.py:88",
         "launches": xfwd["mlstm_scan_launches"],
         "launches_by_path": {"xlstm_forward": xfwd["mlstm_scan_launches"],
+                             "xlstm_forward_bf16": xfwd16["mlstm_scan_launches"],
                              "xlstm_serve": xserve["mlstm_scan_launches"]},
         "max_abs_err": mscan["max_abs_err"], "ms": mscan["ms"],
         "plain_ms": mscan["plain_ms"], "bound_ms": mscan["bound_ms"],
@@ -1045,7 +1076,7 @@ def main(argv=None) -> int:
         **{key: mscan[key] for key in MLSTM_PASSES},
         "shape": "B=1 L=2048 H=4 P=1024 chunk=128 float32",
     }]}))
-    print(_smi())
+    print(timing.card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

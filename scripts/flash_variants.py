@@ -17,16 +17,11 @@ Needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
-import ctypes
-import statistics
-import subprocess
 import sys
-from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ops, ref, timing
 
 OUT = build.BUILD_DIR.parent / "flash_variants"
 # (B, S, H, KH, D, causal): the NAS loop's attention, the longer served
@@ -37,27 +32,12 @@ TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 def _build(sources):
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {src: subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, "-o", str(OUT / f"{i}-{Path(src).stem}.so"), src],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for i, src in enumerate(sources)}
     fns = {}
-    for i, (src, proc) in enumerate(procs.items()):
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"{src}: nvcc exited {proc.returncode}\n{log}")
-        kernel = None
-        for line in log.splitlines():
-            if "Compiling entry" in line:
-                kernel = line.split("flash_fwd")[-1][:24]
-            elif "Used" in line and kernel and ("Li80E" in kernel or "Li128E" in kernel):
-                print(f"registers {src} {kernel}: {line.split(':', 1)[1].strip()}")
-        fn = ctypes.CDLL(str(OUT / f"{i}-{Path(src).stem}.so")).repro_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fns[src] = fn
+    for src, (lib, log) in build.build_files(sources, OUT).items():
+        for kernel, used in build.registers(log):
+            if "Li80E" in kernel or "Li128E" in kernel:
+                print(f"registers {src} {kernel.split('flash_fwd')[-1][:24]}: {used}")
+        fns[src] = ops.bind_flash(lib)
     return fns
 
 
@@ -71,41 +51,12 @@ def _launch(fn, q, k, v, o, causal):
         raise RuntimeError(f"launch failed: CUDA error {err}")
 
 
-def _event_ms(fn, runs=15, calls=10):
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
-def _device_ms(fn, calls=20):
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                   if str(ev.device_type).endswith("CUDA"))
-    return round(total_us / 1e3 / calls, 4) if total_us > 0 else "not measured"
-
-
 def main(sources) -> int:
     if not sources or not torch.cuda.is_available():
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 1
     fns = _build(sources)
-    print("card: " + subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip())
+    print("card: " + timing.card())
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     for b, s, h, kh, d, causal in SHAPES:
@@ -126,7 +77,8 @@ def main(sources) -> int:
                 if err > TOLERANCE[dtype]:
                     raise SystemExit(f"{src} {(b, s, h, kh, d, causal)} {dtype}: "
                                      f"max |err| {err} > {TOLERANCE[dtype]}")
-                rows.setdefault(src, []).append((_event_ms(run), _device_ms(run), err))
+                rows.setdefault(src, []).append((timing.event_ms(run, runs=15),
+                                                 timing.device_ms(run, warmup=1), err))
             for src, turns in rows.items():
                 print(f"flash_variant {(b, s, h, kh, d, causal)} {str(dtype)[6:]} {src}: "
                       f"event ms {[round(t[0], 4) for t in turns]}, "

@@ -22,17 +22,12 @@ limit first.  Needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
-import ctypes
-import statistics
-import subprocess
 import sys
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ops, ref, timing
 
 OUT = build.BUILD_DIR.parent / "mlstm_variants"
 # (B, L, H, P, chunk): the xlstm-1.3b forward's, batch 4 at 512, chunk 256
@@ -42,31 +37,11 @@ PASSES = ("mlstm_chunk_panel", "mlstm_chunk_state")
 
 
 def _build(sources):
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {src: subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, "-o", str(OUT / f"{i}-{Path(src).stem}.so"), src],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for i, src in enumerate(sources)}
     fns = {}
-    for i, (src, proc) in enumerate(procs.items()):
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"{src}: nvcc exited {proc.returncode}\n{log}")
-        kernel = None
-        for line in log.splitlines():
-            if "Compiling entry" in line:
-                kernel = line.split("'")[1] if "'" in line else line
-            elif "Used" in line and kernel:
-                print(f"registers {src} {kernel[:40]}: {line.split(':', 1)[1].strip()}")
-        lib = ctypes.CDLL(str(OUT / f"{i}-{Path(src).stem}.so"))
-        fn = lib.repro_mlstm_scan_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 15
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        floats = lib.repro_mlstm_scan_scratch_floats
-        floats.argtypes = [ctypes.c_int] * 5
-        floats.restype = ctypes.c_longlong
-        fns[src] = (fn, floats)
+    for src, (lib, log) in build.build_files(sources, OUT).items():
+        for kernel, used in build.registers(log):
+            print(f"registers {src} {kernel[:40]}: {used}")
+        fns[src] = ops.bind_mlstm(lib)
     return fns
 
 
@@ -85,36 +60,6 @@ def _runner(fns, q, k, v, il, fl, out, chunk):
     return run
 
 
-def _event_ms(fn, runs=15, calls=10):
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
-def _device_ms(fn, calls=20):
-    """Device ms of one call, by pass; "not measured" where the profiler saw none."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = {name: sum(ev.self_device_time_total for ev in prof.key_averages()
-                    if str(ev.device_type).endswith("CUDA") and name in ev.key)
-          for name in PASSES}
-    return [round(us[name] / 1e3 / calls, 4) if us[name] > 0 else "not measured"
-            for name in PASSES]
-
-
 def main(argv) -> int:
     draws = 1
     if argv[:1] == ["--draws"]:
@@ -124,9 +69,7 @@ def main(argv) -> int:
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 1
     fns = _build(sources)
-    print("card: " + subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip())
+    print("card: " + timing.card())
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     for b, l, h, p, chunk in [shape for shape in SHAPES for _ in range(draws)]:
@@ -151,7 +94,10 @@ def main(argv) -> int:
                 over = ratio.flatten()[worst].item()
                 over64 = ((out.double() - want64).abs() / tol64).max().item()
                 row_in_chunk = (worst // (h * p)) % l % chunk
-                rows.setdefault(src, []).append((_event_ms(run), _device_ms(run), over,
+                times = timing.device_times(run, warmup=1)
+                passes = [timing.measured(sum(ms for key, ms in times.items() if name in key))
+                          for name in PASSES]
+                rows.setdefault(src, []).append((timing.event_ms(run, runs=15), passes, over,
                                                  row_in_chunk, over64))
             for src, turns in rows.items():
                 print(f"mlstm_variant {(b, l, h, p, chunk)} {str(dtype)[6:]} {src}: "

@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -80,6 +80,40 @@ def build_all(names=None) -> Dict[str, str]:
     if failures:
         raise KernelBuildError("\n".join(failures))
     return reports
+
+
+def build_files(paths, out_dir) -> Dict[str, Tuple[ctypes.CDLL, str]]:
+    """Compile the given ``.cu`` files (edited copies of a source, say) into
+    ``out_dir``, one ``nvcc`` per file, all started together, and load
+    them.  Returns {path: (library, ptxas report)}; raises if any compile
+    fails."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    outs = {src: out_dir / f"{i}-{Path(src).stem}.so" for i, src in enumerate(paths)}
+    procs = {src: subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(out), str(src)],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, out in outs.items()}
+    built, failures = {}, []
+    for src, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{src}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        built[src] = (ctypes.CDLL(str(outs[src])), log)
+    if failures:
+        raise KernelBuildError("\n".join(failures))
+    return built
+
+
+def registers(log: str):
+    """(kernel, ptxas's "Used ..." line) for each kernel in an nvcc report."""
+    kernel = None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            kernel = line.split("'")[1] if "'" in line else line
+        elif "Used" in line and kernel:
+            yield kernel, line.split(":", 1)[1].strip()
 
 
 def load(name: str) -> ctypes.CDLL:

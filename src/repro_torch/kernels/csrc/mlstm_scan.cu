@@ -52,20 +52,23 @@
 // by scalar loads with its columns swizzled by row; a staged tile's products
 // go into a fresh accumulator added to the total in fp32, since the tensor
 // cores add into their accumulator with truncation.
+// chip_smoke.py drives this path through the xlstm-1.3b forward with bf16
+// weights (its xlstm_forward_bf16 phase).
 //
 // fp32 inputs (namespace simt): the products on the CUDA cores, 4 x 4
 // register blocks fed by 16-byte shared loads, each sum in the order of the
 // plain version's fp32 matrix products (ascending over P or over the chunk).
 // Tensor-core versions of the fp32 path were built and measured on an H100
-// (PERF.md, scripts/mlstm_variants.py): split-TF32 (three TF32 products)
-// and fp64 products (mma.sync m16n8k8 .f64) run the call in 1.27 and 1.39 ms
-// against 2.91, and stay within the kernel's 1e-4 tolerance of the plain
-// version (fp64: closer to a float64 plain version than the fp32 one is),
-// but the xlstm-1.3b forward amplifies per-layer differences of 1e-7 into
-// its logits: with either, the logits land 1.04 and 1.82 times their 1e-3
-// tolerance away from impl="xla", whose own fp32 rounding sits 0.72 times it
-// from the float64 result; this path, which sums as the xla path's products
-// do, lands at 0.27.
+// (PERF.md; scripts/mlstm_variants.py, scripts/xlstm_logits_variants.py):
+// split-TF32 and fp64 products ran the call in 1.27 and 1.39 ms against 2.91
+// and held the kernel's 1e-4 tolerance.  But chip_smoke.py holds the
+// xlstm-1.3b forward's logits to 1e-3 of their max from impl="xla", and with
+// random weights that forward moves its logits 24.6 times that tolerance
+// under noise of 1e-7 of max |h| on its mLSTM outputs.  Over four draws of
+// weights and tokens, this path's logits landed at 0.27-0.31 of the
+// tolerance and split-TF32's at 0.39-432 (above it in three draws).  Why
+// this path tracks the xla forward so closely is not known: that both sum
+// in the same order is a guess that no run has tested.
 //
 // Bound.  At the forward shape of xlstm-1.3b (B = 1, L = 2048, H = 4,
 // P = 1024, Q = 128) a call is about 36.6 GFLOP of products (2 Q (Q + 1) P +
@@ -81,8 +84,9 @@
 // pass, and the state pass is one block of 8 warps a SM (C's slice fills
 // shared memory), so copies and products overlap only in part; a
 // thread-block cluster sharing the staged tiles would divide the streaming.
-// mma.sync, not wgmma; every thread issues copies.  The fp32 path is bound
-// by the CUDA cores and by the xla path's order of sums.
+// mma.sync, not wgmma; every thread issues copies.  The fp32 path runs at
+// about a fifth of the CUDA cores' rate, and a tensor-core fp32 path waits on
+// a logits check that it can pass (ROADMAP Queue 3).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -174,8 +178,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 __device__ __forceinline__ float get(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
@@ -228,8 +230,7 @@ __host__ inline int state_smem(int P, int Q) {
 // dst[pp][ii] = src[(r0 + ii) * rs + p0 + pp] for a 64-row, KT-column tile
 // (k-major, rows of LDA floats); zero past row nrows or column P.  Eight
 // threads read a row's 32 elements together.
-template <typename T>
-__device__ __forceinline__ void stage_transposed(float* dst, const T* src, long long rs, int r0,
+__device__ __forceinline__ void stage_transposed(float* dst, const float* src, long long rs, int r0,
                                                  int nrows, int p0, int P) {
   for (int e = threadIdx.x; e < RB * (KT / 4); e += THREADS) {
     const int ii = e / (KT / 4), pp = 4 * (e % (KT / 4));
@@ -246,7 +247,6 @@ __device__ __forceinline__ void stage_transposed(float* dst, const T* src, long 
 // pass 1: the chunk's panel and per-row scalars
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
   extern __shared__ float smem[];
   const int Q = p.Q, q64 = round_up(Q, RB);
@@ -334,8 +334,8 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
 
   // 3. the n update of the chunk, u = sum_j (k_j P^-1/2) exp(w_j - m'), once
   // here rather than in every value-column block of pass 2
-  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + (long long)c * Q * p.q_sl;
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh + (long long)c * Q * p.k_sl;
+  const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh + (long long)c * Q * p.q_sl;
+  const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh + (long long)c * Q * p.k_sl;
   for (int pq = 4 * tid; pq < p.P; pq += 4 * THREADS) {
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int j = 0; j < Q; ++j) {
@@ -478,7 +478,6 @@ __device__ __forceinline__ void pipeline(float* As, int n, Fetch fetch, Put put,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
   extern __shared__ float smem[];
   const int Q = p.Q, P = p.P;
@@ -493,10 +492,10 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
   const int t0 = blockIdx.x * TV, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
   const int ty = tid / 8, tx = tid % 8;  // rows 4 ty + r, columns 4 tx + cc
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  T* hb = static_cast<T*>(p.h) + ((long long)b * p.L * p.H + h) * P;
+  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  float* hb = static_cast<float*>(p.h) + ((long long)b * p.L * p.H + h) * P;
   const long long h_sl = (long long)p.H * P;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
@@ -507,8 +506,8 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
     const long long chunk_id = ((long long)b * p.H + h) * p.nc + c;
     const long long l0 = (long long)c * Q;
     const float* panel = p.panel + chunk_id * q64 * q64;
-    const T* qc = qb + l0 * p.q_sl;
-    const T* kc = kb + l0 * p.k_sl;
+    const float* qc = qb + l0 * p.q_sl;
+    const float* kc = kb + l0 * p.k_sl;
     __syncthreads();  // the previous chunk is done with vs, rs, ns and As
     for (int e = tid; e < 4 * q64; e += THREADS) rs[e] = p.rows[chunk_id * 4 * q64 + e];
     for (int e = tid; e < q32 * (TV / 4); e += THREADS) {
@@ -567,10 +566,10 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
         const float qn_i = red[ii] + red[RB2 + ii];
         const float iw = rs[q64 + i];
         const float den = fmaxf(fabsf(rs[i] + qn_i * iw), rs[2 * q64 + i]);
-        T* out = hb + (l0 + i) * h_sl + t0 + 4 * tx;
+        float* out = hb + (l0 + i) * h_sl + t0 + 4 * tx;
 #pragma unroll
         for (int cc = 0; cc < 4; ++cc)
-          if (t0 + 4 * tx + cc < P) store(out + cc, (ai[r][cc] + ae[r][cc] * iw) / den);
+          if (t0 + 4 * tx + cc < P) out[cc] = (ai[r][cc] + ae[r][cc] * iw) / den;
       }
     }
 
@@ -608,19 +607,18 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
   }
 }
 
-template <typename T>
 int launch(const Params& p, int B, cudaStream_t stream) {
   const int smem1 = panel_smem(p.Q), smem2 = state_smem(p.P, p.Q);
-  cudaError_t err = cudaFuncSetAttribute(mlstm_chunk_panel<T>,
+  cudaError_t err = cudaFuncSetAttribute(mlstm_chunk_panel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(mlstm_chunk_state<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(mlstm_chunk_state, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem2);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_chunk_panel<T><<<dim3(p.nc, p.H, B), THREADS, smem1, stream>>>(p);
+  mlstm_chunk_panel<<<dim3(p.nc, p.H, B), THREADS, smem1, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_chunk_state<T><<<dim3((p.P + TV - 1) / TV, p.H, B), THREADS, smem2, stream>>>(p);
+  mlstm_chunk_state<<<dim3((p.P + TV - 1) / TV, p.H, B), THREADS, smem2, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1336,7 +1334,7 @@ extern "C" int repro_mlstm_scan_fwd(
     simt::Params p{q, k, v, ig, fg, h, base, rows, u, u + chunks * P, L, H, P, Q, nc, scale,
                    q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
                    i_sb, i_sl, i_sh, f_sb, f_sl, f_sh};
-    return simt::launch<float>(p, B, s);
+    return simt::launch(p, B, s);
   }
   if (nc > 65535 || (long long)B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
   float* rowpart = base + chunks * q64 * q64;

@@ -28,15 +28,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FLASH_MAX_D = 128
 
 
-@functools.cache
-def _flash_fn():
-    """The kernel's C entry point, loaded and typed once."""
-    fn = build.load("flash_attention").repro_flash_attention_fwd
+def bind_flash(lib: ctypes.CDLL):
+    """The C entry point of a built ``flash_attention.cu``, typed."""
+    fn = lib.repro_flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _flash_fn():
+    """The kernel's C entry point, loaded and typed once."""
+    return bind_flash(build.load("flash_attention"))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -189,9 +194,9 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 _MLSTM_MAX_P = 1024
 
 
-@functools.cache
-def _mlstm_fns():
-    lib = build.load("mlstm_scan")
+def bind_mlstm(lib: ctypes.CDLL):
+    """The C entry points of a built ``mlstm_scan.cu`` (the scan, the floats
+    of scratch it needs), typed."""
     fn = lib.repro_mlstm_scan_fwd
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
@@ -200,6 +205,11 @@ def _mlstm_fns():
     floats.argtypes = [ctypes.c_int] * 5
     floats.restype = ctypes.c_longlong
     return fn, floats
+
+
+@functools.cache
+def _mlstm_fns():
+    return bind_mlstm(build.load("mlstm_scan"))
 
 
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

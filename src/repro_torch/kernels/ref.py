@@ -35,14 +35,17 @@ def ssm_scan_ref(x, dt, a, b_mat, c_mat, *, chunk=128):
     return ssd_chunked(x, dt, a, b_mat, c_mat, chunk)
 
 
-def mlstm_scan_ref(q, k, v, i_log, f_log, *, chunk, dtype=torch.float32):
+def mlstm_scan_ref(q, k, v, i_log, f_log, *, chunk, dtype=torch.float32,
+                   matmul=torch.matmul):
     """The Pallas ``mlstm_scan_blhp`` kernel's math, chunk by chunk in
     fp32: k scaled by P^-1/2, the stabiliser starting at -1e6 (not -inf,
     as ``mlstm_chunked`` has it), the panel product in fp32 (not cast to
     v's dtype first).  q/k/v: (B, L, H, P); i_log/f_log: (B, L, H).
     Returns h (B, L, H, P) in q's dtype.  ``dtype`` is that of every sum
     and product (float64 gives a yardstick for the fp32 version's own
-    rounding)."""
+    rounding).  ``matmul`` takes the four matrix products, q k^T, S v, q C
+    and the state update (k w)^T v (a test models a kernel's arithmetic
+    through it)."""
     b, l, h, p = q.shape
     if l % chunk:
         raise ValueError(f"chunk {chunk} does not divide the sequence {l}")
@@ -68,8 +71,8 @@ def mlstm_scan_ref(q, k, v, i_log, f_log, *, chunk, dtype=torch.float32):
         m_i = torch.clamp_min(torch.maximum(torch.amax(a_log, dim=-1), b_log), BIG_NEG)
         intra_w = torch.exp(a_log - m_i[..., None])  # (b,h,Q,Q)
         inter_w = torch.exp(b_log - m_i)  # (b,h,Q)
-        s_intra = (qc @ kc.transpose(-1, -2)) * intra_w
-        h_num = s_intra @ vc + (qc @ c) * inter_w[..., None]
+        s_intra = matmul(qc, kc.transpose(-1, -2)) * intra_w
+        h_num = matmul(s_intra, vc) + matmul(qc, c) * inter_w[..., None]
         denom = s_intra.sum(dim=-1) + (qc @ n[..., None])[..., 0] * inter_w
         denom = torch.maximum(denom.abs(), torch.exp(-m_i))
         out.append(h_num / denom[..., None])
@@ -79,7 +82,7 @@ def mlstm_scan_ref(q, k, v, i_log, f_log, *, chunk, dtype=torch.float32):
                                  BIG_NEG)
         kw = kc * torch.exp(w_log - m_next[..., None])[..., None]  # (b,h,Q,P)
         carry = torch.exp(ftot + m - m_next)
-        c = carry[..., None, None] * c + kw.transpose(-1, -2) @ vc
+        c = carry[..., None, None] * c + matmul(kw.transpose(-1, -2), vc)
         n = carry[..., None] * n + kw.sum(dim=-2)
         m = m_next
     return torch.cat(out, dim=2).transpose(1, 2).to(q.dtype)

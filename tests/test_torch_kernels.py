@@ -491,77 +491,43 @@ def _bf16_terms(x, n):
     return terms
 
 
-def _mlstm_products(q, k, v, i_log, f_log, chunk, scheme):
-    """The CUDA kernel's arithmetic: :func:`ref.mlstm_scan_ref` with its four
-    products, q k^T, S v, q C and the state update k^T (w v) (the weights
-    moved onto v, as the kernel has them), taken as the tensor cores take
-    them.  ``"split-tf32"``: every operand split in two TF32 terms, three
-    products; ``"tf32"``: one product of TF32 operands.  ``"bf16x2"``: q,
-    k, v exact (bf16 inputs) and the fp32 operand (S, C, w v) as two bf16
-    terms (the bf16 kernel); ``"bf16"``: that operand rounded to bf16 once.
-    Sums in fp32."""
-    def mm(a, b, fp32_side):
-        if scheme in ("split-tf32", "tf32"):
-            return _tf32_matmul(a, b, 3 if scheme == "split-tf32" else 1, "trunc")
-        n = 2 if scheme == "bf16x2" else 1
-        if fp32_side == "a":
-            return sum(t @ b for t in _bf16_terms(a, n))
-        if fp32_side == "b":
-            return sum(a @ t for t in _bf16_terms(b, n))
+def _bf16_products(terms):
+    """A matmul as the bf16 kernel's tensor cores take it: an operand that
+    bf16 holds exactly (q, k, v) goes in as it is, the fp32 one (S, C, or
+    the weighted side of the state update) as ``terms`` bf16 terms; each
+    product exact, the sums in fp32."""
+    def exact(x):
+        return bool((x.bfloat16().float() == x).all())
+
+    def mm(a, b):
+        assert exact(a) or exact(b)
+        if not exact(a):
+            return sum(t @ b for t in _bf16_terms(a, terms))
+        if not exact(b):
+            return sum(a @ t for t in _bf16_terms(b, terms))
         return a @ b
-
-    b, l, h, p = q.shape
-    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
-    ig, fg = i_log.transpose(1, 2), f_log.transpose(1, 2)
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
-    c = torch.zeros((b, h, p, p))
-    n = torch.zeros((b, h, p))
-    m = torch.full((b, h), -1e6)
-    out = []
-    for l0 in range(0, l, chunk):
-        qc, kc, vc = (t[:, :, l0:l0 + chunk] for t in (qf, kf, vf))
-        fcum = torch.cumsum(fg[..., l0:l0 + chunk], -1)
-        igc, ftot = ig[..., l0:l0 + chunk], fcum[..., -1]
-        a_log = torch.where(tri, fcum[..., :, None] - fcum[..., None, :] + igc[..., None, :],
-                            float("-inf"))
-        b_log = fcum + m[..., None]
-        m_i = torch.clamp_min(torch.maximum(a_log.amax(-1), b_log), -1e6)
-        s = mm(qc, kc.transpose(-1, -2), None) * p ** -0.5 * torch.exp(a_log - m_i[..., None])
-        iw = torch.exp(b_log - m_i)
-        num = mm(s, vc, "a") + mm(qc, c, "b") * iw[..., None]
-        den = torch.maximum((s.sum(-1) + (qc @ n[..., None])[..., 0] * iw).abs(), torch.exp(-m_i))
-        out.append(num / den[..., None])
-        w_log = ftot[..., None] - fcum + igc
-        m_next = torch.clamp_min(torch.maximum(ftot + m, w_log.amax(-1)), -1e6)
-        w = torch.exp(w_log - m_next[..., None]) * p ** -0.5
-        carry = torch.exp(ftot + m - m_next)
-        c = carry[..., None, None] * c + mm(kc.transpose(-1, -2), vc * w[..., None], "b")
-        n = carry[..., None] * n + (kc * w[..., None]).sum(-2)
-        m = m_next
-    return torch.cat(out, 2).transpose(1, 2)
+    return mm
 
 
-@pytest.mark.parametrize("f_bias", [-2.0, 3.0])
-@pytest.mark.parametrize("dtype, scheme, cheaper", [("float32", "split-tf32", "tf32"),
-                                                    ("bfloat16", "bf16x2", "bf16")])
-def test_mlstm_scan_product_split_holds_the_tolerance_and_the_cheaper_one_does_not(
-        dtype, scheme, cheaper, f_bias):
-    """The scheme of the CUDA kernel's products, modelled in torch as
+@pytest.mark.parametrize("f_bias", [-2.0, 1.0, 3.0, 5.0])
+def test_mlstm_scan_product_split_holds_the_tolerance_and_the_cheaper_one_does_not(f_bias):
+    """The bf16 kernel's products, modelled in torch as
     :func:`test_split_tf32_holds_the_fp32_tolerance_and_plain_tf32_does_not`
-    models flash's: at P = 256, chunk 64, it is within 1e-4 of max |h| of
-    the fp32 plain version on the same inputs (the kernel's fp32 tolerance,
-    and the part of the bf16 one left beside h's rounding), and the cheaper
-    scheme (plain TF32; the fp32 operands rounded to bf16) is not.  The bf16
-    kernel takes ``"bf16x2"``.  The fp32 kernel sums on the CUDA cores in
-    the plain version's order: split-TF32 on the tensor cores holds this
-    tolerance, but moved the xlstm-1.3b forward's logits past theirs on the
-    card (PERF.md)."""
+    models flash's: :func:`ref.mlstm_scan_ref` with its four products taken
+    as the tensor cores take them (:func:`_bf16_products`).  At P = 256,
+    chunk 64, on bf16 inputs, the fp32 operand split into two bf16 terms is
+    within 1e-4 of max |h| of the fp32 plain version (the part of the
+    kernel's bf16 tolerance left beside rounding h once), and that operand
+    rounded to bf16 once is not.  The kernel moves the state weights onto v
+    and splits w v where this model splits k w: either way one fp32
+    operand of the update is split."""
     q, k, v, il, fl = (torch.from_numpy(a) for a in _mlstm_inputs(7, 1, 256, 2, 256, f_bias=f_bias))
-    q, k, v = (t.to(getattr(torch, dtype)).float() for t in (q, k, v))
+    q, k, v = (t.bfloat16().float() for t in (q, k, v))
     want = ref.mlstm_scan_ref(q, k, v, il, fl, chunk=64)
     tol = 1e-4 * want.abs().max().item()
-    assert (_mlstm_products(q, k, v, il, fl, 64, scheme) - want).abs().max().item() <= tol
-    assert (_mlstm_products(q, k, v, il, fl, 64, cheaper) - want).abs().max().item() > tol
+    for terms, holds in ((2, True), (1, False)):
+        got = ref.mlstm_scan_ref(q, k, v, il, fl, chunk=64, matmul=_bf16_products(terms))
+        assert ((got - want).abs().max().item() <= tol) == holds, terms
 
 
 def test_mlstm_scan_cpu_call_does_not_count_as_a_launch():
