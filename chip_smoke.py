@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port on one CUDA card (an H100, ``sm_90a``).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases flash,nas   # a subset, no result line
+    python3 chip_smoke.py --phases ssm,nas   # a subset, no result line
 
 Run from the root of a checkout.  Phases, each of which raises on failure
 (and the script then exits non-zero and prints no result line):
@@ -17,7 +17,9 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    (CUDA events around 10 back-to-back calls, median of 20 such runs
    after 3 warm-ups; for the served and NAS flash shapes also the
    kernel's and the library call's device time from ``torch.profiler``):
-   flash attention, then the SSD scan;
+   flash attention, then the SSD scan (the ``ssm`` phase, with dt and a
+   in bf16 for one case, and the kernel's device time, in all and for each
+   launch, at the NAS loop's shape and at chunk 256);
 4. serve: ``python -m repro_torch.launch.serve --arch qwen3-1.7b`` in
    process, at full width with random weights: 8 requests must be served,
    the kernel launched once per layer per prefill, the plain version never;
@@ -103,17 +105,30 @@ SERVE_ARGS = ["--arch", "qwen3-1.7b", "--requests", "8", "--arrival", "burst",
               "--queue-limit", "8", "--seed", "0", "--device", "cuda"]
 LOGITS_ATOL = 1e-3
 
-# (B, L, H, G, N, P, chunk); the last is the NAS loop's shape at
+# (B, L, H, G, N, P, chunk); the fifth is the NAS loop's shape at
 # zamba2-2.7b's widths (d_model 2560, expand 2, d_head 64, d_state 64, one
-# group, chunk 128) at batch 4 and sequence 2048
+# group, chunk 128) at batch 4 and sequence 2048; then Mamba2-2.7b's
+# published d_state 128 with headdim 64, a head of 128, N and P off the MMA
+# tiles with the decrement-chosen chunk 100 (ragged tiles), and chunk 1024
+# (the schedules' largest) at N = P = 128
 SSM_CASES = [
     (1, 64, 4, 2, 8, 16, 8),
     (2, 200, 4, 1, 16, 16, 100),
     (2, 256, 8, 2, 16, 16, 64),
     (1, 2048, 80, 1, 64, 64, 256),
     (4, 2048, 80, 1, 64, 64, 128),
+    (2, 512, 8, 1, 128, 64, 128),
+    (2, 512, 8, 2, 64, 128, 128),
+    (2, 200, 6, 3, 24, 72, 100),
+    (1, 2048, 16, 1, 128, 128, 1024),
 ]
+# cases also run with dt and a in bf16 (the wrapper takes them in fp32)
+SSM_BF16_DT_CASES = [(2, 200, 6, 3, 24, 72, 100)]
 SSM_REPORTED_CASE = (4, 2048, 80, 1, 64, 64, 128)
+# cases whose rows also carry the kernel's device time from torch.profiler,
+# in all and by launch (in fp32 the chunks' panels, then the scan)
+SSM_DEVICE_TIMED_CASES = (SSM_CASES[3], SSM_REPORTED_CASE)
+SSM_PASSES = {"panel_device_ms": "ssm_panel", "scan_device_ms": "ssm_scan_fwd"}
 # The kernel against the fp32 plain version on the same inputs (bf16
 # inputs upcast): it sums in fp32 and rounds y to x's dtype once.  So each
 # element of y is held to SSM_Y_REL of its own |y| (half a bf16 ulp, 2^-8
@@ -213,11 +228,11 @@ def profile_window(torch, label, step, warmup=2, steps=3) -> None:
         "top_kernels_ms": [[name[:70], ms] for ms, name in rows[:8]]}))
 
 
-def _ssm_inputs(torch, gen, b, l, h, g, n, p, dtype):
+def _ssm_inputs(torch, gen, b, l, h, g, n, p, dtype, dt_dtype=None):
     """Inputs of the scan as a Mamba2 layer gives them: x, B and C are
     views into one (B, L, H*P + 2*G*N) activation, read through their
     strides; dt is a softplus of a normal; a = -linspace(1, 16), the
-    layer's decays at init."""
+    layer's decays at init; dt and a in ``dt_dtype`` (fp32 by default)."""
     import torch.nn.functional as F
 
     xbc = torch.randn(b, l, h * p + 2 * g * n, generator=gen, device="cuda").to(dtype)
@@ -226,7 +241,8 @@ def _ssm_inputs(torch, gen, b, l, h, g, n, p, dtype):
     cm = xbc[..., h * p + g * n:].reshape(b, l, g, n)
     dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda") - 1.0)
     a = -torch.linspace(1.0, 16.0, h, device="cuda")
-    return x, dt, a, bm, cm
+    dt_dtype = dt_dtype or torch.float32
+    return x, dt.to(dt_dtype), a.to(dt_dtype), bm, cm
 
 
 def _ssm_work(b, l, h, g, n, p, q, esize):
@@ -238,6 +254,68 @@ def _ssm_work(b, l, h, g, n, p, q, esize):
     flops = b * h * (l // q) * (q * (q + 1) * (n + p) + 4 * q * n * p)
     nbytes = esize * (2 * b * l * h * p + 2 * b * l * g * n) + 4 * (b * l * h + h + b * h * n * p)
     return flops, nbytes
+
+
+def ssm_phase(torch, ops, ref, gen) -> dict:
+    """The SSD scan against its fp32 plain version on the same inputs, fp32
+    and bf16, every case of ``SSM_CASES`` (and those of
+    ``SSM_BF16_DT_CASES`` again with dt and a in bf16); the
+    ``SSM_DEVICE_TIMED_CASES`` also with the kernel's device time.  Returns
+    the rows."""
+    from repro_torch.kernels import timing
+
+    rows = {}
+    runs = [(case, "float32") for case in SSM_CASES] + \
+        [(case, "bfloat16") for case in SSM_BF16_DT_CASES]
+    for dtype in ("float32", "bfloat16"):
+        dt_ = getattr(torch, dtype)
+        for case, dt_dtype in runs:
+            b, l, h, g, n, p, chunk = case
+            args = _ssm_inputs(torch, gen, b, l, h, g, n, p, dt_, getattr(torch, dt_dtype))
+            y, state = ops.ssm_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            x_, dt_in, a_, b_, c_ = args
+            want_y, want_state = ref.ssm_scan_ref(x_.float(), dt_in.float(), a_.float(),
+                                                  b_.float(), c_.float(), chunk=chunk)
+            torch.cuda.synchronize()
+            err_y = (y.float() - want_y).abs()
+            tol_y = SSM_Y_REL[dtype] * want_y.abs() + SSM_TOL * want_y.abs().max()
+            err, over = err_y.max().item(), (err_y / tol_y).max().item()
+            err_s = (state - want_state).abs().max().item()
+            tol_s = SSM_TOL * want_state.abs().max().item()
+            finite = bool(torch.isfinite(y.float()).all() and torch.isfinite(state).all())
+            if not (y.shape == x_.shape and y.dtype == dt_ and state.dtype == torch.float32
+                    and finite and over <= 1 and err_s <= tol_s):
+                raise AssertionError(
+                    f"ssm_scan {case} {dtype} (dt {dt_dtype}): max |err| / tol of y {over}, "
+                    f"state {err_s} (tol {tol_s}), finite={finite}, shape {tuple(y.shape)}")
+            flops, nbytes = _ssm_work(b, l, h, g, n, p, chunk, x_.element_size())
+            t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / MEM_BYTES_PER_S
+            kernel = lambda: ops.ssm_scan(*args, chunk=chunk)  # noqa: E731
+            row = {
+                "case": {"B": b, "L": l, "H": h, "G": g, "N": n, "P": p, "chunk": chunk},
+                "dtype": dtype, "dt_dtype": dt_dtype, "max_abs_err": err,
+                "tol": f"{SSM_Y_REL[dtype]} |y| + {SSM_TOL} max|y| per element",
+                "max_err_over_tol": over, "max_abs_y": want_y.abs().max().item(),
+                "rms_y": want_y.square().mean().sqrt().item(),
+                "max_abs_err_state": err_s, "tol_state": tol_s,
+                "ms": timing.event_ms(kernel),
+                "plain_ms": timing.event_ms(lambda: ref.ssm_scan_ref(*args, chunk=chunk)),
+                "library_ms": None, "library": SSM_NO_LIBRARY,
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            }
+            if case in SSM_DEVICE_TIMED_CASES and dt_dtype == "float32":
+                times = timing.device_times(kernel)
+                row["device_ms"] = timing.measured(sum(times.values()))
+                for key, name in SSM_PASSES.items():
+                    if dtype == "float32" or name != "ssm_panel":  # bf16 has no panel launch
+                        row[key] = timing.measured(
+                            sum(ms for k, ms in times.items() if name in k))
+            rows[(case, dtype, dt_dtype)] = row
+            print("ssm_scan " + json.dumps(row))
+            del args, x_, b_, c_, y, state, want_y, want_state, err_y, tol_y
+    return rows
 
 
 def _mlstm_inputs(torch, gen, b, l, h, p, i_shift, dtype):
@@ -836,7 +914,7 @@ def flash_phase(torch, ops, gen) -> dict:
     return rows
 
 
-SUBSET_PHASES = ("flash", "nas", "mlstm", "xlstm_forward", "xlstm_forward_bf16",
+SUBSET_PHASES = ("flash", "ssm", "nas", "mlstm", "xlstm_forward", "xlstm_forward_bf16",
                  "xlstm_serve")
 
 
@@ -893,6 +971,8 @@ def main(argv=None) -> int:
         for name in subset:
             if name == "flash":
                 flash_phase(torch, ops, gen)
+            elif name == "ssm":
+                ssm_phase(torch, ops, ref, gen)
             elif name == "nas":
                 nas_phase(torch, ops, ref)
             elif name == "mlstm":
@@ -910,47 +990,7 @@ def main(argv=None) -> int:
     kernel_rows = flash_phase(torch, ops, gen)
 
     # -- 3b. the SSD scan against its plain version -------------------------
-    ssm_rows = {}
-    for dtype in ("float32", "bfloat16"):
-        dt_ = getattr(torch, dtype)
-        for case in SSM_CASES:
-            b, l, h, g, n, p, chunk = case
-            args = _ssm_inputs(torch, gen, b, l, h, g, n, p, dt_)
-            y, state = ops.ssm_scan(*args, chunk=chunk)
-            torch.cuda.synchronize()
-            x_, dt_in, a_, b_, c_ = args
-            want_y, want_state = ref.ssm_scan_ref(x_.float(), dt_in, a_, b_.float(),
-                                                  c_.float(), chunk=chunk)
-            torch.cuda.synchronize()
-            err_y = (y.float() - want_y).abs()
-            tol_y = SSM_Y_REL[dtype] * want_y.abs() + SSM_TOL * want_y.abs().max()
-            err, over = err_y.max().item(), (err_y / tol_y).max().item()
-            err_s = (state - want_state).abs().max().item()
-            tol_s = SSM_TOL * want_state.abs().max().item()
-            finite = bool(torch.isfinite(y.float()).all() and torch.isfinite(state).all())
-            if not (y.shape == x_.shape and y.dtype == dt_ and state.dtype == torch.float32
-                    and finite and over <= 1 and err_s <= tol_s):
-                raise AssertionError(
-                    f"ssm_scan {case} {dtype}: max |err| / tol of y {over}, state "
-                    f"{err_s} (tol {tol_s}), finite={finite}, shape {tuple(y.shape)}")
-            flops, nbytes = _ssm_work(b, l, h, g, n, p, chunk, torch.tensor([], dtype=dt_).element_size())
-            t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / MEM_BYTES_PER_S
-            row = {
-                "case": {"B": b, "L": l, "H": h, "G": g, "N": n, "P": p, "chunk": chunk},
-                "dtype": dtype, "max_abs_err": err,
-                "tol": f"{SSM_Y_REL[dtype]} |y| + {SSM_TOL} max|y| per element",
-                "max_err_over_tol": over, "max_abs_y": want_y.abs().max().item(),
-                "rms_y": want_y.square().mean().sqrt().item(),
-                "max_abs_err_state": err_s, "tol_state": tol_s,
-                "ms": timing.event_ms(lambda: ops.ssm_scan(*args, chunk=chunk)),
-                "plain_ms": timing.event_ms(lambda: ref.ssm_scan_ref(*args, chunk=chunk)),
-                "library_ms": None, "library": SSM_NO_LIBRARY,
-                "bound_ms": max(t_ops, t_bytes) * 1e3,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            }
-            ssm_rows[(case, dtype)] = row
-            print("ssm_scan " + json.dumps(row))
-            del args, x_, b_, c_, y, state, want_y, want_state, err_y, tol_y
+    ssm_rows = ssm_phase(torch, ops, ref, gen)
 
     # -- 4. serve at full width -------------------------------------------
     args = serve.parse_args(SERVE_ARGS)
@@ -1036,7 +1076,7 @@ def main(argv=None) -> int:
 
     # -- 10. result --------------------------------------------------------
     served = kernel_rows[(REPORTED_CASE, "float32")]
-    scan = ssm_rows[(SSM_REPORTED_CASE, "float32")]
+    scan = ssm_rows[(SSM_REPORTED_CASE, "float32", "float32")]
     mscan = mlstm_rows[(MLSTM_REPORTED_CASE, "float32")]
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
@@ -1059,7 +1099,8 @@ def main(argv=None) -> int:
         "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],
         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
         "bound_by": scan["bound_by"], "library_ms": None,
-        "library": SSM_NO_LIBRARY,
+        "library": SSM_NO_LIBRARY, "device_ms": scan["device_ms"],
+        **{key: scan[key] for key in SSM_PASSES},
         "shape": "B=4 L=2048 H=80 G=1 N=64 P=64 chunk=128 float32",
     }, {
         "name": "mlstm_scan", "route": "cuda",

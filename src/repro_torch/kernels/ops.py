@@ -108,17 +108,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-_SSM_MAX_N = 128
-_SSM_MAX_P = 64
+def bind_ssm(lib: ctypes.CDLL):
+    """The C entry points of a built ``ssm_scan.cu`` (the scan, the floats
+    of scratch it needs), typed."""
+    fn = lib.repro_ssm_scan_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    floats = lib.repro_ssm_scan_scratch_floats
+    floats.argtypes = [ctypes.c_int] * 5
+    floats.restype = ctypes.c_longlong
+    return fn, floats
 
 
 @functools.cache
-def _ssm_fn():
-    fn = build.load("ssm_scan").repro_ssm_scan_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                   + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _ssm_fns():
+    """The scan, its scratch floats and the bytes of shared memory a block
+    of it needs."""
+    lib = build.load("ssm_scan")
+    smem = lib.repro_ssm_scan_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 3
+    smem.restype = ctypes.c_longlong
+    return (*bind_ssm(lib), smem)
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -127,7 +138,10 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     b/c: (B, L, G, N), group layout (head h reads group h // (H // G)).
     Returns (y (B, L, H, P) in x's dtype, final state (B, H, N, P) fp32).
 
-    ``chunk`` must divide L.
+    ``chunk`` must divide L.  dt and a may be of any float dtype: they are
+    taken in fp32, as the Pallas kernel takes them.  One call counts one
+    launch, though in fp32 the kernel is two CUDA launches (the chunks'
+    panels, then the scan).
     """
     if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b_grouped.dim() != 4:
         raise ValueError(f"expected x (B,L,H,P), dt (B,L,H), a (H,), b/c (B,L,G,N); "
@@ -157,36 +171,35 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     if x.dtype not in _DTYPES:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, not {x.dtype}")
-    if dt.dtype != torch.float32 or a.dtype != torch.float32:
-        raise ValueError(f"the CUDA kernel takes dt and a in float32, not "
-                         f"{dt.dtype}, {a.dtype}")
-    if n > _SSM_MAX_N or p > _SSM_MAX_P:
-        raise ValueError(f"the CUDA kernel takes N up to {_SSM_MAX_N} and P up to "
-                         f"{_SSM_MAX_P} (the registry's d_head is at most 64), "
-                         f"not N={n}, P={p}")
     for name, t in (("x", x), ("b", b_grouped), ("c", c_grouped)):
         if t.stride(3) != 1 and t.shape[3] > 1:
             raise ValueError(f"{name}'s last dim must be contiguous (stride {t.stride(3)})")
-    a = a.contiguous()
+    fn, floats, smem = _ssm_fns()
+    if smem(n, chunk, _DTYPES[x.dtype]) < 0:
+        raise ValueError(
+            f"the CUDA kernel takes N up to 256 (a warp holds a quarter of the state's "
+            f"rows in registers) and an (N, chunk) whose staged tiles fit one block's "
+            f"227 KB of shared memory (in fp32 every chunk up to 1024 at N up to 144), "
+            f"not N={n}, chunk={chunk} in {x.dtype}")
+    dt, a = dt.float(), a.float().contiguous()
     y = torch.empty((bsz, l, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
     if bsz == 0:
         return y, state
+    scratch = torch.empty((max(1, floats(bsz, l, g, chunk, _DTYPES[x.dtype])),),
+                          dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _ssm_fn()(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_grouped.data_ptr(),
-            c_grouped.data_ptr(), y.data_ptr(), state.data_ptr(), _DTYPES[x.dtype],
-            bsz, l, h, g, n, p, chunk,
-            x.stride(0), x.stride(1), x.stride(2),
-            dt.stride(0), dt.stride(1), dt.stride(2),
-            b_grouped.stride(0), b_grouped.stride(1), b_grouped.stride(2),
-            c_grouped.stride(0), c_grouped.stride(1), c_grouped.stride(2), stream)
+        err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_grouped.data_ptr(),
+                 c_grouped.data_ptr(), y.data_ptr(), state.data_ptr(), scratch.data_ptr(),
+                 _DTYPES[x.dtype],
+                 bsz, l, h, g, n, p, chunk,
+                 x.stride(0), x.stride(1), x.stride(2),
+                 dt.stride(0), dt.stride(1), dt.stride(2),
+                 b_grouped.stride(0), b_grouped.stride(1), b_grouped.stride(2),
+                 c_grouped.stride(0), c_grouped.stride(1), c_grouped.stride(2), stream)
     if err != 0:
-        raise RuntimeError(
-            f"ssm_scan kernel launch failed: CUDA error {err} (1 is an invalid "
-            f"value: the kernel also refuses a chunk whose tiles do not fit one "
-            f"block's shared memory, which at N=128 is a chunk above 12288)")
+        raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")
     LAUNCHES["ssm_scan"] += 1
     return y, state
 
@@ -218,8 +231,10 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     i_log/f_log: (B, L, H) log-space gates.  Returns (h (B, L, H, P) in
     q's dtype, None), as the JAX package's ``ops.mlstm_scan`` does.
 
-    ``chunk`` must divide L.  One call counts one launch, though the
-    kernel is two CUDA launches (the chunks' panels, then the state).
+    ``chunk`` must divide L.  The gates may be of any float dtype: they are
+    taken in fp32, as the Pallas kernel takes them.  One call counts one
+    launch, though the kernel is two CUDA launches (the chunks' panels, then
+    the state).
     """
     if q.dim() != 4 or i_log.dim() != 3:
         raise ValueError(f"expected q/k/v (B,L,H,P) and i_log/f_log (B,L,H); got "
@@ -245,9 +260,6 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     if q.dtype not in _DTYPES:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, not {q.dtype}")
-    if i_log.dtype != torch.float32 or f_log.dtype != torch.float32:
-        raise ValueError(f"the CUDA kernel takes the gates in float32, not "
-                         f"{i_log.dtype}, {f_log.dtype}")
     if p % 4 or p > _MLSTM_MAX_P:
         raise ValueError(f"the CUDA kernel takes a head dim that is a multiple of 4 "
                          f"and at most {_MLSTM_MAX_P} (xlstm-1.3b's), not P={p}")
@@ -257,6 +269,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if x.data_ptr() % (4 * x.element_size()) or any(st % 4 for st in x.stride()[:3]):
             raise ValueError(f"{name}'s rows must start on a 4-element boundary: the "
                              f"kernel moves 4 elements a load (strides {x.stride()})")
+    i_log, f_log = i_log.float(), f_log.float()
     out = torch.empty((bsz, l, h, p), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out, None

@@ -2,7 +2,9 @@
 
 Flash attention and the SSD scan are the math the models use (grouped
 attention plus a mask, ``ssd_chunked``), so those kernels are validated
-against exactly what the XLA-path layers compute.  The mLSTM scan's
+against exactly what the XLA-path layers compute; :func:`ssm_scan_chunks`
+is the same scan in the CUDA kernel's order, with hooks for its products
+and its precision.  The mLSTM scan's
 plain version is the Pallas kernel's own formulation, which differs in
 small ways from the layer's ``mlstm_chunked`` (see
 :func:`mlstm_scan_ref`); :func:`mlstm_recurrent_ref` is the step-by-step
@@ -33,6 +35,44 @@ def ssm_scan_ref(x, dt, a, b_mat, c_mat, *, chunk=128):
     """x: (B, L, H, P); dt: (B, L, H); a: (H,); b/c: (B, L, G, N), G
     dividing H -> (y (B, L, H, P), final state (B, H, N, P) fp32)."""
     return ssd_chunked(x, dt, a, b_mat, c_mat, chunk)
+
+
+def ssm_scan_chunks(x, dt, a, b_mat, c_mat, *, chunk, dtype=torch.float32,
+                    matmul=torch.matmul):
+    """The SSD scan chunk by chunk, as the CUDA kernel orders it: for each
+    chunk, with cs the inclusive cumsum of dt * a, the panel (C B^T) masked
+    to j <= i and weighted by exp(cs_i - cs_j) dt_j, y = panel x +
+    exp(cs_i) (C S) (the decay applied after the product), then S <-
+    exp(cs_Q) S + B^T (w x), w_j = exp(cs_Q - cs_j) dt_j.  Shapes and
+    returns as :func:`ssm_scan_ref`.  ``dtype`` is that of every sum and
+    product (float64 gives a yardstick for the fp32 kernel's own rounding);
+    ``matmul`` takes the four matrix products, C B^T, panel x, C S and
+    B^T (w x) (a test models the kernel's arithmetic through it)."""
+    bsz, l, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    if l % chunk:
+        raise ValueError(f"chunk {chunk} does not divide the sequence {l}")
+    rep = h // g
+    xf = x.to(dtype).transpose(1, 2)  # (b,h,l,p)
+    bf = b_mat.to(dtype).repeat_interleave(rep, dim=2).transpose(1, 2)  # (b,h,l,n)
+    cf = c_mat.to(dtype).repeat_interleave(rep, dim=2).transpose(1, 2)
+    dtf = dt.to(dtype).transpose(1, 2)  # (b,h,l)
+    af = a.to(dtype)[None, :, None]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    state = torch.zeros((bsz, h, n, p), dtype=dtype, device=x.device)
+    out = []
+    for l0 in range(0, l, chunk):
+        xc, bc, cc = (t[:, :, l0:l0 + chunk] for t in (xf, bf, cf))
+        dtc = dtf[..., l0:l0 + chunk]
+        cs = torch.cumsum(dtc * af, dim=-1)  # (b,h,q)
+        decay = torch.exp(torch.where(tri, cs[..., :, None] - cs[..., None, :], float("-inf")))
+        panel = matmul(cc, bc.transpose(-1, -2)) * decay * dtc[..., None, :]
+        out.append(matmul(panel, xc) + torch.exp(cs)[..., None] * matmul(cc, state))
+        w = torch.exp(cs[..., -1:] - cs) * dtc
+        state = (torch.exp(cs[..., -1])[..., None, None] * state
+                 + matmul(bc.transpose(-1, -2), w[..., None] * xc))
+    y = torch.cat(out, dim=2).transpose(1, 2)
+    return y.to(x.dtype), state.float()
 
 
 def mlstm_scan_ref(q, k, v, i_log, f_log, *, chunk, dtype=torch.float32,

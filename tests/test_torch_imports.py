@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and none of the kernel variant scripts under ``scripts/``
+imports JAX or the JAX package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -9,7 +10,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "scripts").glob("*_variants.py")))
 
 
 def _imported(tree):

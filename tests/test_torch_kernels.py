@@ -268,32 +268,97 @@ def test_ssm_scan_matches_jax(l, g, chunk):
         assert _rel_err(got.numpy(), want) < 1e-5
 
 
-def test_ssm_scan_bf16_matches_jax():
-    """bf16 x, B, C, per element of y.  Against the JAX plain version, which
-    rounds the decayed panel to bf16 before its product with x at the same
-    place: one bf16 ulp of |y| plus the fp32 order-of-summation tolerance,
-    1e-4 of max |y|.  Against the JAX wrapper (Pallas in interpret mode),
-    which keeps the panel in fp32: 2e-2 of |y| plus 2e-2 of rms(y), for
-    the panel's rounding summed over the chunk.  The state is summed in
-    fp32 on both sides, to 1e-5 of its max."""
+def _check_ssm_bf16_against_jax(seed, bf16_dt):
+    """bf16 x, B, C (and, with ``bf16_dt``, dt and a) through the wrapper's
+    CPU path against the JAX package on the same bf16 values, per element of
+    y.  Against the JAX plain version, which rounds the decayed panel to bf16
+    before its product with x at the same place: one bf16 ulp of |y| plus
+    the fp32 order-of-summation tolerance, 1e-4 of max |y|.  Against the JAX
+    wrapper (Pallas in interpret mode), which keeps the panel in fp32: 2e-2
+    of |y| plus 2e-2 of rms(y), for the panel's rounding summed over the
+    chunk.  The state is summed in fp32 on both sides, to 1e-5 of its max."""
     jax = pytest.importorskip("jax")
     import jax.numpy as jnp
     from repro.kernels import ops as jops
     from repro.kernels import ref as jref
 
-    x, dt, a, bm, cm = _ssm_inputs(7, 2, 64, 4, 2, 8, 16)
-    jx, jb, jc = (jnp.asarray(v).astype(jnp.bfloat16) for v in (x, bm, cm))
-    jargs = (jx, jnp.asarray(dt), jnp.asarray(a), jb, jc)
+    args = _ssm_inputs(seed, 2, 64, 4, 2, 8, 16)
+    bf16 = (0, 1, 2, 3, 4) if bf16_dt else (0, 3, 4)  # x, dt, a, B, C
+    jargs = [jnp.asarray(v).astype(jnp.bfloat16) if i in bf16 else jnp.asarray(v)
+             for i, v in enumerate(args)]
     want_y, want_s = jops.ssm_scan(*jargs, chunk=16)
     plain_y, _ = jax.jit(jref.ssm_scan_ref, static_argnames=("chunk",))(*jargs, chunk=16)
-    tx, tb, tc = (torch.from_numpy(v).to(torch.bfloat16) for v in (x, bm, cm))
-    got_y, got_s = ops.ssm_scan(tx, torch.from_numpy(dt), torch.from_numpy(a), tb, tc,
-                                chunk=16)
+    targs = [torch.from_numpy(v).to(torch.bfloat16) if i in bf16 else torch.from_numpy(v)
+             for i, v in enumerate(args)]
+    got_y, got_s = ops.ssm_scan(*targs, chunk=16)
     assert got_y.dtype == torch.bfloat16 and got_s.dtype == torch.float32
     got = got_y.float().numpy()
     assert _err_over_tol(got, plain_y.astype(jnp.float32), BF16_ULP, of_max=1e-4) <= 1
     assert _err_over_tol(got, want_y.astype(jnp.float32), 2e-2, of_rms=2e-2) <= 1
     assert _rel_err(got_s.numpy(), want_s) < 1e-5
+
+
+def test_ssm_scan_bf16_matches_jax():
+    """bf16 x, B, C: :func:`_check_ssm_bf16_against_jax`."""
+    _check_ssm_bf16_against_jax(7, bf16_dt=False)
+
+
+def test_ssm_scan_bf16_dt_and_a_match_jax():
+    """bf16 dt and a beside bf16 x, B, C: the wrapper takes them in fp32, as
+    the Pallas kernel casts them (:func:`_check_ssm_bf16_against_jax`)."""
+    _check_ssm_bf16_against_jax(8, bf16_dt=True)
+
+
+@pytest.mark.parametrize("l, g, chunk", SSM_CASES)
+def test_ssm_scan_chunk_loop_matches_ssd_chunked_and_jax(l, g, chunk):
+    """The chunk-loop plain version (the CUDA kernel's order) against
+    ``ssd_chunked`` and the JAX plain version, to 1e-5 of max |y| and of
+    max |state|; in float64 (float64 inputs, so y stays float64) against the
+    step-by-step recurrence to 1e-12."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+
+    args = _ssm_inputs(l + 3 * g, 2, l, 4, g, 8, 16)
+    ref_y, ref_s = jax.jit(jref.ssm_scan_ref, static_argnames=("chunk",))(
+        *[jnp.asarray(v) for v in args], chunk=chunk)
+    targs = [torch.from_numpy(v) for v in args]
+    got_y, got_s = ref.ssm_scan_chunks(*targs, chunk=chunk)
+    plain_y, plain_s = ref.ssm_scan_ref(*targs, chunk=chunk)
+    for got, want in ((got_y, plain_y.numpy()), (got_s, plain_s.numpy()), (got_y, ref_y),
+                      (got_s, ref_s)):
+        assert _rel_err(got.numpy(), want) < 1e-5
+    y64, _ = ref.ssm_scan_chunks(*[t.double() for t in targs], chunk=chunk, dtype=torch.float64)
+    rec_y, _ = _recurrence_fp64(*args)
+    assert np.abs(y64.numpy() - rec_y).max() / np.abs(rec_y).max() < 1e-12
+
+
+# The SSD kernel's products as the tensor cores take them: ("bf16", 2) is the
+# bf16 path (the fp32 operand in two bf16 terms), ("tf32", 3) the fp32 path
+# (split-TF32); each with its cheaper version, which must miss the tolerance
+SSM_PRODUCTS = [("bf16", 2, True), ("tf32", 3, True), ("bf16", 1, False), ("tf32", 1, False)]
+
+
+@pytest.mark.parametrize("kind, terms, holds", SSM_PRODUCTS)
+def test_ssm_scan_product_split_holds_the_tolerance_and_the_cheaper_one_does_not(
+        kind, terms, holds):
+    """:func:`ref.ssm_scan_chunks` with its four products taken as the CUDA
+    kernel's tensor cores take them (:func:`_bf16_products`,
+    :func:`_tf32_matmul`), at N = P = 64 and chunk 128 (the NAS loop's
+    widths) on bf16-valued inputs: the fp32 operands in two bf16 terms, and
+    split-TF32, are within 1e-4 of max |y| of the fp32 plain version (the
+    kernel's tolerance beside rounding y once); one bf16 term, and plain
+    TF32, are not."""
+    x, dt, a, bm, cm = (torch.from_numpy(v) for v in _ssm_inputs(5, 1, 512, 4, 1, 64, 64))
+    x, bm, cm = (t.bfloat16().float() for t in (x, bm, cm))
+    want, _ = ref.ssm_scan_ref(x, dt, a, bm, cm, chunk=128)
+    if kind == "bf16":
+        mm = _bf16_products(terms)
+    else:
+        def mm(p, q):
+            return _tf32_matmul(p, q, terms, "trunc")
+    got, _ = ref.ssm_scan_chunks(x, dt, a, bm, cm, chunk=128, matmul=mm)
+    assert ((got - want).abs().max().item() <= 1e-4 * want.abs().max().item()) == holds
 
 
 def test_ssm_scan_cpu_call_does_not_count_as_a_launch():
@@ -316,14 +381,20 @@ def test_ssm_scan_rejects_bad_inputs(bad, message):
         ops.ssm_scan(x, dt, a, bm, cm, chunk=bad.get("chunk", 16))
 
 
-# (B, L, H, G, N, P, chunk) — the chip smoke's cases: the served NAS shape is
-# the last; chunk 256 tiles the (Q, Q) panel
+# (B, L, H, G, N, P, chunk) — the chip smoke's cases: the NAS loop's shape at
+# chunk 256 and at its own chunk 128; Mamba2-2.7b's d_state 128 and headdim
+# 64; a head of 128; N and P off the MMA tiles with chunk 100 (ragged
+# tiles); chunk 1024 at N = P = 128
 SSM_CUDA_CASES = [
     (1, 64, 4, 2, 8, 16, 8),
     (2, 200, 4, 1, 16, 16, 100),
     (2, 256, 8, 2, 16, 16, 64),
     (1, 2048, 80, 1, 64, 64, 256),
     (4, 2048, 80, 1, 64, 64, 128),
+    (2, 512, 8, 1, 128, 64, 128),
+    (2, 512, 8, 2, 64, 128, 128),
+    (2, 200, 6, 3, 24, 72, 100),
+    (1, 2048, 16, 1, 128, 128, 1024),
 ]
 
 
@@ -353,12 +424,37 @@ def test_ssm_scan_cuda_kernel_matches_plain_version(b, l, h, g, n, p, chunk, dty
 
 
 @pytest.mark.cuda
-def test_ssm_scan_cuda_refuses_a_head_wider_than_64():
+@pytest.mark.parametrize("p", [72, 128])
+def test_ssm_scan_cuda_takes_a_head_wider_than_64(p):
+    """Heads wider than 64, which the kernel once refused, launch and match
+    the fp32 plain version as the other cases do."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    x, dt, a, bm, cm = (torch.from_numpy(v).cuda() for v in _ssm_inputs(0, 1, 16, 2, 1, 8, 72))
-    with pytest.raises(ValueError, match="P up to 64"):
-        ops.ssm_scan(x, dt, a, bm, cm, chunk=8)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, dt, a, bm, cm = (torch.from_numpy(v).cuda() for v in _ssm_inputs(p, 1, 128, 2, 1, 8, p))
+    before = ops.LAUNCHES["ssm_scan"]
+    y, s = ops.ssm_scan(x, dt, a, bm, cm, chunk=64)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssm_scan"] == before + 1
+    want_y, want_s = ref.ssm_scan_ref(x, dt, a, bm, cm, chunk=64)
+    assert _err_over_tol(y.cpu().numpy(), want_y.cpu().numpy(), 0.0, of_max=1e-4) <= 1
+    assert _rel_err(s.cpu().numpy(), want_s.cpu().numpy()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_ssm_scan_cuda_takes_bf16_dt_and_a():
+    """bf16 dt and a launch (the wrapper casts them to fp32) and match the
+    fp32 plain version on the same values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, dt, a, bm, cm = (torch.from_numpy(v).cuda() for v in _ssm_inputs(3, 2, 256, 4, 2, 16, 32))
+    dt, a = dt.bfloat16(), a.bfloat16()
+    y, s = ops.ssm_scan(x, dt, a, bm, cm, chunk=128)
+    torch.cuda.synchronize()
+    want_y, want_s = ref.ssm_scan_ref(x, dt.float(), a.float(), bm, cm, chunk=128)
+    assert _err_over_tol(y.cpu().numpy(), want_y.cpu().numpy(), 0.0, of_max=1e-4) <= 1
+    assert _rel_err(s.cpu().numpy(), want_s.cpu().numpy()) <= 1e-4
 
 
 def _recurrence_fp64(x, dt, a, bm, cm):
@@ -530,6 +626,25 @@ def test_mlstm_scan_product_split_holds_the_tolerance_and_the_cheaper_one_does_n
         assert ((got - want).abs().max().item() <= tol) == holds, terms
 
 
+def test_mlstm_scan_bf16_gates_match_jax():
+    """bf16 log gates: the wrapper takes them in fp32, as the Pallas kernel
+    casts them.  Against the JAX wrapper (Pallas in interpret mode) on the
+    same bf16 values, to :func:`test_mlstm_scan_matches_jax`'s 1e-4 of
+    max |h|."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+
+    q, k, v, il, fl = _mlstm_inputs(13, 2, 64, 2, 32)
+    jil, jfl = (jnp.asarray(g).astype(jnp.bfloat16) for g in (il, fl))
+    want, _ = jops.mlstm_scan(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jil, jfl, chunk=16)
+    til, tfl = (torch.from_numpy(g).to(torch.bfloat16) for g in (il, fl))
+    got, none = ops.mlstm_scan(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                               til, tfl, chunk=16)
+    assert none is None and got.dtype == torch.float32
+    assert _rel_err(got.numpy(), want) < 1e-4
+
+
 def test_mlstm_scan_cpu_call_does_not_count_as_a_launch():
     before = ops.LAUNCHES["mlstm_scan"]
     ops.mlstm_scan(*[torch.from_numpy(a) for a in _mlstm_inputs(0, 1, 16, 2, 8)], chunk=8)
@@ -591,3 +706,18 @@ def test_mlstm_scan_cuda_kernel_matches_plain_version(b, l, h, p, chunk, i_shift
     assert bool(torch.isfinite(out.float()).all())
     assert _err_over_tol(out.float().cpu().numpy(), want.cpu().numpy(), h_rel,
                          of_max=1e-4) <= 1
+
+
+@pytest.mark.cuda
+def test_mlstm_scan_cuda_takes_bf16_gates():
+    """bf16 log gates launch (the wrapper casts them to fp32) and match the
+    fp32 plain version on the same values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, il, fl = (torch.from_numpy(a).cuda() for a in _mlstm_inputs(4, 1, 128, 2, 64))
+    il, fl = il.bfloat16(), fl.bfloat16()
+    out, _ = ops.mlstm_scan(q, k, v, il, fl, chunk=32)
+    torch.cuda.synchronize()
+    want = ref.mlstm_scan_ref(q, k, v, il.float(), fl.float(), chunk=32)
+    assert _err_over_tol(out.cpu().numpy(), want.cpu().numpy(), 0.0, of_max=1e-4) <= 1
