@@ -246,12 +246,13 @@ def _ssm_inputs(torch, gen, b, l, h, g, n, p, dtype, dt_dtype=None):
 
 
 def _ssm_work(b, l, h, g, n, p, q, esize):
-    """(operations, bytes) of one scan call.  Operations: for each (batch,
-    head) and chunk, the C B^T entries on or below the diagonal and their
-    product with x (q (q + 1) (N + P)), then C S and the state update
-    (4 q N P); the masked half of the panel is not work.  Bytes: x, B, C
-    and dt read once, y and the state written once."""
-    flops = b * h * (l // q) * (q * (q + 1) * (n + p) + 4 * q * n * p)
+    """(operations, bytes) of one scan call.  Operations: for each batch and
+    chunk, the C B^T entries on or below the diagonal once per group (q (q +
+    1) N: every head of a group shares them); for each head, their product
+    with x (q (q + 1) P), then C S and the state update (4 q N P); the
+    masked half of the panel is not work.  Bytes: x, B, C and dt read once,
+    y and the state written once."""
+    flops = b * (l // q) * (g * q * (q + 1) * n + h * (q * (q + 1) * p + 4 * q * n * p))
     nbytes = esize * (2 * b * l * h * p + 2 * b * l * g * n) + 4 * (b * l * h + h + b * h * n * p)
     return flops, nbytes
 

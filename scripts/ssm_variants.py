@@ -9,8 +9,11 @@ Each argument is a whole ``ssm_scan.cu`` (the checkout's
 ``src/repro_torch/kernels/csrc/ssm_scan.cu``, an earlier one from ``git
 show``, or an edited copy) with the C entry point ``repro_ssm_scan_fwd``.
 Each is built with the flags of ``repro_torch.kernels.build`` into
-``build/ssm_variants/`` (its kernels' registers are printed).  Printed, with
-the card's name and power limit first:
+``build/ssm_variants/`` (its kernels' registers are printed) and launched
+through ``ops.ssm_scan``, the port's own wrapper, with ``ops._ssm_fns``
+patched to return that build's entry points (an earlier source's entry
+point, which takes no scratch, is wrapped in the current signature).
+Printed, with the card's name and power limit first:
 
 * at the NAS loop's shape (B 4, L 2048, H 80, G 1, N = P = 64, chunk 128),
   at chunk 256 (B 1) and at chunk 1024 (B 1, H 16, N = P = 128), in fp32 and
@@ -55,15 +58,20 @@ Y_REL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8}
 
 
 def _bind(lib):
-    """``ops.bind_ssm`` for a source with a scratch argument; an earlier
-    source, whose entry point takes none, as (that entry point, None)."""
+    """A build's entry points as ``ops._ssm_fns`` returns them.  An earlier
+    source's entry point, which takes no scratch and names no shared-memory
+    size, is wrapped in that signature: it gets no scratch, and its own
+    checks refuse what it does not take."""
     if hasattr(lib, "repro_ssm_scan_scratch_floats"):
         return ops.bind_ssm(lib)
-    fn = lib.repro_ssm_scan_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn, None
+    old = lib.repro_ssm_scan_fwd
+    old.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12
+                    + [ctypes.c_void_p])
+    old.restype = ctypes.c_int
+
+    def fn(x, dt, a, b, c, y, state, _scratch, *rest):
+        return old(x, dt, a, b, c, y, state, *rest)
+    return fn, lambda *_: 0, lambda *_: 0
 
 
 def _build(sources):
@@ -75,28 +83,9 @@ def _build(sources):
     return fns
 
 
-def scan_with(fns):
-    """A stand-in for ``ops.ssm_scan`` that launches the given build."""
-    fn, floats = fns
-
-    def scan(x, dt, a, b, c, *, chunk):
-        bsz, l, h, p = x.shape
-        g, n = b.shape[2], b.shape[3]
-        dtype = 0 if x.dtype == torch.float32 else 1
-        dt, a = dt.float(), a.float().contiguous()
-        y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-        state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
-        outs = [y.data_ptr(), state.data_ptr()]
-        if floats is not None:
-            scratch = torch.empty((max(1, floats(bsz, l, g, chunk, dtype)),), device=x.device)
-            outs.append(scratch.data_ptr())
-        err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), *outs,
-                 dtype, bsz, l, h, g, n, p, chunk, *x.stride()[:3], *dt.stride(),
-                 *b.stride()[:3], *c.stride()[:3], torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"launch failed: CUDA error {err}")
-        return y, state
-    return scan
+def launching(bound):
+    """``ops.ssm_scan`` launches the given build within this context."""
+    return mock.patch.object(ops, "_ssm_fns", lambda: bound)
 
 
 def _over(got, want, rel):
@@ -117,20 +106,21 @@ def time_in_turns(fns):
             ref_over = _over(want, want64, Y_REL[dtype])
             state_tol = 1e-4 * want_s.abs().max().item()
             rows = {}
+            run = lambda: ops.ssm_scan(*args, chunk=chunk)  # noqa: E731
             for src in list(fns) + list(fns)[::-1]:
-                scan = scan_with(fns[src])
-                try:
-                    y, state = scan(*args, chunk=chunk)
-                except RuntimeError as err:  # a source that refuses the shape
-                    rows[src] = str(err)
-                    continue
-                torch.cuda.synchronize()
-                over, over64 = _over(y.float(), want, Y_REL[dtype]), _over(y, want64, Y_REL[dtype])
-                over_s = (state - want_s).abs().max().item() / state_tol
-                run = lambda: scan(*args, chunk=chunk)  # noqa: E731
-                rows.setdefault(src, []).append((timing.event_ms(run, runs=15),
-                                                 timing.device_ms(run, warmup=1), over, over64,
-                                                 over_s))
+                with launching(fns[src]):
+                    try:
+                        y, state = run()
+                    except (RuntimeError, ValueError) as err:  # a source that refuses the shape
+                        rows[src] = str(err)
+                        continue
+                    torch.cuda.synchronize()
+                    over = _over(y.float(), want, Y_REL[dtype])
+                    over64 = _over(y, want64, Y_REL[dtype])
+                    over_s = (state - want_s).abs().max().item() / state_tol
+                    rows.setdefault(src, []).append((timing.event_ms(run, runs=15),
+                                                     timing.device_ms(run, warmup=1), over,
+                                                     over64, over_s))
             for src, turns in rows.items():
                 if isinstance(turns, str):
                     print(f"ssm_variant {(b, l, h, g, n, p, chunk)} {str(dtype)[6:]} {src}: "
@@ -196,7 +186,7 @@ def nas_best_readings(fns, draws):
                 want = model(x)
             tol = chip_smoke.NAS_REL_TOL * want.abs().max().item()
             for src, bound in fns.items():
-                with mock.patch.object(ops, "ssm_scan", scan_with(bound)):
+                with launching(bound):
                     got = model(x)
                 print(f"nas_best draw {s}, {src}: max |err| / tol "
                       f"{(got - want).abs().max().item() / tol:.3g}", flush=True)

@@ -65,15 +65,15 @@
 // tests/test_torch_kernels.py models both splits against the tolerance.
 //
 // Bound.  At the shape the NAS loop gives it at zamba2-2.7b's widths
-// (B = 4, L = 2048, H = 80, G = 1, P = N = 64, Q = 128) a call is about 21.6
-// GFLOP of unmasked products (Q (Q + 1) (N + P) + 4 Q N P per chunk and head)
-// and moves about 0.18 GB in bf16 (0.35 GB in fp32): in fp32 it is bound by
-// operations, 0.131 ms at split-TF32's 165 TFLOP/s; in bf16 by bytes,
-// 0.053 ms at 3.35 TB/s.  The first version of this kernel took 1.6-1.7 ms
-// in both, its products on the CUDA cores in one block per (batch, head).
-// This one (640
-// blocks at that shape) takes about 1.03 ms in fp32 and 0.43 ms in bf16 on an
-// H100 (PERF.md, scripts/ssm_variants.py).  What holds it back, measured by
+// (B = 4, L = 2048, H = 80, G = 1, P = N = 64, Q = 128) a call is about 16.2
+// GFLOP of unmasked products (per chunk Q (Q + 1) N for each group, Q (Q +
+// 1) P + 4 Q N P for each head) and moves about 0.18 GB in bf16 (0.35 GB in
+// fp32): both are bound by bytes at 3.35 TB/s, fp32 at 0.104 ms (its
+// operations take 0.098 ms at split-TF32's 165 TFLOP/s), bf16 at 0.053 ms.
+// The first version of this kernel took 1.6-1.7 ms in both, its products on
+// the CUDA cores in one block per (batch, head).  This one (640 blocks at
+// that shape) takes about 1.03 ms in fp32 and 0.43 ms in bf16 on an H100
+// (PERF.md, scripts/ssm_variants.py), 10 and 8 times the bound.  What holds it back, measured by
 // taking parts out: a block walks its 48 steps in order, and with no
 // products at all the copies, barriers and stores take 0.21 ms (bf16) and
 // 0.34 ms (fp32), of which staging B and C, which every head of a group and
@@ -216,7 +216,7 @@ struct Params {
   const void* cm;
   void* y;       // (B, L, H, P), contiguous, x's dtype
   float* state;  // (B, H, N, P), contiguous
-  float* panel;  // fp32: (B G nc, q64, q64), each chunk's C B^T; tiles above the diagonal unwritten
+  float* panel;  // fp32: (B G nc) x PanelLayout(Q).chunk_floats(), each chunk's C B^T
   int L, H, G, N, P, Q;
   long long x_sb, x_sl, x_sh;
   long long dt_sb, dt_sl, dt_sh;
@@ -240,6 +240,22 @@ struct Layout {
       : np(round_up(N, 16)), ld(round_up(N, 16) + 16 / E), q64(round_up(Q, RT)) {}
   __host__ __device__ long long bytes() const {
     return 2LL * RT * (2 * ld + LDX) * E + 4LL * np * LDS + 20LL * q64 + 16;
+  }
+};
+
+// The fp32 scratch of a chunk's panel C B^T: its tiles on or below the
+// diagonal in row order ((0, 0), (1, 0), (1, 1), (2, 0), ...), each of pe x
+// pe floats, pe = RT, or Q rounded up to 16 where the chunk is one tile.
+// Row i of a tile holds its columns j <= i that a warp's MMA tiles cover.
+struct PanelLayout {
+  int pe, tiles;
+  __host__ __device__ explicit PanelLayout(int Q)
+      : pe(Q < RT ? round_up(Q, 16) : RT), tiles(round_up(Q, RT) / RT) {}
+  __host__ __device__ long long chunk_floats() const {
+    return (long long)tiles * (tiles + 1) / 2 * pe * pe;
+  }
+  __host__ __device__ long long tile(int ti, int tj) const {
+    return ((long long)ti * (ti + 1) / 2 + tj) * pe * pe;
   }
 };
 
@@ -301,7 +317,8 @@ __device__ __forceinline__ void panel_tf32(float (&pan)[8][4], const float* Cs, 
 __global__ void __launch_bounds__(THREADS) ssm_panel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout<float> lay(p.N, p.Q);
-  const int N = p.N, Q = p.Q, LD = lay.ld, q64 = lay.q64;
+  const PanelLayout pl(p.Q);
+  const int N = p.N, Q = p.Q, LD = lay.ld, pe = pl.pe;
   float* Cs = reinterpret_cast<float*>(smem);  // (RT, LD)
   float* Bs = Cs + RT * LD;                    // (RT, LD)
   int ti = 0, tj = blockIdx.x;  // tiles in row order: (0,0), (1,0), (1,1), (2,0), ...
@@ -321,13 +338,13 @@ __global__ void __launch_bounds__(THREADS) ssm_panel(const Params p) {
   const int npair = min(ti == tj ? warp + 1 : 4, (Q - tj * RT + 15) / 16);
   float pan[8][4] = {};
   panel_tf32(pan, Cs, Bs, LD, lay.np, 16 * warp, npair, lane);
-  float* out = p.panel + ((long long)bg * (p.L / Q) + c) * q64 * q64 + (long long)(iw + g) * q64 +
-               tj * RT + 2 * t4;
+  float* out = p.panel + ((long long)bg * (p.L / Q) + c) * pl.chunk_floats() + pl.tile(ti, tj) +
+               (16 * warp + g) * pe + 2 * t4;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     if (n < 2 * npair) {
       *reinterpret_cast<float2*>(out + 8 * n) = make_float2(pan[n][0], pan[n][1]);
-      *reinterpret_cast<float2*>(out + 8 * q64 + 8 * n) = make_float2(pan[n][2], pan[n][3]);
+      *reinterpret_cast<float2*>(out + 8 * pe + 8 * n) = make_float2(pan[n][2], pan[n][3]);
     }
   }
 }
@@ -543,13 +560,14 @@ __global__ void __launch_bounds__(THREADS) ssm_scan_fwd(const Params p) {
             }
           } else {
             // the group's panel, made once a chunk by ssm_panel
-            const float* pg = p.panel + ((long long)(b * p.G + grp) * nc + c) * q64 * q64 +
-                              (long long)(iw + g) * q64 + j0 + 2 * t4;
+            const PanelLayout pl(Q);
+            const float* pg = p.panel + ((long long)(b * p.G + grp) * nc + c) * pl.chunk_floats() +
+                              pl.tile(it, jt) + (16 * warp + g) * pl.pe + 2 * t4;
 #pragma unroll
             for (int n = 0; n < 8; ++n) {
               if (n < 2 * npair) {
                 const float2 v0 = *reinterpret_cast<const float2*>(pg + 8 * n);
-                const float2 v1 = *reinterpret_cast<const float2*>(pg + 8 * q64 + 8 * n);
+                const float2 v1 = *reinterpret_cast<const float2*>(pg + 8 * pl.pe + 8 * n);
                 pan[n][0] = v0.x;
                 pan[n][1] = v0.y;
                 pan[n][2] = v1.x;
@@ -766,7 +784,7 @@ int launch_mt(const Params& p, int B, int smem, cudaStream_t stream) {
 template <typename T>
 int launch(const Params& p, int B, cudaStream_t stream) {
   if (sizeof(T) == 4 && p.L > 0) {  // L = 0: the scan alone writes the zero state
-    const int tiles = round_up(p.Q, RT) / RT;
+    const int tiles = PanelLayout(p.Q).tiles;
     const int smem1 = 2 * RT * Layout<float>(p.N, p.Q).ld * 4;
     cudaError_t err = cudaFuncSetAttribute(ssm_panel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -796,8 +814,7 @@ long long smem_bytes(int N, int Q, int dtype) {
 // fp32 only); -1 for sizes it does not take.
 extern "C" long long repro_ssm_scan_scratch_floats(int B, int L, int G, int Q, int dtype) {
   if (B < 0 || L < 0 || G <= 0 || Q <= 0 || L % Q != 0 || (dtype != 0 && dtype != 1)) return -1;
-  const long long q64 = round_up(Q, RT);
-  return dtype == 0 ? (long long)B * G * (L / Q) * q64 * q64 : 0;
+  return dtype == 0 ? (long long)B * G * (L / Q) * PanelLayout(Q).chunk_floats() : 0;
 }
 
 // Bytes of shared memory a block needs at state width N and chunk Q for

@@ -110,7 +110,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def bind_ssm(lib: ctypes.CDLL):
     """The C entry points of a built ``ssm_scan.cu`` (the scan, the floats
-    of scratch it needs), typed."""
+    of scratch it needs, the bytes of shared memory a block of it needs),
+    typed."""
     fn = lib.repro_ssm_scan_fwd
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
@@ -118,18 +119,15 @@ def bind_ssm(lib: ctypes.CDLL):
     floats = lib.repro_ssm_scan_scratch_floats
     floats.argtypes = [ctypes.c_int] * 5
     floats.restype = ctypes.c_longlong
-    return fn, floats
+    smem = lib.repro_ssm_scan_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 3
+    smem.restype = ctypes.c_longlong
+    return fn, floats, smem
 
 
 @functools.cache
 def _ssm_fns():
-    """The scan, its scratch floats and the bytes of shared memory a block
-    of it needs."""
-    lib = build.load("ssm_scan")
-    smem = lib.repro_ssm_scan_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 3
-    smem.restype = ctypes.c_longlong
-    return (*bind_ssm(lib), smem)
+    return bind_ssm(build.load("ssm_scan"))
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
