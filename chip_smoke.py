@@ -37,6 +37,13 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    the best candidate's output through the kernels against its output
    through the plain versions; device time by kernel over one forward of
    each candidate;
+6b. explore: the Explorer facade (``repro_torch.explorer``) over the nas
+   phase's space and criteria with the kernel-schedule tuner (mode cached,
+   budget 5) and a disk cache, three times: serial cold, serial warm (no
+   tuning, no candidate run, every value from disk), and the process
+   backend with 2 spawned workers; the same best trial in all three, both
+   kernels launched in each; then ``mlstm_scan`` tuned at xlstm-1.3b's
+   shape in fp32 and bf16, every candidate chunk launched;
 7. the mLSTM scan against its plain version (fp32 and bf16, timed as in
    3), at the xlstm-1.3b forward's shape and smaller ones; the forward's
    shape and batch 4 at 512 also with the kernel's device time from
@@ -61,6 +68,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import sys
 import time
@@ -90,6 +98,12 @@ FLASH_CASES = [
     # ragged S inside a 64-row tile, D not a multiple of 16, group 4, and a
     # window that crosses 64-row tiles
     (2, 777, 8, 2, 36, True, 100),
+    # head dims above 128: nemotron-4-340b's 192 (96 heads over 8 KV heads)
+    # and paligemma-3b's 256 (8 heads, one KV head), and 256 ragged and
+    # non-causal
+    (1, 512, 12, 1, 192, True, None),
+    (1, 512, 8, 1, 256, True, None),
+    (2, 300, 4, 2, 256, False, None),
 ]
 TOLERANCE = {
     "float32": 1e-4,   # order of summation only
@@ -98,7 +112,10 @@ TOLERANCE = {
 REPORTED_CASE = (1, 512, 16, 8, 128, True, None)  # the longer served prompt
 NAS_FLASH_CASE = (1, 2048, 32, 32, 80, False, None)
 # cases whose rows also carry device time from torch.profiler
-DEVICE_TIMED_CASES = (REPORTED_CASE, NAS_FLASH_CASE)
+DEVICE_TIMED_CASES = (REPORTED_CASE, NAS_FLASH_CASE, FLASH_CASES[-3], FLASH_CASES[-2])
+# cases also run at every tile pair the kernel is built for at their head
+# dim (a flash_tiles line each), with the pair asked for by a schedule
+TILED_CASES = (REPORTED_CASE, NAS_FLASH_CASE)
 
 SERVE_ARGS = ["--arch", "qwen3-1.7b", "--requests", "8", "--arrival", "burst",
               "--prompt-lens", "128,512", "--gen-lens", "16", "--max-batch", "4",
@@ -181,17 +198,32 @@ MLSTM_CASES = [
     (2, 64, 2, 32, 16, -100.0),
     (1, 96, 2, 36, 24, 0.0),
     (1, 1024, 2, 1024, 256, 0.0),
+    # the largest chunks a schedule allows, at the forward's shape: they
+    # stream v through the state pass's ring (above 416 in fp32 and 256 in
+    # bf16 at P = 1024)
+    (1, 2048, 4, 1024, 512, 0.0),
+    (1, 2048, 4, 1024, 1024, 0.0),
 ]
 MLSTM_REPORTED_CASE = MLSTM_CASES[0]
 # cases whose rows also carry device time, in all and by pass (the panel
 # launch, then the state launch)
-MLSTM_DEVICE_TIMED_CASES = (MLSTM_CASES[0], MLSTM_CASES[1])
+MLSTM_DEVICE_TIMED_CASES = (MLSTM_CASES[0], MLSTM_CASES[1], MLSTM_CASES[-2], MLSTM_CASES[-1])
 MLSTM_PASSES = {"panel_device_ms": "mlstm_chunk_panel", "state_device_ms": "mlstm_chunk_state"}
 # as for the SSD scan: each element of h within MLSTM_H_REL of its |h| (half
 # a bf16 ulp; h is rounded once) plus MLSTM_TOL of max |h| (order of
 # summation), against the fp32 plain version on the same inputs
 MLSTM_H_REL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
 MLSTM_TOL = 1e-4
+# Chunks above the ones the kernel staged whole before (416 in fp32, 256 in
+# bf16 at P = 1024; it streams v there, and in fp32 sums each staged tile
+# apart): over 512 or 1024 terms the fp32 plain version itself lands up to
+# 2.6 times MLSTM_TOL from the float64 plain version on an H100
+# (scripts/mlstm_chunk_accuracy.py, PERF.md), so it cannot be the yardstick.  These cases are held to the float64 plain
+# version instead: each element within the dtype's tolerance of it plus
+# twice the fp32 plain version's own error at that element, i.e. the kernel
+# may miss the exact h by twice what fp32 arithmetic in the plain version's
+# order misses it by, and never by less than the phase's tolerance.
+MLSTM_F64_CHUNK = {"float32": 416, "bfloat16": 256}
 MLSTM_NO_LIBRARY = "no single PyTorch call computes the chunkwise mLSTM scan"
 
 XLSTM_ARCH = "xlstm-1.3b"
@@ -345,7 +377,9 @@ def _mlstm_work(b, l, h, p, q, esize):
 
 def mlstm_phase(torch, ops, ref, gen) -> dict:
     """The mLSTM scan against its fp32 plain version on the same inputs,
-    fp32 and bf16, every case of ``MLSTM_CASES``.  Returns the rows."""
+    fp32 and bf16, every case of ``MLSTM_CASES`` (the chunks above
+    ``MLSTM_F64_CHUNK`` against the float64 plain version).  Returns the
+    rows."""
     from repro_torch.kernels import timing
 
     rows = {}
@@ -361,6 +395,16 @@ def mlstm_phase(torch, ops, ref, gen) -> dict:
             torch.cuda.synchronize()
             err_h = (out.float() - want).abs()
             tol_h = MLSTM_H_REL[dtype] * want.abs() + MLSTM_TOL * want.abs().max()
+            f64 = chunk > MLSTM_F64_CHUNK[dtype]
+            if f64:
+                exact = ref.mlstm_scan_ref(q.double(), k.double(), v.double(), il.double(),
+                                           fl.double(), chunk=chunk, dtype=torch.float64)
+                plain_err = (want.double() - exact).abs()
+                err_h = (out.double() - exact).abs()
+                phase_tol = MLSTM_H_REL[dtype] * exact.abs() + MLSTM_TOL * exact.abs().max()
+                tol_h = phase_tol + 2 * plain_err
+                plain_over = (plain_err / phase_tol).max().item()
+                del exact, plain_err, phase_tol
             err = err_h.max().item()
             over = (err_h / tol_h.clamp_min(1e-30)).max().item()
             finite = bool(torch.isfinite(out.float()).all())
@@ -376,8 +420,11 @@ def mlstm_phase(torch, ops, ref, gen) -> dict:
                 "case": {"B": b, "L": l, "H": h, "P": p, "chunk": chunk,
                          "input_gate_shift": i_shift},
                 "dtype": dtype, "max_abs_err": err,
-                "tol": f"{MLSTM_H_REL[dtype]} |h| + {MLSTM_TOL} max|h| per element",
+                "tol": (f"against float64: {MLSTM_H_REL[dtype]} |h| + {MLSTM_TOL} max|h| "
+                        f"+ 2 |plain fp32 - float64| per element" if f64 else
+                        f"{MLSTM_H_REL[dtype]} |h| + {MLSTM_TOL} max|h| per element"),
                 "max_err_over_tol": over, "max_abs_h": want.abs().max().item(),
+                **({"plain_fp32_err_over_tol": plain_over} if f64 else {}),
                 "finite": finite,
                 "ms": timing.event_ms(kernel),
                 "plain_ms": timing.event_ms(lambda: ref.mlstm_scan_ref(*args, chunk=chunk)),
@@ -911,12 +958,226 @@ def flash_phase(torch, ops, gen) -> dict:
                 row["library_device_ms"] = timing.device_ms(library)
             rows[(case, dtype)] = row
             print("flash_attention " + json.dumps(row))
+            if case in TILED_CASES:
+                rows.update(flash_tiles(torch, ops, case, dtype, q, k, v, want, row))
             del q, k, v, out, want
     return rows
 
 
-SUBSET_PHASES = ("flash", "ssm", "nas", "mlstm", "xlstm_forward", "xlstm_forward_bf16",
-                 "xlstm_serve")
+def flash_tiles(torch, ops, case, dtype, q, k, v, want, base) -> dict:
+    """The flash kernel at every tile pair it is built for at this case's
+    head dim, each asked for by a schedule: the pair launched must be the
+    one asked for, and each within the dtype's tolerance of the plain
+    version (``want``).  Rows keyed (case, dtype, (block_q, block_kv))."""
+    from repro_torch.kernels import schedule as ksched
+    from repro_torch.kernels import timing
+
+    b, s, h, kh, d, causal, window = case
+    kw = dict(causal=causal, window=window)
+    rows = {}
+    for bq in ops.FLASH_Q_TILES:
+        for bk in ops.FLASH_KV_TILES:
+            if not ops.flash_takes(d, q.dtype, bq, bk):
+                continue
+            sched = ksched.KernelSchedule(block_q=bq, block_kv=bk)
+            sink = {}
+            with ksched.record_kernel_calls(sink):
+                out = ops.flash_attention(q, k, v, schedule=sched, **kw)
+            torch.cuda.synchronize()
+            (call,) = sink.values()
+            err = (out.float() - want.float()).abs().max().item()
+            if call["launched"] != {"block_q": bq, "block_kv": bk} or err > TOLERANCE[dtype]:
+                raise AssertionError(f"flash_attention {case} {dtype} tiles ({bq}, {bk}): "
+                                     f"launched {call['launched']}, max |err| {err}")
+            kernel = lambda: ops.flash_attention(q, k, v, schedule=sched, **kw)  # noqa: E731
+            row = {"case": base["case"], "dtype": dtype,
+                   "block_q": bq, "block_kv": bk, "max_abs_err": err,
+                   "tol": TOLERANCE[dtype], "ms": timing.event_ms(kernel),
+                   "device_ms": timing.device_ms(kernel), "bound_ms": base["bound_ms"],
+                   "plain_ms": base["plain_ms"], "library_ms": base["library_ms"]}
+            rows[(case, dtype, (bq, bk))] = row
+            print("flash_tiles " + json.dumps(row))
+    return rows
+
+
+def flash_rule_check(ops) -> None:
+    """The built kernel's answer to which tile pairs it takes at each head
+    dim and dtype against :func:`repro_torch.kernels.ops.flash_takes`, the
+    rule the wrapper maps schedules with; and every head dim up to 256 has
+    a pair."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    takes = ops.bind_flash_takes(build.load("flash_attention"))
+    pairs = 0
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for d in range(4, 257, 4):
+            found = [(bq, bk) for bq in ops.FLASH_Q_TILES for bk in ops.FLASH_KV_TILES
+                     if ops.flash_takes(d, dtype, bq, bk)]
+            built = [(bq, bk) for bq in ops.FLASH_Q_TILES for bk in ops.FLASH_KV_TILES
+                     if takes(d, code, bq, bk)]
+            if found != built or not found:
+                raise AssertionError(f"flash tile rule at D={d} {dtype}: wrapper {found}, "
+                                     f"kernel {built}")
+            pairs += len(found)
+    print(f"flash_rule: the wrapper's tile rule agrees with the kernel's at every D "
+          f"in 4..256 and both dtypes ({pairs} (D, dtype, pair) cases)")
+
+
+# the Explorer facade over the nas phase's space and criteria, with
+# kernel_tuning.yaml's sections: the kernel-schedule tuner (mode cached,
+# budget 5), measured latency at batch 4, a disk cache
+EXPLORE_TUNE_BUDGET = 5
+# xlstm-1.3b's mLSTM call, (B, L, H, P), tuned directly in both dtypes
+EXPLORE_MLSTM_SHAPE = (1, 2048, 4, 1024)
+
+
+def explore_spec(backend: str, workers: int, cache_dir: str) -> dict:
+    """The explore phase's experiment, as a dict (the card's machine has no
+    PyYAML): ``NAS_SPACE`` at zamba2-2.7b's widths, the nas phase's three
+    criteria on target ``h100``, the random sampler at seed 0, ``NAS_TRIALS``
+    trials, kernel tuning cached at budget ``EXPLORE_TUNE_BUDGET``."""
+    return {
+        "name": f"explore-{backend}",
+        "search_space": NAS_SPACE,
+        "sampler": {"name": "random", "seed": 0},
+        "executor": {"backend": backend, "n_workers": workers},
+        "criteria": [
+            {"estimator": "n_params", "kind": "hard_constraint", "limit": 2e8},
+            {"estimator": "latency_s", "kind": "objective",
+             "params": {"batch": NAS_BATCH, "metric": "measured"}},
+            {"estimator": "peak_bytes", "kind": "soft_constraint", "limit": 16e9,
+             "weight": 0.1, "params": {"batch": NAS_BATCH}},
+        ],
+        "kernel_tuning": {"mode": "cached", "budget": EXPLORE_TUNE_BUDGET},
+        "target": "h100",
+        "cache": {"dir": cache_dir},
+        "budget": {"n_trials": NAS_TRIALS},
+        "report_dir": cache_dir,
+    }
+
+
+def _tuning_rows(records) -> list:
+    """Each tuning record as the explore line prints it: the kernel, its
+    shape bucket, the winner, and every timed candidate's requested,
+    effective and launched schedule with its ms."""
+    return [{
+        "kernel": r["kernel"], "bucket": r["bucket"], "winner": r["schedule"],
+        "candidates": [{"requested": c["schedule"], "effective": c["effective"],
+                        "launched": c["launched"], "ms": c["latency_s"] * 1e3}
+                       for c in r["candidates"]],
+    } for r in records]
+
+
+def explore_phase(torch, ops) -> dict:
+    """The Explorer facade on the card, three runs of ``explore_spec`` in
+    this process: serial on a fresh disk cache (cold: the tuner sweeps),
+    serial again on the same cache (warm: nothing is tuned, every estimator
+    value is read from disk, no candidate is generated), and the process
+    backend with 2 spawned workers on a fresh cache.  Each prints an
+    ``explore`` line.  Raises if the warm run tunes, generates, misses or
+    launches, if the runs disagree on the best trial, or if ``ssm_scan`` or
+    ``flash_attention`` was launched no time in the cold or process run.  Then tunes
+    ``mlstm_scan`` at xlstm-1.3b's shape in both dtypes through
+    ``ScheduleTuner.tune``: every candidate chunk (512 included) must
+    launch.  Returns the runs' summaries."""
+    import tempfile
+
+    from repro_torch.explorer.explorer import Explorer
+    from repro_torch.hwgen.autotune import ScheduleTuner
+    from repro_torch.hwgen.generator import generate_call_count
+    from repro_torch.hwgen.targets import get_target
+
+    kernels = ("ssm_scan", "flash_attention")
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="explore-") as tmp:
+        plan = (("serial_cold", "serial", 1, f"{tmp}/cache"),
+                ("serial_warm", "serial", 1, f"{tmp}/cache"),
+                ("process", "process", 2, f"{tmp}/cache_process"))
+        for name, backend, workers, cache_dir in plan:
+            ops.LAUNCHES.clear()
+            generated = generate_call_count()
+            t0 = time.perf_counter()
+            explorer = Explorer.from_dict(explore_spec(backend, workers, cache_dir))
+            report = explorer.run(save_report=False)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            kt = report.kernel_tuning
+            trials = [{"number": t.number, "signature": t.user_attrs.get("signature"),
+                       "state": t.state.value, "latency_s": t.user_attrs.get("latency_s"),
+                       "peak_bytes": t.user_attrs.get("peak_bytes"),
+                       "kernel_schedules": t.user_attrs.get("kernel_schedules")}
+                      for t in explorer.study.trials]
+            # candidates placed and run once: this process's, and each spawned
+            # worker's (their counts start at 0)
+            per_pid = {}
+            for tr in explorer.study.trials:
+                w = tr.user_attrs.get("worker") or {}
+                if w.get("pid") not in (None, os.getpid()):
+                    per_pid[w["pid"]] = max(per_pid.get(w["pid"], 0), w["generates"])
+            generates = generate_call_count() - generated + sum(per_pid.values())
+            run = {
+                "run": name, "backend": backend, "n_workers": workers, "wall_s": wall_s,
+                "states": report.states, "best": report.best, "trials": trials,
+                "tunes": kt["tunes"], "tune_cache_hits": kt["cache_hits"],
+                "tune_time_s": kt["tune_time_s"], "schedules": kt["schedules"],
+                "tuning": _tuning_rows(kt["records"] or []),
+                "cache": report.cache, "generates": generates,
+                "LAUNCHES": {k: report.kernel_launches.get(k, 0) for k in kernels},
+            }
+            runs[name] = run
+            print("explore " + json.dumps(run))
+            # the warm run reads every value from disk: it launches nothing
+            missing = [k for k in kernels if (run["LAUNCHES"][k] == 0) != (name == "serial_warm")]
+            if missing or report.states.get("complete") != NAS_TRIALS:
+                raise AssertionError(f"explore {name}: kernels {missing} launched "
+                                     f"{run['LAUNCHES']} times, or not every trial "
+                                     f"completed: {report.states}")
+        warm = runs["serial_warm"]
+        if (warm["tunes"] != 0 or warm["generates"] != 0 or warm["cache"]["misses"] != 0
+                or warm["cache"]["disk_hits"] == 0):
+            raise AssertionError(f"explore: the warm run tuned {warm['tunes']} buckets, "
+                                 f"generated {warm['generates']} candidates and missed "
+                                 f"{warm['cache']['misses']} values: {warm['cache']}")
+        bests = {name: (r["best"] or {}).get("number") for name, r in runs.items()}
+        if len(set(bests.values())) != 1 or None in bests.values():
+            raise AssertionError(f"explore: the runs disagree on the best trial: {bests}")
+        latency = {name: {t["number"]: t["latency_s"] for t in r["trials"]}
+                   for name, r in runs.items()}
+        ratios = [latency["process"][n] / latency["serial_cold"][n]
+                  for n in latency["serial_cold"]
+                  if latency["serial_cold"][n] and latency["process"].get(n)]
+        print("explore_summary " + json.dumps({
+            "best": bests, "wall_s": {name: r["wall_s"] for name, r in runs.items()},
+            "process_over_serial_latency": [min(ratios), max(ratios)] if ratios else None}))
+
+    # the mLSTM scan at xlstm-1.3b's shape: every candidate chunk launches
+    b, l, h, p = EXPLORE_MLSTM_SHAPE
+    tuner = ScheduleTuner(get_target("h100"), budget=EXPLORE_TUNE_BUDGET)
+    shapes = {"q": (b, l, h, p), "k": (b, l, h, p), "v": (b, l, h, p),
+              "i_log": (b, l, h), "f_log": (b, l, h)}
+    mlstm = {}
+    for dtype in ("float32", "bfloat16"):
+        before = ops.LAUNCHES["mlstm_scan"]
+        record = tuner.tune("mlstm_scan", shapes, {"dtype": dtype})
+        torch.cuda.synchronize()
+        launched = [c["launched"]["chunk"] for c in record["candidates"]]
+        calls = (tuner.warmup + tuner.iters) * len(record["candidates"])
+        row = {"dtype": dtype, "shape": list(EXPLORE_MLSTM_SHAPE),
+               "winner": record["schedule"], "tune_time_s": record["tune_time_s"],
+               "tuning": _tuning_rows([record]),
+               "launches": ops.LAUNCHES["mlstm_scan"] - before, "expected_launches": calls}
+        mlstm[dtype] = row
+        print("explore_mlstm " + json.dumps(row))
+        if sorted(launched) != [32, 64, 128, 256, 512] or row["launches"] != calls:
+            raise AssertionError(f"explore: mlstm_scan {dtype} launched chunks {launched} "
+                                 f"({row['launches']} launches, expected {calls})")
+    return {"runs": runs, "mlstm": mlstm}
+
+
+SUBSET_PHASES = ("flash", "ssm", "nas", "explore", "mlstm", "xlstm_forward",
+                 "xlstm_forward_bf16", "xlstm_serve")
 
 
 def main(argv=None) -> int:
@@ -963,19 +1224,32 @@ def main(argv=None) -> int:
     print(f"build: {sorted(reports) or 'up to date'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in reports.items():
+        # each compiled kernel's registers; the ones that spill by name
+        kernel, used, spills = None, [], []
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry" in line:
+                kernel = line.split("'")[1] if "'" in line else line.strip()
+            elif "spill stores" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
+                spills.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
+            elif "Used" in line and "registers" in line:
+                used.append(int(line.split("Used")[1].split()[0]))
+        print(f"  {name}: {len(used)} kernels, registers {min(used, default=0)}-"
+              f"{max(used, default=0)}, {len(spills)} spilling")
+        for line in spills:
+            print(f"  {name} spills: {line}")
 
     if subset:
         gen = torch.Generator(device="cuda").manual_seed(0)
         for name in subset:
             if name == "flash":
+                flash_rule_check(ops)
                 flash_phase(torch, ops, gen)
             elif name == "ssm":
                 ssm_phase(torch, ops, ref, gen)
             elif name == "nas":
                 nas_phase(torch, ops, ref)
+            elif name == "explore":
+                explore_phase(torch, ops)
             elif name == "mlstm":
                 mlstm_phase(torch, ops, ref, gen)
             elif name == "xlstm_forward":
@@ -988,6 +1262,7 @@ def main(argv=None) -> int:
 
     # -- 3. kernel against plain version ----------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
+    flash_rule_check(ops)
     kernel_rows = flash_phase(torch, ops, gen)
 
     # -- 3b. the SSD scan against its plain version -------------------------
@@ -1065,6 +1340,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     nas = nas_phase(torch, ops, ref)
 
+    # -- 6b. the Explorer facade with the kernel-schedule tuner -------------
+    torch.cuda.empty_cache()
+    explore = explore_phase(torch, ops)
+
     # -- 7. the mLSTM scan against its plain version -----------------------
     mlstm_rows = mlstm_phase(torch, ops, ref, gen)
 
@@ -1085,7 +1364,9 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/flash_attention.py:89",
         "launches": launches.get("flash_attention", 0),
         "launches_by_path": {"serve": launches.get("flash_attention", 0),
-                             "nas": nas["launches"].get("flash_attention", 0)},
+                             "nas": nas["launches"].get("flash_attention", 0),
+                             **{f"explore_{name}": r["LAUNCHES"]["flash_attention"]
+                                for name, r in explore["runs"].items()}},
         "max_abs_err": served["max_abs_err"], "ms": served["ms"],
         "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
         "bound_by": served["bound_by"], "library_ms": served["library_ms"],
@@ -1096,7 +1377,9 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:76",
         "launches": nas["launches"].get("ssm_scan", 0),
-        "launches_by_path": {"nas": nas["launches"].get("ssm_scan", 0)},
+        "launches_by_path": {"nas": nas["launches"].get("ssm_scan", 0),
+                             **{f"explore_{name}": r["LAUNCHES"]["ssm_scan"]
+                                for name, r in explore["runs"].items()}},
         "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],
         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
         "bound_by": scan["bound_by"], "library_ms": None,
@@ -1110,7 +1393,9 @@ def main(argv=None) -> int:
         "launches": xfwd["mlstm_scan_launches"],
         "launches_by_path": {"xlstm_forward": xfwd["mlstm_scan_launches"],
                              "xlstm_forward_bf16": xfwd16["mlstm_scan_launches"],
-                             "xlstm_serve": xserve["mlstm_scan_launches"]},
+                             "xlstm_serve": xserve["mlstm_scan_launches"],
+                             **{f"explore_tune_{dtype}": r["launches"]
+                                for dtype, r in explore["mlstm"].items()}},
         "max_abs_err": mscan["max_abs_err"], "ms": mscan["ms"],
         "plain_ms": mscan["plain_ms"], "bound_ms": mscan["bound_ms"],
         "bound_by": mscan["bound_by"], "library_ms": None,

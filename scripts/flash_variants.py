@@ -11,12 +11,16 @@ Each argument is a whole ``flash_attention.cu`` (the checkout's
 registers of its D=80 and D=128 kernels are printed), then, at the NAS
 and served shapes and in fp32 and bf16, held against the plain version
 and timed in turns (A, B, ..., B, A): CUDA events around back-to-back
-launches, and the kernels' device time from ``torch.profiler``.  One line
+launches, and the kernels' device time from ``torch.profiler``.  A source
+that takes a tile pair (it exports ``repro_flash_attention_takes``) is
+launched with the pair the named default schedule maps to; an earlier one
+with its own fixed tiles.  One line
 a (shape, dtype, source), with the card's name and power limit first.
 Needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
+import ctypes
 import sys
 
 import torch
@@ -37,16 +41,30 @@ def _build(sources):
         for kernel, used in build.registers(log):
             if "Li80E" in kernel or "Li128E" in kernel:
                 print(f"registers {src} {kernel.split('flash_fwd')[-1][:24]}: {used}")
-        fns[src] = ops.bind_flash(lib)
+        fns[src] = _bind(lib)
     return fns
 
 
-def _launch(fn, q, k, v, o, causal):
+def _bind(lib):
+    """(entry point, whether it takes a tile pair): sources from before the
+    kernel took schedules have no tile arguments."""
+    if hasattr(lib, "repro_flash_attention_takes"):
+        return ops.bind_flash(lib), True
+    fn = lib.repro_flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn, False
+
+
+def _launch(bound, q, k, v, o, causal):
+    fn, tiled = bound
     b, s, h, d = q.shape
+    tiles = ops.flash_launch_tiles(128, 128, d, q.dtype) if tiled else ()
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              0 if q.dtype == torch.float32 else 1, b, s, k.shape[1], h, k.shape[2], d,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-             int(causal), 0, d ** -0.5, torch.cuda.current_stream().cuda_stream)
+             int(causal), 0, d ** -0.5, *tiles, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: CUDA error {err}")
 

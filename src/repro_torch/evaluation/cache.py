@@ -16,43 +16,49 @@ module centralizes the memoization:
   * lookups are single-flight: when several ``ParallelStudy`` workers
     race on the same key, exactly one computes while the rest wait for
     the result instead of duplicating an XLA compile;
-  * the port keeps the in-memory tier only: the disk tier, whose keys
-    need the port's own toolchain salt (torch, CUDA and a framework
-    tag), comes with the next slice (ROADMAP.md, Queue 1 item 2).
+  * an optional **disk tier** (:class:`DiskEvaluationCache`) persists the
+    JSON-serializable values (estimator scalars, not compiled
+    executables) across process restarts and between process-pool
+    workers sharing the store directory, so a warm-restarted study
+    performs zero XLA compiles for architectures the host has already
+    paid for.  Owners check the disk tier before computing and write
+    computed values through to it.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
-from typing import Any, Callable, Dict, Hashable
+from typing import Any, Callable, Dict, Hashable, Optional, Union
+
+from repro_torch.evaluation.disk_cache import DiskEvaluationCache
 
 
 @dataclasses.dataclass
 class CacheStats:
-    hits: int = 0        # served from memory
+    hits: int = 0        # served from the in-memory tier
+    disk_hits: int = 0   # served from the disk tier (no compute, no compile)
     misses: int = 0      # actually computed
 
     @property
     def hit_rate(self) -> float:
-        total = self.hits + self.misses
-        return self.hits / total if total else 0.0
+        total = self.hits + self.disk_hits + self.misses
+        return (self.hits + self.disk_hits) / total if total else 0.0
 
     def as_dict(self) -> Dict[str, float]:
-        return {"hits": self.hits, "misses": self.misses,
-                "hit_rate": self.hit_rate}
+        return {"hits": self.hits, "disk_hits": self.disk_hits,
+                "misses": self.misses, "hit_rate": self.hit_rate}
 
 
 class EvaluationCache:
-    """Thread-safe, single-flight memoization keyed by hashable tuples,
-    in memory.  ``disk`` must be left unset: the disk tier waits for the
-    port's toolchain salt (ROADMAP.md, Queue 1 item 2)."""
+    """Thread-safe, single-flight memoization keyed by hashable tuples.
 
-    def __init__(self, disk=None):
-        if disk not in (None, False, ""):
-            raise NotImplementedError(
-                "the port's EvaluationCache is memory-only: the disk tier "
-                "needs the port's toolchain salt (torch, CUDA and a framework "
-                "tag) and is ROADMAP.md Queue 1 item 2 (the disk tier)")
+    ``disk`` may be a :class:`DiskEvaluationCache`, a path (store
+    directory, created if needed), or ``True`` for the default
+    ``results/cache/`` store.  Without it the cache is memory-only.
+    """
+
+    def __init__(self, disk: Union[DiskEvaluationCache, str, os.PathLike, bool, None] = None):
         self._lock = threading.Lock()
         self._entries: Dict[Hashable, Any] = {}
         self._inflight: Dict[Hashable, threading.Event] = {}
@@ -60,6 +66,17 @@ class EvaluationCache:
         # clear() must not resurrect its (now stale) entry afterwards
         self._generation = 0
         self.stats = CacheStats()
+        # identity/type checks, NOT truthiness: an empty DiskEvaluationCache
+        # is falsy via __len__ but is still a live tier
+        if isinstance(disk, DiskEvaluationCache):
+            pass
+        elif disk is True:
+            disk = DiskEvaluationCache()
+        elif isinstance(disk, (str, os.PathLike)) and str(disk):
+            disk = DiskEvaluationCache(str(disk))
+        else:  # None / False / "": memory-only
+            disk = None
+        self.disk: Optional[DiskEvaluationCache] = disk
 
     # -- key construction ------------------------------------------------------
 
@@ -81,7 +98,8 @@ class EvaluationCache:
         """Return the cached value for ``key``, computing it at most once
         across concurrent callers (single-flight).  A key of None (or a
         tuple containing None, as produced for uncacheable candidates)
-        bypasses the cache entirely."""
+        bypasses the cache entirely.  Owners consult the disk tier before
+        computing and write computed values through to it."""
         if key is None or (isinstance(key, tuple) and any(k is None for k in key)):
             return compute()
         while True:
@@ -98,16 +116,38 @@ class EvaluationCache:
             # another worker is computing this key: wait, then re-check
             # (re-loop handles the owner failing with an exception)
             event.wait()
-        # We own the key.  Whatever happens below, the finally releases
-        # ownership and wakes waiters, so a failure can never strand them
-        # in wait().
+        # We own the key.  Whatever happens below — disk I/O error,
+        # compute failure, success — the finally releases ownership and
+        # wakes waiters, so a failure can never strand them in wait().
         try:
+            # disk read-through (file I/O outside the lock): a value
+            # persisted by an earlier run — or a sibling process — costs
+            # no compute
+            if self.disk is not None:
+                found, value = self.disk.lookup(key)
+                if found:
+                    with self._lock:
+                        if generation == self._generation:
+                            self._entries[key] = value
+                            self.stats.disk_hits += 1
+                    return value
             with self._lock:
                 self.stats.misses += 1
             value = compute()
             with self._lock:
-                if generation == self._generation:
+                persist = generation == self._generation
+                if persist:
                     self._entries[key] = value
+            # Write-through outside the cache lock: the flock+fsync must
+            # not stall sibling memory hits.  The persist *decision* is
+            # generation-checked above, so a completed clear() is always
+            # respected; only a clear(disk=True) racing this very append
+            # can leave one stale record on disk — the same exposure as a
+            # sibling process appending after the truncate.  Cross-process
+            # invalidation is best-effort by design: delete the store
+            # directory for a guaranteed rebuild.
+            if persist and self.disk is not None:
+                self.disk.store(key, value)
             return value
         finally:
             with self._lock:
@@ -123,16 +163,24 @@ class EvaluationCache:
         with self._lock:
             return len(self._entries)
 
-    def clear(self) -> None:
+    def clear(self, disk: bool = False) -> None:
         """Drop every entry and reset stats.  In-flight computations lose
         ownership atomically: their callers still receive the value they
-        computed, but it is not cached, so a compute finishing after
-        ``clear()`` can never resurrect a stale entry.  Waiters are woken
-        and recompute fresh."""
+        computed, but it is neither cached nor written to disk, so a
+        compute finishing after ``clear()`` can never resurrect a stale
+        entry.  Waiters are woken and recompute fresh.  The disk tier is
+        kept unless ``disk=True``."""
         with self._lock:
             self._generation += 1
             self._entries.clear()
             inflight, self._inflight = self._inflight, {}
             self.stats = CacheStats()
+            if disk and self.disk is not None:
+                # truncate under the cache lock: an owner doing a disk
+                # read-through after the generation bump must find the
+                # store already wiped, or it would cache the stale value
+                # under the new generation (lock order cache -> disk
+                # matches the store path)
+                self.disk.clear()
         for event in inflight.values():
             event.set()

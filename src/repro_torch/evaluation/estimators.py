@@ -9,14 +9,17 @@
     one forward, from the CUDA allocator
 
 The names are the JAX package's, so one experiment names the same
-estimators in both.  The roofline-modelled latency (``metric="modelled"``)
-and the kernel-schedule tuner come with the next slice (ROADMAP.md,
-Queue 1 items 3 and 4), the trained-accuracy estimator with training.
+estimators in both.  A kernel-schedule tuner (``tuner=``) or schedules in
+the trial's context retarget the candidate's kernels, and the effective
+schedules' signature joins the cache keys, as in the reference.  The
+roofline-modelled latency (``metric="modelled"``) comes with a later
+slice (ROADMAP.md, Queue 1 item 3), the trained-accuracy estimator with
+training.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -25,8 +28,10 @@ from repro_torch.device import resolve_device
 from repro_torch.evaluation.api import Estimator
 from repro_torch.evaluation.cache import EvaluationCache
 from repro_torch.explorer.registry import ESTIMATORS
-from repro_torch.hwgen.generator import HardwareManager, TorchGenerator
+from repro_torch.hwgen.autotune import ScheduleTuner, discover_kernel_calls, meta_forward
+from repro_torch.hwgen.generator import HardwareManager, TorchGenerator, measurement_gate
 from repro_torch.hwgen.targets import TargetSpec
+from repro_torch.kernels import schedule as ksched
 
 
 @ESTIMATORS.register("n_params")
@@ -66,43 +71,105 @@ class _CompiledEstimator(Estimator):
     the target's ``mesh_scope`` (which names its device) for what the
     program determines, the target's name for measurements.  Passing the
     same cache to several estimators makes them share artifacts: latency
-    and memory for one candidate cost one generate.
+    and memory for one candidate cost one generate.  ``cache`` may also be
+    a store-directory path (or ``True`` for the default ``results/cache/``),
+    which wraps a fresh cache around the disk tier so values survive
+    restarts.
     """
 
     def __init__(self, target: TargetSpec | str, batch: int = 1,
-                 cache: Optional[EvaluationCache] = None):
+                 cache: Optional[EvaluationCache | str] = None,
+                 tuner: Optional[ScheduleTuner] = None):
         self.generator = TorchGenerator(target)
         self.batch = batch
-        self.cache = EvaluationCache() if cache is None else cache
-        if not isinstance(self.cache, EvaluationCache):
-            raise NotImplementedError(
-                "the port's estimators take an EvaluationCache; a store path "
-                "is the disk tier, ROADMAP.md Queue 1 item 2")
+        if cache is None:
+            cache = EvaluationCache()
+        elif not isinstance(cache, EvaluationCache):
+            cache = EvaluationCache(disk=cache)
+        self.cache = cache
+        self.tuner = tuner
 
-    def _program_key(self, name: str, candidate: BuiltModel):
-        return (name, self.generator.target.mesh_scope, self.batch,
-                EvaluationCache.candidate_key(candidate))
+    def _program_key(self, name: str, candidate: BuiltModel, sig=None):
+        """Key for values the program determines, scoped by the target's
+        ``mesh_scope``.  ``sig`` is the *effective* kernel-schedule
+        signature; ``None`` (no tuning, no context schedules) keeps the
+        untuned key shape."""
+        key = (name, self.generator.target.mesh_scope, self.batch,
+               EvaluationCache.candidate_key(candidate))
+        return key if sig is None else key + (("sched", sig),)
 
-    def _target_key(self, name: str, candidate: BuiltModel):
-        return (name, self.generator.target.name, self.batch,
-                EvaluationCache.candidate_key(candidate))
+    def _target_key(self, name: str, candidate: BuiltModel, sig=None):
+        """Key for deployment-specific values (measurements)."""
+        key = (name, self.generator.target.name, self.batch,
+               EvaluationCache.candidate_key(candidate))
+        return key if sig is None else key + (("sched", sig),)
 
-    def _artifact(self, candidate: BuiltModel):
+    def _schedule_plan(self, candidate: BuiltModel, context=None):
+        """(schedules, effective-signature) for this candidate.
+
+        ``(None, None)`` — the untuned path — when no schedules arrived
+        via context (``kernel_tuning.mode: search`` trial params) and no
+        tuner is attached, or when a forward on the ``meta`` device shows
+        the candidate reaches no schedulable kernel: cache keys then keep
+        the untuned shape.  Otherwise the plan is: per discovered kernel,
+        context schedule > tuner override > tuned winner, and the
+        signature is taken from a second recording meta forward so it
+        reflects the *effective* (shape-clamped) schedules."""
+        from_context = (context or {}).get("schedules")
+        if from_context is None and self.tuner is None:
+            return None, None
+        l, c = candidate.input_shape[-1], candidate.input_shape[0]
+        x = torch.empty((self.batch, l, c), dtype=torch.float32, device="meta")
+        calls = discover_kernel_calls(candidate, (x,))
+        if not calls:
+            return None, None
+        plan: Dict[str, ksched.KernelSchedule] = {}
+        for entry in calls.values():
+            kernel = entry["kernel"]
+            if kernel in plan:
+                continue
+            if from_context and kernel in from_context:
+                plan[kernel] = ksched.as_schedule(kernel, from_context[kernel])
+            elif self.tuner is not None:
+                if kernel in self.tuner.overrides:
+                    plan[kernel] = self.tuner.overrides[kernel]
+                else:
+                    record = self.tuner.tune(kernel, entry["shapes"], entry["meta"])
+                    plan[kernel] = ksched.as_schedule(kernel, record["schedule"])
+            else:
+                plan[kernel] = ksched.default_schedule(kernel)
+        sink: Dict = {}
+        with ksched.use_schedules(plan), ksched.record_kernel_calls(sink):
+            meta_forward(candidate, (x,))
+        sig = ksched.effective_signature(sink)
+        trial = (context or {}).get("trial")
+        set_attr = getattr(trial, "set_user_attr", None)
+        if set_attr is not None:
+            set_attr("kernel_schedules",
+                     {k: s.to_dict() for k, s in sorted(plan.items())})
+        return plan, sig
+
+    def _artifact(self, candidate: BuiltModel, plan=None):
         """The candidate with weights drawn from seed 0, run once on the
-        target's device on a zero batch of ``self.batch`` examples.  The
-        weights are drawn on the device (far faster than on the host) but
-        kept on the host with the batch: the generator places both on the
-        device for each run and counts them in the candidate's peak."""
+        target's device on a zero batch of ``self.batch`` examples, its
+        kernels on the plan's schedules.  The weights are drawn on the
+        device (far faster than on the host) but kept on the host with the
+        batch: the generator places both on the device for each run and
+        counts them in the candidate's peak.  Drawing them is device work, so
+        it holds the measurement gate: a sibling process's timing must not
+        run beside it."""
+        schedules, sig = plan if plan is not None else (None, None)
 
         def produce():
             device = resolve_device(self.generator.target.device)
             l, c = candidate.input_shape[-1], candidate.input_shape[0]
-            gen = torch.Generator(device=device).manual_seed(0)
-            model = candidate.init(gen, device).to("cpu")
+            with measurement_gate(device):
+                gen = torch.Generator(device=device).manual_seed(0)
+                model = candidate.init(gen, device).to("cpu")
             x = torch.zeros((self.batch, l, c), dtype=torch.float32)
-            return self.generator.generate(model, (x,))
+            return self.generator.generate(model, (x,), schedules=schedules)
 
-        return self.cache.get_or_compute(self._program_key("artifact", candidate),
+        return self.cache.get_or_compute(self._program_key("artifact", candidate, sig),
                                          produce)
 
 
@@ -116,9 +183,10 @@ class CompiledLatencyEstimator(_CompiledEstimator):
 
     def __init__(self, target: TargetSpec | str, batch: int = 1,
                  manager: Optional[HardwareManager] = None,
-                 cache: Optional[EvaluationCache] = None,
-                 metric: str = "measured"):
-        super().__init__(target, batch=batch, cache=cache)
+                 cache: Optional[EvaluationCache | str] = None,
+                 metric: str = "measured",
+                 tuner: Optional[ScheduleTuner] = None):
+        super().__init__(target, batch=batch, cache=cache, tuner=tuner)
         if metric == "modelled":
             raise NotImplementedError(
                 "latency metric 'modelled' (the roofline bound) is not ported "
@@ -130,12 +198,14 @@ class CompiledLatencyEstimator(_CompiledEstimator):
         self.metric = metric
 
     def estimate(self, candidate: BuiltModel, context=None) -> float:
+        plan = self._schedule_plan(candidate, context)
+
         def compute() -> float:
-            artifact = self._artifact(candidate)
+            artifact = self._artifact(candidate, plan)
             return float(self.manager.benchmark(artifact)["latency_s"])
 
         return self.cache.get_or_compute(
-            ("measured",) + self._target_key(self.name, candidate), compute)
+            ("measured",) + self._target_key(self.name, candidate, plan[1]), compute)
 
 
 @ESTIMATORS.register("peak_bytes")
@@ -147,8 +217,9 @@ class CompiledMemoryEstimator(_CompiledEstimator):
     name = "peak_bytes"
 
     def __init__(self, target: TargetSpec | str, batch: int = 1,
-                 cache: Optional[EvaluationCache] = None):
-        super().__init__(target, batch=batch, cache=cache)
+                 cache: Optional[EvaluationCache | str] = None,
+                 tuner: Optional[ScheduleTuner] = None):
+        super().__init__(target, batch=batch, cache=cache, tuner=tuner)
         if self.generator.target.device != "cuda":
             raise ValueError(
                 f"peak_bytes needs a CUDA target: {self.generator.target.name} "
@@ -156,9 +227,11 @@ class CompiledMemoryEstimator(_CompiledEstimator):
                 f"allocator statistics")
 
     def estimate(self, candidate: BuiltModel, context=None) -> float:
+        plan = self._schedule_plan(candidate, context)
+
         def compute() -> float:
-            artifact = self._artifact(candidate)
+            artifact = self._artifact(candidate, plan)
             return float(artifact.memory["peak_bytes_per_device"])
 
-        return self.cache.get_or_compute(self._program_key(self.name, candidate),
+        return self.cache.get_or_compute(self._program_key(self.name, candidate, plan[1]),
                                          compute)

@@ -129,8 +129,10 @@ def ensure_builtins() -> None:
     if _builtins_loaded:
         return
     _builtins_loaded = True
-    # the port's registering modules as of this slice: the executors,
-    # pruners, proxies and serving estimators come with the facade
+    # the port's registering modules: the proxies, serving estimators
+    # and the remote executor are not ported yet (ROADMAP.md Queue 1)
     import repro_torch.evaluation.estimators  # noqa: F401
     import repro_torch.hwgen.targets  # noqa: F401
+    import repro_torch.search.executors  # noqa: F401
+    import repro_torch.search.pruners  # noqa: F401
     import repro_torch.search.samplers  # noqa: F401

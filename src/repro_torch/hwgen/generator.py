@@ -22,15 +22,19 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
+import tempfile
 import threading
 import time
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch import faults
 from repro_torch.device import resolve_device
 from repro_torch.hwgen.targets import TargetSpec, get_target
+from repro_torch.ioutils import lock_file, unlock_file
+from repro_torch.kernels import schedule as ksched
 
 
 @dataclasses.dataclass
@@ -45,6 +49,9 @@ class Artifact:
     # {"peak_bytes_per_device": ...} from the allocator on CUDA; empty on
     # the CPU, which keeps no allocator statistics
     memory: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # the kernel schedules every run of ``fn`` is resolved under (None:
+    # each kernel's call site and default decide)
+    schedules: Optional[Mapping[str, Any]] = None
 
 
 class GeneratorError(RuntimeError):
@@ -53,13 +60,50 @@ class GeneratorError(RuntimeError):
 
 _gate_lock = threading.Lock()
 
+_generate_count_lock = threading.Lock()
+_generate_count = 0
 
-def measurement_gate() -> threading.Lock:
-    """The lock every generate and every timing holds, as the JAX
-    package's ``compile_gate`` does: a forward or a timing taken while a
-    sibling worker's candidate runs on the same device would report the
-    contention, and the evaluation cache would keep that number."""
-    return _gate_lock
+
+def generate_call_count() -> int:
+    """Process-local count of :meth:`TorchGenerator.generate` calls (each
+    places a candidate and runs it once).  Warm-restart checks assert this
+    stays flat when every value comes from the disk cache."""
+    return _generate_count
+
+
+def measurement_gate_path(device: torch.device) -> str:
+    """The lock file that every process measuring on CUDA card ``device``
+    holds while it measures: one per card and user, in the temporary
+    directory.  Naming it must not start CUDA (a new context is device work
+    beside a sibling's timing): an unindexed device is the current one, which
+    is 0 until CUDA has started."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device() if torch.cuda.is_initialized() else 0
+    return os.path.join(tempfile.gettempdir(),
+                        f"repro_torch-measurement-{os.getuid()}-cuda{index}.lock")
+
+
+@contextlib.contextmanager
+def measurement_gate(device: Optional[torch.device] = None) -> Iterator[None]:
+    """Held by every generate and every timing, as the JAX package's
+    ``compile_gate`` is: a forward or a timing taken while a sibling
+    worker's candidate runs on the same device would report the
+    contention, and the evaluation cache would keep that number.  Within a
+    process it is a lock; on a CUDA ``device`` it also takes an exclusive
+    lock on :func:`measurement_gate_path`, so that worker processes (the
+    process backend spawns them) sharing a card measure one at a time."""
+    with _gate_lock:
+        if device is None or device.type != "cuda":
+            yield
+            return
+        path = measurement_gate_path(device)
+        with open(path, "a+b") as f:
+            how = lock_file(f, path)
+            try:
+                yield
+            finally:
+                unlock_file(f, how)
 
 
 @contextlib.contextmanager
@@ -90,7 +134,8 @@ class TorchGenerator:
     def __init__(self, target: TargetSpec | str):
         self.target = get_target(target) if isinstance(target, str) else target
 
-    def generate(self, fn: Callable, example_args: Tuple) -> Artifact:
+    def generate(self, fn: Callable, example_args: Tuple,
+                 schedules: Optional[Mapping[str, Any]] = None) -> Artifact:
         """Place ``fn`` (a module, or a plain function) and the tensors of
         ``example_args`` on the target's device, run ``fn`` once under
         ``inference_mode``, and take them off the device again.
@@ -102,19 +147,23 @@ class TorchGenerator:
         it counts the weights, inputs, activations and output of this
         candidate, whatever the card held before and in whatever order
         candidates come.  ``fn`` ends on the host even if it was given
-        on the device."""
+        on the device.  ``schedules`` (kernel -> schedule) are active for
+        this forward and for every later run of the artifact."""
+        global _generate_count
         faults.fault_point("compile", key=self.target.name)
+        with _generate_count_lock:
+            _generate_count += 1
         device = resolve_device(self.target.device)
         cuda = device.type == "cuda"
         example_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
                              for a in example_args)
         memory: Dict[str, int] = {}
-        with measurement_gate():
+        with measurement_gate(device):
             if cuda:
                 torch.cuda.synchronize(device)
                 torch.cuda.reset_peak_memory_stats(device)
             with _placed(fn, example_args, device) as args:
-                with torch.inference_mode():
+                with torch.inference_mode(), ksched.use_schedules(schedules):
                     fn(*args)
                 del args
             if cuda:
@@ -123,7 +172,7 @@ class TorchGenerator:
                     torch.cuda.max_memory_allocated(device)
                     - torch.cuda.memory_allocated(device))
         return Artifact(target=self.target, fn=fn, example_args=example_args,
-                        memory=memory)
+                        memory=memory, schedules=schedules)
 
 
 class HardwareManager:
@@ -146,8 +195,8 @@ class HardwareManager:
                 f"metric: modelled, ROADMAP.md Queue 1 item 3)")
         device = resolve_device(artifact.target.device)
         fn = artifact.fn
-        with measurement_gate(), _placed(fn, artifact.example_args, device) as args, \
-                torch.inference_mode():
+        with measurement_gate(device), _placed(fn, artifact.example_args, device) as args, \
+                torch.inference_mode(), ksched.use_schedules(artifact.schedules):
             for _ in range(self.warmup):
                 fn(*args)
             if device.type == "cuda":

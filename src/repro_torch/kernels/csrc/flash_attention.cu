@@ -28,13 +28,19 @@
 // Both are bound by operations: on the tensor cores, at 989 TFLOP/s in bf16
 // and, for fp32 to fp32 accuracy, split-TF32 at 495 / 3 = 165 TFLOP/s.
 //
-// Work split.  128 threads (4 warps) a block.  Each warp owns MT tiles of 16
-// query rows (Config: two at D <= 96, one above), so a row's softmax
-// statistics live in the 4 threads of one quad of one warp (rows g and g + 8
-// of a row tile, g = lane / 4) and are never repeated across warps, and each
-// K or V fragment a warp reads feeds MT MMAs.  KV tiles are 64 rows (32 in
-// fp32 with two row tiles).  Both products run on the tensor cores with
-// mma.sync:
+// Work split.  128 threads (4 warps) a block.  The tile pair comes from the
+// caller's kernel schedule (block_q, block_kv): a block takes BQ = 64 or 128
+// query rows, and each warp owns MT = BQ / 64 tiles of 16 of them, so a row's
+// softmax statistics live in the 4 threads of one quad of one warp (rows g
+// and g + 8 of a row tile, g = lane / 4) and are never repeated across warps,
+// and each K or V fragment a warp reads feeds MT MMAs.  KV tiles are BK = 32,
+// 64 or 128 rows.  A pair is built where it fits shared memory and the
+// registers (takes()); the wrapper maps a requested pair onto the largest
+// built one at or below it.  The named default schedule (128, 128) launches
+// the tiles this kernel had before it took schedules at the NAS and served
+// head dims: (128, 32) in fp32 and (128, 64) in bf16 at D = 80, (64, 64) at
+// D = 128.  Head dims above 128 (to 256) take one row tile.  Both products run on the tensor
+// cores with mma.sync:
 //   bf16: m16n8k16 with fp32 accumulation.  K fragments come from ldmatrix,
 //     V's from ldmatrix.trans, Q's from ldmatrix (once, into registers, at
 //     D > 96).  P goes from the Q K^T accumulator straight into the A fragment
@@ -60,8 +66,12 @@
 // dims past D are zero-filled by the copy (the head dim is padded to a
 // multiple of 16), and each shared row is padded by 16 bytes so that the
 // ldmatrix rows and the fp32 fragment loads are free of bank conflicts.
-// Shared memory: Q tile + 2 x (K + V) tiles: 169 KB in fp32 and 87 KB in bf16
-// at D=128 (one block a SM in fp32), 86 KB and 68 KB at D=80 (two blocks).
+// Shared memory: Q tile + 2 x (K + V) tiles (smem_bytes): with the default
+// tiles 169 KB in fp32 and 87 KB in bf16 at D=128 (one block a SM in fp32),
+// 86 KB and 68 KB at D=80 (two blocks); 195 KB in fp32 at D=256 with
+// (64, 32), where Q stays in shared memory and is read a k step at a time in
+// both dtypes, so that a thread's registers hold O (128 floats) and the
+// scores.
 // Masks are evaluated only on tiles that cross the diagonal, the window's
 // floor or T.
 //
@@ -75,7 +85,8 @@
 namespace {
 
 constexpr int THREADS = 128;  // 4 warps
-constexpr int DMAX = 128;
+constexpr int DMAX = 256;
+constexpr int MAX_SMEM = 232448;  // what one block may use on sm_90
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -182,22 +193,47 @@ struct Params {
   float scale;
 };
 
-// Tiles for head dim DK (D padded to a multiple of 16).  Each of the 4 warps
-// owns MT 16-row tiles of queries: two where D <= 96, so that every K and V
-// fragment a warp reads from shared memory feeds two MMAs, one at D > 96,
-// where two would not fit the registers (and the served shapes need the
-// blocks).  fp32 with two row tiles takes 32-row KV tiles, so that two blocks
-// still fit a SM's shared memory.  Shared rows are LD elements, 16 bytes
+// The head dim a kernel is built for: D padded to a multiple of 16 up to
+// 128, of 32 above (160, 192, 224, 256).
+__host__ __device__ constexpr int dk_of(int D) { return D <= 128 ? (D + 15) / 16 * 16 : (D + 31) / 32 * 32; }
+
+// Bytes of shared memory a block takes: the Q tile, then two stages of (K, V)
+// tiles, rows of DK elements padded by 16 bytes.
+__host__ __device__ constexpr int smem_bytes(int esize, int DK, int BQ, int BK) {
+  return (BQ + 4 * BK) * (DK + 16 / esize) * esize;
+}
+
+// Whether a (BQ, BK) tile pair is built for head dim DK in elements of esize
+// bytes: BQ = 64 MT query rows (MT 16-row tiles a warp, 1 or 2), BK KV rows.
+// It must fit one block's shared memory, and the registers: the fp32
+// accumulators a thread holds, MT (DK + BK) / 2 (its share of O and of the
+// scores), with the split operands of fp32 (8 a row tile) or bf16's Q
+// fragments (DK / 4, held at 96 < DK <= 128 with one row tile), at most 152
+// of the 255 a thread may have, leaving the rest to addresses and
+// temporaries.  That keeps two row tiles to DK <= 96 (fp32 with 32-row KV
+// tiles, bf16 with up to 64), as this kernel has had them since it moved to
+// the tensor cores.  repro_torch.kernels.ops.flash_takes is the same rule.
+__host__ __device__ constexpr bool takes(int esize, int DK, int BQ, int BK) {
+  const int mt = BQ / 64;
+  const int extra = esize == 4 ? 8 * mt : (mt == 1 && DK > 96 && DK <= 128 ? DK / 4 : 0);
+  return smem_bytes(esize, DK, BQ, BK) <= MAX_SMEM && mt * (DK + BK) / 2 + extra <= 152;
+}
+
+// Tiles for head dim DK and a (BQ, BK) tile pair.  Each of the 4 warps owns
+// MT 16-row tiles of queries, so that every K and V fragment a warp reads
+// from shared memory feeds MT MMAs.  Shared rows are LD elements, 16 bytes
 // longer than DK; the Q tile comes first, then two stages of (K, V) tiles.
-template <typename T, int DK>
+template <typename T, int DK, int BQ_, int BK_>
 struct Config {
   static constexpr bool BF16 = sizeof(T) == 2;
-  static constexpr int MT = DK <= 96 ? 2 : 1;
-  static constexpr int BQ = 4 * 16 * MT;
-  static constexpr int BK = (!BF16 && MT == 2) ? 32 : 64;
+  static constexpr int BQ = BQ_;
+  static constexpr int BK = BK_;
+  static constexpr int MT = BQ / 64;
   static constexpr int LD = DK + 16 / static_cast<int>(sizeof(T));
   static constexpr int TILE = BK * LD;
-  static constexpr size_t BYTES = static_cast<size_t>(BQ * LD + 4 * TILE) * sizeof(T);
+  static constexpr size_t BYTES = smem_bytes(sizeof(T), DK, BQ, BK);
+  static_assert(BQ == 64 * MT && (MT == 1 || MT == 2), "64 or 128 query rows");
+  static_assert(BYTES == static_cast<size_t>(BQ * LD + 4 * TILE) * sizeof(T), "layout");
 };
 
 // Issues the copies of rows [r0, r0 + ROWS) of a (rows, D) matrix with row
@@ -210,7 +246,7 @@ template <typename T, int DK, int LD, int ROWS>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride,
                                           int r0, int n_rows, int D) {
   constexpr int CH = DK / 4;
-  constexpr int LANES = CH <= 4 ? 4 : CH <= 8 ? 8 : CH <= 16 ? 16 : 32;
+  constexpr int LANES = CH <= 4 ? 4 : CH <= 8 ? 8 : CH <= 16 ? 16 : CH <= 32 ? 32 : 64;
   constexpr int STEP = THREADS / LANES;  // rows a pass
   const int c = 4 * (threadIdx.x % LANES);
   if (c >= DK) return;
@@ -227,9 +263,9 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride
   }
 }
 
-template <typename T, int DK>
+template <typename T, int DK, int BQ_, int BK_>
 __global__ void __launch_bounds__(THREADS) flash_fwd(const Params p) {
-  using C = Config<T, DK>;
+  using C = Config<T, DK, BQ_, BK_>;
   constexpr bool BF16 = C::BF16;
   constexpr int MT = C::MT;
   constexpr int BQ = C::BQ;
@@ -274,10 +310,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(const Params p) {
   __syncthreads();
 
   const T* qw = qs + warp * 16 * MT * LD;  // this warp's query rows
-  // bf16: Q's A fragments.  Held in registers at D > 96, where shared memory
-  // already limits a SM to two blocks; below that, read at each k step, so
-  // that fewer registers let more blocks share the SM.
-  constexpr bool Q_REGS = BF16 && DK > 96;
+  // bf16: Q's A fragments.  Held in registers with one row tile at
+  // 96 < D <= 128, where shared memory already limits a SM to two blocks;
+  // otherwise read at each k step, so that fewer registers let more blocks
+  // share the SM (and, above 128, leave room for O).
+  constexpr bool Q_REGS = BF16 && MT == 1 && DK > 96 && DK <= 128;
   uint32_t qf[Q_REGS ? DK / 16 : 1][4];
   if constexpr (Q_REGS) {
 #pragma unroll
@@ -512,47 +549,81 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(const Params p) {
 
 constexpr int MAX_DEVICES = 64;
 
-template <typename T, int DK>
-cudaError_t launch_dk(const Params& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = Config<T, DK>::BYTES;
+template <typename T, int DK, int BQ, int BK>
+cudaError_t launch_tiles(const Params& p, int B, cudaStream_t stream) {
+  if constexpr (!takes(sizeof(T), DK, BQ, BK)) {
+    return cudaErrorInvalidValue;
+  } else {
+  constexpr size_t smem = Config<T, DK, BQ, BK>::BYTES;
   // the shared-memory limit above 48 KB is set once a device
   static bool configured[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= MAX_DEVICES || !configured[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd<T, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    err = cudaFuncSetAttribute(flash_fwd<T, DK, BQ, BK>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     if (dev >= 0 && dev < MAX_DEVICES) configured[dev] = true;
   }
-  constexpr int BQ = Config<T, DK>::BQ;
   const dim3 grid((p.S + BQ - 1) / BQ, p.H, B);
-  flash_fwd<T, DK><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd<T, DK, BQ, BK><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+  }
+}
+
+template <typename T, int DK>
+cudaError_t launch_dk(const Params& p, int B, int bq, int bk, cudaStream_t stream) {
+  if (bq == 64) {
+    if (bk == 32) return launch_tiles<T, DK, 64, 32>(p, B, stream);
+    if (bk == 64) return launch_tiles<T, DK, 64, 64>(p, B, stream);
+    if (bk == 128) return launch_tiles<T, DK, 64, 128>(p, B, stream);
+  } else if (bq == 128) {
+    if (bk == 32) return launch_tiles<T, DK, 128, 32>(p, B, stream);
+    if (bk == 64) return launch_tiles<T, DK, 128, 64>(p, B, stream);
+    if (bk == 128) return launch_tiles<T, DK, 128, 128>(p, B, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  switch ((p.D + 15) / 16) {
-    case 1: return launch_dk<T, 16>(p, B, stream);
-    case 2: return launch_dk<T, 32>(p, B, stream);
-    case 3: return launch_dk<T, 48>(p, B, stream);
-    case 4: return launch_dk<T, 64>(p, B, stream);
-    case 5: return launch_dk<T, 80>(p, B, stream);
-    case 6: return launch_dk<T, 96>(p, B, stream);
-    case 7: return launch_dk<T, 112>(p, B, stream);
-    default: return launch_dk<T, 128>(p, B, stream);
+cudaError_t launch(const Params& p, int B, int bq, int bk, cudaStream_t stream) {
+  switch (dk_of(p.D)) {
+    case 16: return launch_dk<T, 16>(p, B, bq, bk, stream);
+    case 32: return launch_dk<T, 32>(p, B, bq, bk, stream);
+    case 48: return launch_dk<T, 48>(p, B, bq, bk, stream);
+    case 64: return launch_dk<T, 64>(p, B, bq, bk, stream);
+    case 80: return launch_dk<T, 80>(p, B, bq, bk, stream);
+    case 96: return launch_dk<T, 96>(p, B, bq, bk, stream);
+    case 112: return launch_dk<T, 112>(p, B, bq, bk, stream);
+    case 128: return launch_dk<T, 128>(p, B, bq, bk, stream);
+    case 160: return launch_dk<T, 160>(p, B, bq, bk, stream);
+    case 192: return launch_dk<T, 192>(p, B, bq, bk, stream);
+    case 224: return launch_dk<T, 224>(p, B, bq, bk, stream);
+    case 256: return launch_dk<T, 256>(p, B, bq, bk, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// Whether the kernel is built for head dim D (a multiple of 4 up to 256) in
+// dtype (0 = float32, 1 = bfloat16) with block_q query rows and block_kv KV
+// rows a tile (block_q 64 or 128, block_kv 32, 64 or 128; see takes()).
+extern "C" int repro_flash_attention_takes(int D, int dtype, int block_q, int block_kv) {
+  if (D <= 0 || D > DMAX || D % 4 != 0 || (dtype != 0 && dtype != 1)) return 0;
+  if ((block_q != 64 && block_q != 128) || (block_kv != 32 && block_kv != 64 && block_kv != 128))
+    return 0;
+  return takes(dtype == 0 ? 4 : 2, dk_of(D), block_q, block_kv) ? 1 : 0;
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  The caller guarantees D % 4 == 0,
-// D <= 128, H % KH == 0, a contiguous head dim, strides that are multiples
-// of 4 and pointers aligned to 4 elements.  The output is written in the
-// input dtype once.  Returns the launch's error (0 on success); the launch
-// does not synchronise.
+// D <= 256, H % KH == 0, a contiguous head dim, strides that are multiples
+// of 4 and pointers aligned to 4 elements, and a tile pair (block_q,
+// block_kv) that repro_flash_attention_takes accepts.  The output is written
+// in the input dtype once.  Returns the launch's error (0 on success;
+// cudaErrorInvalidValue for a tile pair not built); the launch does not
+// synchronise.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int B, int S, int T, int H, int KH, int D,
@@ -560,8 +631,9 @@ extern "C" int repro_flash_attention_fwd(
     long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
-    int causal, int window, float scale, void* stream) {
-  if (D % 4 != 0 || D > DMAX || D <= 0 || KH <= 0 || H % KH != 0) {
+    int causal, int window, float scale, int block_q, int block_kv, void* stream) {
+  if (D % 4 != 0 || D > DMAX || D <= 0 || KH <= 0 || H % KH != 0 ||
+      !repro_flash_attention_takes(D, dtype, block_q, block_kv)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p{q, k, v, o, S, T, H, KH, D,
@@ -569,7 +641,7 @@ extern "C" int repro_flash_attention_fwd(
            o_sb, o_ss, o_sh, causal, window, scale};
   if (S <= 0 || B <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch<float>(p, B, s));
-  if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16>(p, B, s));
+  if (dtype == 0) return static_cast<int>(launch<float>(p, B, block_q, block_kv, s));
+  if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16>(p, B, block_q, block_kv, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

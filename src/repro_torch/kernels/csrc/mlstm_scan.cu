@@ -182,6 +182,14 @@ __device__ __forceinline__ float get(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
+// acc += t, element by element
+__device__ __forceinline__ void add_tile(float (&acc)[4][4], const float (&t)[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] += t[r][c];
+}
+
 // ===========================================================================
 // fp32: the chunk's products on the CUDA cores, in the plain version's order
 // ===========================================================================
@@ -221,10 +229,14 @@ __host__ __device__ inline long long scratch_floats(int B, int L, int H, int P, 
 }
 
 __host__ inline int panel_smem(int Q) { return 4 * (5 * round_up(Q, RB) + 2 * KT * LDA); }
+// STREAM: the chunk's v columns come through a two-stage ring of KT-row
+// tiles beside the staged A tiles, in place of all Q rows staged at once, so
+// that shared memory no longer grows with the chunk's rows times TV.
+template <bool STREAM>
 __host__ inline int state_smem(int P, int Q) {
   const int p128 = round_up(P, RB2);
-  return 4 * (p128 * TV + p128 + round_up(Q, KT) * TV + 2 * KT * LDA2 + 4 * round_up(Q, RB) +
-              THREADS);
+  const int vrows = STREAM ? 2 * KT : round_up(Q, KT);
+  return 4 * (p128 * TV + p128 + vrows * TV + 2 * KT * LDA2 + 4 * round_up(Q, RB) + THREADS);
 }
 
 // dst[pp][ii] = src[(r0 + ii) * rs + p0 + pp] for a 64-row, KT-column tile
@@ -247,6 +259,10 @@ __device__ __forceinline__ void stage_transposed(float* dst, const float* src, l
 // pass 1: the chunk's panel and per-row scalars
 // ---------------------------------------------------------------------------
 
+// BLOCKED (the chunks above 416 at P = 1024, which also stream v in pass 2):
+// each staged tile's products go into a fresh accumulator added to the
+// total, so a long sum's rounding grows with its tiles, not its terms.
+template <bool BLOCKED>
 __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
   extern __shared__ float smem[];
   const int Q = p.Q, q64 = round_up(Q, RB);
@@ -367,6 +383,8 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
         stage_transposed(As, qp, p.q_sl, i0, Q, p0, p.P);
         stage_transposed(Bs, kp, p.k_sl, j0, Q, p0, p.P);
         __syncthreads();
+        float blk[4][4] = {};
+        float (&sum)[4][4] = BLOCKED ? blk : acc;
 #pragma unroll 8
         for (int kk = 0; kk < KT; ++kk) {
           const float4 a = *reinterpret_cast<const float4*>(As + kk * LDA + 4 * ty);
@@ -374,12 +392,13 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             const float ar = get(a, r);
-            acc[r][0] += ar * bv.x;
-            acc[r][1] += ar * bv.y;
-            acc[r][2] += ar * bv.z;
-            acc[r][3] += ar * bv.w;
+            sum[r][0] += ar * bv.x;
+            sum[r][1] += ar * bv.y;
+            sum[r][2] += ar * bv.z;
+            sum[r][3] += ar * bv.w;
           }
         }
+        if constexpr (BLOCKED) add_tile(acc, blk);
         __syncthreads();
       }
 #pragma unroll
@@ -478,14 +497,52 @@ __device__ __forceinline__ void pipeline(float* As, int n, Fetch fetch, Put put,
   }
 }
 
+// The same, with the KT x TV tile s of v (rows j0 + s KT of vsrc, which
+// points at the chunk's column t0) staged beside A in a ring of its own:
+// body(A, V, s).  One quad of v a thread.
+template <class Fetch, class Put, class Body>
+__device__ __forceinline__ void pipeline_v(float* As, float* Vr, const float* vsrc, long long v_sl,
+                                           int Q, int cols, int n, Fetch fetch, Put put,
+                                           Body body) {
+  const int jj = threadIdx.x / (TV / 4), col = 4 * (threadIdx.x % (TV / 4));
+  Tile4 t;
+  float4 vq;
+  auto fetch_v = [&](int s) {
+    const int j = s * KT + jj;
+    vq = (j < Q && col < cols) ? load4(vsrc + (long long)j * v_sl + col)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  auto put_v = [&](int buf) {
+    *reinterpret_cast<float4*>(Vr + buf * KT * TV + jj * TV + col) = vq;
+  };
+  fetch(t, 0);
+  fetch_v(0);
+  put(t, As);
+  put_v(0);
+  __syncthreads();
+  for (int s = 0; s < n; ++s) {
+    if (s + 1 < n) {
+      fetch(t, s + 1);
+      fetch_v(s + 1);
+    }
+    body(As + (s & 1) * KT * LDA2, Vr + (s & 1) * KT * TV, s);
+    if (s + 1 < n) {
+      put(t, As + ((s + 1) & 1) * KT * LDA2);
+      put_v((s + 1) & 1);
+    }
+    __syncthreads();
+  }
+}
+
+template <bool STREAM>
 __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
   extern __shared__ float smem[];
   const int Q = p.Q, P = p.P;
   const int q64 = round_up(Q, RB), q32 = round_up(Q, KT), p128 = round_up(P, RB2);
   float* Cs = smem;               // (p128, TV): this block's columns of C
   float* ns = Cs + p128 * TV;     // (p128,)
-  float* vs = ns + p128;          // (q32, TV): the chunk's v columns
-  float* As = vs + q32 * TV;      // 2 x (KT, LDA2)
+  float* vs = ns + p128;          // (q32, TV): the chunk's v columns; STREAM: 2 x (KT, TV)
+  float* As = vs + (STREAM ? 2 * KT : q32) * TV;  // 2 x (KT, LDA2)
   float* rs = As + 2 * KT * LDA2; // (4, q64): the chunk's row scalars
   float* red = rs + 4 * q64;      // (THREADS,): q . n partials
 
@@ -510,22 +567,44 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
     const float* kc = kb + l0 * p.k_sl;
     __syncthreads();  // the previous chunk is done with vs, rs, ns and As
     for (int e = tid; e < 4 * q64; e += THREADS) rs[e] = p.rows[chunk_id * 4 * q64 + e];
-    for (int e = tid; e < q32 * (TV / 4); e += THREADS) {
-      const int j = e / (TV / 4), col = 4 * (e % (TV / 4));
-      float4 x = zero;
-      if (j < Q && t0 + col < P) x = load4(vb + (l0 + j) * p.v_sl + t0 + col);
-      *reinterpret_cast<float4*>(vs + j * TV + col) = x;
+    if constexpr (!STREAM) {
+      for (int e = tid; e < q32 * (TV / 4); e += THREADS) {
+        const int j = e / (TV / 4), col = 4 * (e % (TV / 4));
+        float4 x = zero;
+        if (j < Q && t0 + col < P) x = load4(vb + (l0 + j) * p.v_sl + t0 + col);
+        *reinterpret_cast<float4*>(vs + j * TV + col) = x;
+      }
     }
     const float carry = p.carry[chunk_id];
     __syncthreads();
+    // acc += A^T B over a staged tile (STREAM: through a fresh accumulator)
+    auto product = [&](float (&acc)[4][4], const float* A, const float* B) {
+      if constexpr (STREAM) {
+        float blk[4][4] = {};
+        mma_tile(blk, A, B, ty, tx);
+        add_tile(acc, blk);
+      } else {
+        mma_tile(acc, A, B, ty, tx);
+      }
+    };
+    // a contraction whose B operand is the chunk's v: body(A, V, s) with V
+    // the KT x TV tile s of v, staged whole or through its ring
+    auto with_v = [&](int n, auto fetch, auto put, auto body) {
+      if constexpr (STREAM) {
+        pipeline_v(As, vs, vb + l0 * p.v_sl + t0, p.v_sl, Q, P - t0, n, fetch, put, body);
+      } else {
+        pipeline(As, n, fetch, put,
+                 [&](const float* A, int s) { body(A, vs + s * KT * TV, s); });
+      }
+    };
 
     // h, 128 rows of the chunk at a time
     for (int i0 = 0; i0 < Q; i0 += RB2) {
       float ai[4][4] = {}, ae[4][4] = {};
       // intra: S v over the columns j < i0 + 128 (S is 0 above the diagonal
       // and past Q; the panel's rows are zero-padded to q64)
-      pipeline(
-          As, (min(Q, i0 + RB2) + KT - 1) / KT,
+      with_v(
+          (min(Q, i0 + RB2) + KT - 1) / KT,
           [&](Tile4& t, int s) {
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
@@ -535,7 +614,7 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
                                      : zero;
             }
           },
-          put_rows, [&](const float* A, int s) { mma_tile(ai, A, vs + s * KT * TV, ty, tx); });
+          put_rows, [&](const float* A, const float* V, int) { product(ai, A, V); });
       // inter: q C and q . n over P
       float qn = 0.f;
       const int row = tid % RB2, half = tid / RB2;  // q . n: 16 of a tile's 32 steps
@@ -552,7 +631,7 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
           },
           put_transposed,
           [&](const float* A, int s) {
-            mma_tile(ae, A, Cs + s * KT * TV, ty, tx);
+            product(ae, A, Cs + s * KT * TV);
 #pragma unroll
             for (int kk = 16 * half; kk < 16 * half + 16; ++kk)
               qn += A[kk * LDA2 + row] * ns[s * KT + kk];
@@ -576,8 +655,8 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
     // the state update, 128 rows of P at a time: C <- carry C + (k w)^T v
     for (int pr0 = 0; pr0 < P; pr0 += RB2) {
       float acc[4][4] = {};
-      pipeline(
-          As, (Q + KT - 1) / KT,
+      with_v(
+          (Q + KT - 1) / KT,
           [&](Tile4& t, int s) {
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
@@ -592,7 +671,7 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
               t.r[u] = x;
             }
           },
-          put_rows, [&](const float* A, int s) { mma_tile(acc, A, vs + s * KT * TV, ty, tx); });
+          put_rows, [&](const float* A, const float* V, int) { product(acc, A, V); });
       // rows of C are this thread's alone
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -607,18 +686,29 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
   }
 }
 
+// Whether a chunk of Q rows streams v (the chunks whose whole v columns do
+// not fit beside C: above 416 at P = 1024).  Those chunks also sum each
+// staged tile's products apart (BLOCKED): over 512 or 1024 terms a running
+// fp32 sum drifts from the float64 plain version by several times the
+// tolerance.  The chunks below keep their arithmetic bit for bit.
+__host__ inline bool streams(int P, int Q) { return state_smem<false>(P, Q) > MAX_SMEM; }
+__host__ inline bool fits(int P, int Q) {
+  return panel_smem(Q) <= MAX_SMEM && state_smem<true>(P, Q) <= MAX_SMEM;
+}
+
+template <bool STREAM>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  const int smem1 = panel_smem(p.Q), smem2 = state_smem(p.P, p.Q);
-  cudaError_t err = cudaFuncSetAttribute(mlstm_chunk_panel,
+  const int smem1 = panel_smem(p.Q), smem2 = state_smem<STREAM>(p.P, p.Q);
+  cudaError_t err = cudaFuncSetAttribute(mlstm_chunk_panel<STREAM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(mlstm_chunk_state, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem2);
+  err = cudaFuncSetAttribute(mlstm_chunk_state<STREAM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_chunk_panel<<<dim3(p.nc, p.H, B), THREADS, smem1, stream>>>(p);
+  mlstm_chunk_panel<STREAM><<<dim3(p.nc, p.H, B), THREADS, smem1, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_chunk_state<<<dim3((p.P + TV - 1) / TV, p.H, B), THREADS, smem2, stream>>>(p);
+  mlstm_chunk_state<STREAM><<<dim3((p.P + TV - 1) / TV, p.H, B), THREADS, smem2, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -956,10 +1046,15 @@ struct State {
 // warp's B fragments read fall on different banks
 __device__ __forceinline__ int swz(int p) { return ((p >> 1) & 3) << 3; }
 
-template <typename T>
+// STREAM: w v is computed a staged k tile at a time, into the ring stage
+// beside that tile (KJ rows, 5 KB in bf16), in place of all Q rows at once,
+// so that shared memory no longer grows with the chunk's rows times TV.
+template <typename T, bool STREAM>
 __host__ inline int state_smem(int P, int Q) {
+  static_assert(State<T>::K_BYTES + 2 * State<T>::KJ * LDV * 2 <= State<T>::STAGE_BYTES,
+                "a streamed w v tile fits the ring stage beside its k tile");
   const int pp = round_up(P, 64), q32 = round_up(Q, 32), qr = round_up(Q, RB);
-  return 4 * (pp * TV + pp) + q32 * LDV * 4 + 4 * (3 * qr + THREADS2) +
+  return 4 * (pp * TV + pp) + (STREAM ? 0 : q32 * LDV * 4) + 4 * (3 * qr + THREADS2) +
          2 * State<T>::STAGE_BYTES;
 }
 
@@ -984,7 +1079,7 @@ __device__ __forceinline__ void pipeline(int n, Issue issue, Body body) {
   }
 }
 
-template <typename T>
+template <typename T, bool STREAM>
 __global__ void __launch_bounds__(THREADS2, 1) mlstm_chunk_state(Params p) {
   using Cfg = State<T>;
   constexpr int KS = Cfg::KS, LDQ = Cfg::LDQ, LDS = Cfg::LDS, KJ = Cfg::KJ, LDK = Cfg::LDK;
@@ -995,10 +1090,11 @@ __global__ void __launch_bounds__(THREADS2, 1) mlstm_chunk_state(Params p) {
   float* Cs = reinterpret_cast<float*>(smem);  // (pp, TV): this block's columns of C
   float* ns = Cs + pp * TV;                    // (pp,)
   // (q32, LDV): w_j P^-1/2 v_j as two bf16 terms, hi (q32, LDV), then lo
+  // (STREAM: none here; the ring stage of each k tile holds its rows)
   float* wvf = ns + pp;
   __nv_bfloat16* wvh = reinterpret_cast<__nv_bfloat16*>(wvf);
   __nv_bfloat16* wvl = wvh + q32 * LDV;
-  float* rsum = wvf + q32 * LDV;  // (qr,): row sums of S
+  float* rsum = wvf + (STREAM ? 0 : q32 * LDV);  // (qr,): row sums of S
   float* riw = rsum + qr;         // (qr,): exp(b - m)
   float* re = riw + qr;           // (qr,): exp(-m)
   float* red = re + qr;           // (THREADS2,): q . n halves
@@ -1040,19 +1136,22 @@ __global__ void __launch_bounds__(THREADS2, 1) mlstm_chunk_state(Params p) {
       riw[i] = iw;
       re[i] = e;
     }
-    for (int e = tid; e < q32 * (TV / 4); e += THREADS2) {
-      const int j = e / (TV / 4), col = 4 * (e % (TV / 4));
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (j < Q && t0 + col < P) x = load4(vc + j * p.v_sl + t0 + col);
-      const float w = j < Q ? scal[2 * q64 + j] * p.scale : 0.f;
-      x = make_float4(x.x * w, x.y * w, x.z * w, x.w * w);
-      uint32_t h01, l01, h23, l23;
-      split_bf16(x.x, x.y, h01, l01);
-      split_bf16(x.z, x.w, h23, l23);
-      *reinterpret_cast<uint2*>(wvh + j * LDV + col) = make_uint2(h01, h23);
-      *reinterpret_cast<uint2*>(wvl + j * LDV + col) = make_uint2(l01, l23);
-    
-    }
+    // rows [j0, j0 + rows) of w v into (hi, lo) rows of LDV elements
+    auto fill_wv = [&](__nv_bfloat16* hi, __nv_bfloat16* lo, int j0, int rows) {
+      for (int e = tid; e < rows * (TV / 4); e += THREADS2) {
+        const int r = e / (TV / 4), j = j0 + r, col = 4 * (e % (TV / 4));
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (j < Q && t0 + col < P) x = load4(vc + j * p.v_sl + t0 + col);
+        const float w = j < Q ? scal[2 * q64 + j] * p.scale : 0.f;
+        x = make_float4(x.x * w, x.y * w, x.z * w, x.w * w);
+        uint32_t h01, l01, h23, l23;
+        split_bf16(x.x, x.y, h01, l01);
+        split_bf16(x.z, x.w, h23, l23);
+        *reinterpret_cast<uint2*>(hi + r * LDV + col) = make_uint2(h01, h23);
+        *reinterpret_cast<uint2*>(lo + r * LDV + col) = make_uint2(l01, l23);
+      }
+    };
+    if constexpr (!STREAM) fill_wv(wvh, wvl, 0, q32);
     const float carry = p.carry[chunk_id];
 
     // h, RB rows of the chunk at a time
@@ -1208,13 +1307,22 @@ __global__ void __launch_bounds__(THREADS2, 1) mlstm_chunk_state(Params p) {
           (Q + KJ - 1) / KJ,
           [&](int s, int buf) {
             const int j0 = s * KJ;
-            stage<THREADS2, KJ, PB, LDK>(reinterpret_cast<T*>(ring + buf * Cfg::STAGE_BYTES),
-                                         kc + (long long)j0 * p.k_sl + p0, p.k_sl,
+            T* kd = reinterpret_cast<T*>(ring + buf * Cfg::STAGE_BYTES);
+            stage<THREADS2, KJ, PB, LDK>(kd, kc + (long long)j0 * p.k_sl + p0, p.k_sl,
                                          [&](int r, int cc) { return j0 + r < Q && p0 + cc < P; });
+            if constexpr (STREAM) {
+              // plain stores: the barrier before this stage is read orders them
+              __nv_bfloat16* hi = reinterpret_cast<__nv_bfloat16*>(kd + KJ * LDK);
+              fill_wv(hi, hi + KJ * LDV, j0, KJ);
+            }
           },
           [&](int s, int buf) {
             const T* K = reinterpret_cast<const T*>(ring + buf * Cfg::STAGE_BYTES) + pw;
-            const int j0 = s * KJ;
+            // w v's rows of this tile: STREAM, in the stage; else at row j0
+            const __nv_bfloat16* wh =
+                STREAM ? reinterpret_cast<const __nv_bfloat16*>(K - pw + KJ * LDK) : wvh;
+            const __nv_bfloat16* wl = STREAM ? wh + KJ * LDV : wvl;
+            const int j0 = s * KJ, jw = STREAM ? 0 : j0;
             if (!rows_ok) return;
 #pragma unroll
             for (int kk = 0; kk < KJ / 16; ++kk) {
@@ -1225,11 +1333,11 @@ __global__ void __launch_bounds__(THREADS2, 1) mlstm_chunk_state(Params p) {
                                              16 * mt + ((lane >> 3) & 1) * 8);
 #pragma unroll
               for (int nt = 0; nt < 4; nt += 2) {
-                const int off = (j0 + 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
+                const int off = (jw + 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
                                 nt * 8 + (lane >> 4) * 8;
                 uint32_t bh[4], bl[4];
-                ldmatrix_x4_trans(bh, wvh + off);
-                ldmatrix_x4_trans(bl, wvl + off);
+                ldmatrix_x4_trans(bh, wh + off);
+                ldmatrix_x4_trans(bl, wl + off);
 #pragma unroll
                 for (int mt = 0; mt < 2; ++mt) {
                   mma_bf16(acc[mt][nt], a[mt], bl[0], bl[1]);
@@ -1265,21 +1373,30 @@ __global__ void __launch_bounds__(THREADS2, 1) mlstm_chunk_state(Params p) {
   }
 }
 
+// Whether a chunk of Q rows streams w v (the chunks whose whole w v does not
+// fit beside C: above 256 at P = 1024); both forms compute the same products.
 template <typename T>
+__host__ inline bool streams(int P, int Q) { return state_smem<T, false>(P, Q) > MAX_SMEM; }
+template <typename T>
+__host__ inline bool fits(int P, int Q) {
+  return panel_smem<T>(Q) <= MAX_SMEM && state_smem<T, true>(P, Q) <= MAX_SMEM;
+}
+
+template <typename T, bool STREAM>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  const int smem1 = panel_smem<T>(p.Q), smem2 = state_smem<T>(p.P, p.Q);
+  const int smem1 = panel_smem<T>(p.Q), smem2 = state_smem<T, STREAM>(p.P, p.Q);
   if (smem1 > MAX_SMEM || smem2 > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(mlstm_chunk_panel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(mlstm_chunk_state<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem2);
+  err = cudaFuncSetAttribute(mlstm_chunk_state<T, STREAM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = round_up(p.Q, TILE) / TILE;
   mlstm_chunk_panel<T><<<dim3(tiles * (tiles + 1) / 2, p.nc, B * p.H), THREADS1, smem1, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_chunk_state<T><<<dim3((p.P + TV - 1) / TV, p.H, B), THREADS2, smem2, stream>>>(p);
+  mlstm_chunk_state<T, STREAM><<<dim3((p.P + TV - 1) / TV, p.H, B), THREADS2, smem2, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1302,9 +1419,11 @@ extern "C" long long repro_mlstm_scan_scratch_floats(int B, int L, int H, int P,
 // 1024, that Q divides L, and that scratch holds
 // repro_mlstm_scan_scratch_floats(B, L, H, P, Q) floats; h is (B, L, H, P)
 // contiguous.  Returns cudaErrorInvalidValue for sizes it does not take (also
-// a chunk whose state pass does not fit one block's shared memory: at
-// P = 1024, above 416 in fp32 and above 256 in bf16), else cudaGetLastError()
-// after the launches (0 on success); the launches do not synchronise.
+// a chunk whose state pass does not fit one block's shared memory even with
+// v streamed: at P = 1024 every chunk up to 2048 fits in both dtypes), else
+// cudaGetLastError() after the launches (0 on success); the launches do not
+// synchronise.  Chunks above 416 (fp32) or 256 (bf16) at P = 1024 stream v
+// through the ring rather than staging the chunk's columns whole.
 extern "C" int repro_mlstm_scan_fwd(
     const void* q, const void* k, const void* v, const void* i_log, const void* f_log,
     void* h, void* scratch, int dtype, int B, int L, int H, int P, int Q,
@@ -1327,14 +1446,13 @@ extern "C" int repro_mlstm_scan_fwd(
   const float* fg = static_cast<const float*>(f_log);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (simt::panel_smem(Q) > MAX_SMEM || simt::state_smem(P, Q) > MAX_SMEM)
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (!simt::fits(P, Q)) return static_cast<int>(cudaErrorInvalidValue);
     float* rows = base + chunks * q64 * q64;
     float* u = rows + chunks * 4 * q64;
     simt::Params p{q, k, v, ig, fg, h, base, rows, u, u + chunks * P, L, H, P, Q, nc, scale,
                    q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
                    i_sb, i_sl, i_sh, f_sb, f_sl, f_sh};
-    return simt::launch(p, B, s);
+    return simt::streams(P, Q) ? simt::launch<true>(p, B, s) : simt::launch<false>(p, B, s);
   }
   if (nc > 65535 || (long long)B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
   float* rowpart = base + chunks * q64 * q64;
@@ -1343,5 +1461,7 @@ extern "C" int repro_mlstm_scan_fwd(
   tc::Params p{q, k, v, ig, fg, h, base, rowpart, scal, u, u + chunks * P, L, H, P, Q, nc, scale,
                q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
                i_sb, i_sl, i_sh, f_sb, f_sl, f_sh};
-  return tc::launch<__nv_bfloat16>(p, B, s);
+  using BF = __nv_bfloat16;
+  if (!tc::fits<BF>(P, Q)) return static_cast<int>(cudaErrorInvalidValue);
+  return tc::streams<BF>(P, Q) ? tc::launch<BF, true>(p, B, s) : tc::launch<BF, false>(p, B, s);
 }

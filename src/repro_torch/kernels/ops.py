@@ -1,12 +1,28 @@
 """Checked wrappers around the CUDA kernels (flash attention, the SSD scan,
 the mLSTM scan).
 
-A wrapper checks device, dtype, shape and layout, then:
+Each public op first resolves its kernel schedule as the JAX package's
+``kernels/ops.py`` does, with the same precedence:
+
+  explicit ``schedule=``  >  active ``use_schedules`` context
+      >  legacy block/chunk kwargs  >  the named ``default`` schedule.
+
+Legacy kwargs stay unvalidated (call sites derive them from shapes, e.g. a
+decrement-clamped chunk); the effective schedule clamps the blocks to the
+sequence and halves a chunk until it divides the sequence, and every call
+is recorded through :func:`repro_torch.kernels.schedule.note_kernel_call`
+with its requested and effective schedules and the tiles it launches.
+The CUDA flash kernel is built for a set of tile pairs at each head dim
+(:func:`flash_takes`); :func:`flash_launch_tiles` maps the effective blocks
+onto the largest built pair at or below them.  Then the wrapper checks
+device, dtype, shape and layout, and:
 
 * on CPU tensors, runs the kernel's plain PyTorch version from
   :mod:`repro_torch.kernels.ref` (that is how the CPU tests reach it);
 * on CUDA tensors, launches the kernel on the current stream, or raises.
-  There is no fallback: a failed build or launch is an error.
+  There is no fallback: a failed build or launch is an error;
+* on ``meta`` tensors (the autotuner's discovery pass), returns empty
+  outputs of the right shapes: nothing is computed or launched.
 
 ``LAUNCHES[name]`` counts the kernel launches each wrapper made, so a
 run can show that its main path went through the kernels.
@@ -21,11 +37,88 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import schedule as ksched
+from repro_torch.kernels.schedule import KernelSchedule
 
 LAUNCHES: collections.Counter = collections.Counter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_FLASH_MAX_D = 128
+_FLASH_MAX_D = 256
+
+
+def _resolve(kernel, schedule, legacy):
+    """The precedence in the module docstring; returns a fully populated
+    (every size field set) KernelSchedule."""
+    if schedule is not None:
+        return ksched.as_schedule(kernel, schedule)
+    active = ksched.active_schedule(kernel)
+    if active is not None:
+        return active
+    legacy = {k: v for k, v in legacy.items() if v is not None}
+    if legacy:
+        # call-site kwargs: unvalidated by design (shape-derived values)
+        return KernelSchedule(**legacy).merged_over(ksched.default_schedule(kernel))
+    return ksched.default_schedule(kernel)
+
+
+# both pure: cached, since a served prefill calls the wrapper once a layer
+# and the kernel at short prompts is shorter than the wrapper's host path
+_effective = functools.lru_cache(maxsize=4096)(ksched.effective_schedule)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """A dtype as the JAX package names it ("float32", "bfloat16")."""
+    return str(dtype).replace("torch.", "")
+
+
+# the tile pairs the CUDA flash kernel is instantiated for, before the
+# shared-memory and register rule of flash_takes
+FLASH_Q_TILES = (64, 128)
+FLASH_KV_TILES = (32, 64, 128)
+_MAX_SMEM = 232448
+
+
+def _flash_dk(d: int) -> int:
+    """The head dim the kernel is built for: D padded to a multiple of 16 up
+    to 128, of 32 above."""
+    return -(-d // 16) * 16 if d <= 128 else -(-d // 32) * 32
+
+
+def flash_takes(d: int, dtype: torch.dtype, block_q: int, block_kv: int) -> bool:
+    """Whether the CUDA flash kernel is built for head dim ``d`` in ``dtype``
+    with (``block_q``, ``block_kv``) tiles: the pair must fit one block's
+    shared memory (the Q tile and two stages of K and V tiles, rows padded
+    by 16 bytes) and the registers (the fp32 accumulators a thread holds,
+    ``MT (DK + BK) / 2`` with MT = block_q / 64, plus fp32's split operands
+    or bf16's held Q fragments, at most 152).  ``takes()`` in
+    ``csrc/flash_attention.cu`` is the same rule; ``chip_smoke.py`` holds
+    the two to each other."""
+    if dtype not in _DTYPES or d <= 0 or d % 4 or d > _FLASH_MAX_D:
+        return False
+    if block_q not in FLASH_Q_TILES or block_kv not in FLASH_KV_TILES:
+        return False
+    es, dk, mt = (4 if dtype == torch.float32 else 2), _flash_dk(d), block_q // 64
+    extra = 8 * mt if es == 4 else (dk // 4 if mt == 1 and 96 < dk <= 128 else 0)
+    smem = (block_q + 4 * block_kv) * (dk + 16 // es) * es
+    return smem <= _MAX_SMEM and mt * (dk + block_kv) // 2 + extra <= 152
+
+
+@functools.lru_cache(maxsize=None)
+def flash_launch_tiles(block_q: int, block_kv: int, d: int, dtype: torch.dtype):
+    """The (block_q, block_kv) tile pair the CUDA kernel launches for an
+    effective schedule: the largest query tile it is built for at or below
+    ``block_q`` (the smallest where none is), then the largest KV tile built
+    with it at or below ``block_kv`` (likewise).  None for a head dim or
+    dtype the kernel does not take."""
+    pairs = [(bq, bk) for bq in FLASH_Q_TILES for bk in FLASH_KV_TILES
+             if flash_takes(d, dtype, bq, bk)]
+    if not pairs:
+        return None
+    qs = sorted({bq for bq, _ in pairs})
+    bq = max((q for q in qs if q <= block_q), default=qs[0])
+    ks = sorted(bk for q, bk in pairs if q == bq)
+    bk = max((k for k in ks if k <= block_kv), default=ks[0])
+    return bq, bk
 
 
 def bind_flash(lib: ctypes.CDLL):
@@ -33,7 +126,18 @@ def bind_flash(lib: ctypes.CDLL):
     fn = lib.repro_flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bind_flash_takes(lib: ctypes.CDLL):
+    """``repro_flash_attention_takes(D, dtype, block_q, block_kv)`` of a
+    built ``flash_attention.cu``, typed: the kernel's own answer to
+    :func:`flash_takes`."""
+    fn = lib.repro_flash_attention_takes
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
     return fn
 
@@ -46,11 +150,14 @@ def _flash_fn():
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None, block_q: Optional[int] = None,
+                    block_kv: Optional[int] = None,
+                    schedule: Optional[KernelSchedule] = None) -> torch.Tensor:
     """q: (B, S, H, D); k/v: (B, T, KH, D) [model layout] -> (B, S, H, D).
 
     GQA when H is a multiple of KH (kv head = h // (H // KH)).  Masks are
     those of :func:`repro_torch.nn.attention.make_mask` with no q offset.
+    The tiles come from the resolved schedule (module docstring).
     """
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B,S,H,D) and k, v (B,T,KH,D); got "
@@ -66,8 +173,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"devices differ: {q.device}, {k.device}, {v.device}")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive or None, got {window}")
+    requested = _resolve("flash_attention", schedule,
+                         {"block_q": block_q, "block_kv": block_kv})
+    eff = _effective("flash_attention", requested, seq_len=s, kv_len=t)
+    tiles = (flash_launch_tiles(eff.block_q, eff.block_kv, d, q.dtype)
+             if q.device.type != "cpu" else None)
+    ksched.note_kernel_call(
+        "flash_attention", requested, eff,
+        shapes={"q": q.shape, "k": k.shape, "v": v.shape},
+        meta={"causal": causal, "window": window, "scale": scale,
+              "dtype": _dtype_name(q.dtype)},
+        launched=None if tiles is None else {"block_q": tiles[0], "block_kv": tiles[1]})
     scale = float(scale) if scale is not None else d ** -0.5
 
+    if q.device.type == "meta":
+        return torch.empty((b, s, h, d), dtype=q.dtype, device="meta")
     if q.device.type == "cpu":
         out = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                       v.transpose(1, 2), causal=causal,
@@ -78,7 +198,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     if q.dtype not in _DTYPES:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, not {q.dtype}")
-    if d % 4 or d > _FLASH_MAX_D:
+    if d % 4 or d > _FLASH_MAX_D or tiles is None:
         raise ValueError(f"the CUDA kernel takes a head dim that is a multiple "
                          f"of 4 and at most {_FLASH_MAX_D}, not {d}")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -101,9 +221,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
-            int(bool(causal)), 0 if window is None else int(window), scale, stream)
+            int(bool(causal)), 0 if window is None else int(window), scale,
+            tiles[0], tiles[1], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err} "
+                           f"(tiles {tiles} at D={d}, {q.dtype})")
     LAUNCHES["flash_attention"] += 1
     return out
 
@@ -125,18 +247,34 @@ def bind_ssm(lib: ctypes.CDLL):
     return fn, floats, smem
 
 
+def _scan_chunk(kernel, schedule, chunk, seq_len, device, dtype, shapes) -> int:
+    """Resolve a scan's schedule, record the call, and return the effective
+    chunk (which divides ``seq_len``)."""
+    if chunk is not None and chunk <= 0:
+        raise ValueError(f"chunk {chunk} does not divide the sequence {seq_len}: "
+                         f"a chunk is positive")
+    requested = _resolve(kernel, schedule, {"chunk": chunk})
+    eff = _effective(kernel, requested, seq_len=seq_len)
+    ksched.note_kernel_call(kernel, requested, eff, shapes=shapes,
+                            meta={"dtype": _dtype_name(dtype)},
+                            launched=None if device.type == "cpu" else {"chunk": eff.chunk})
+    return eff.chunk
+
+
 @functools.cache
 def _ssm_fns():
     return bind_ssm(build.load("ssm_scan"))
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b_grouped: torch.Tensor, c_grouped: torch.Tensor, *, chunk: int):
+             b_grouped: torch.Tensor, c_grouped: torch.Tensor, *,
+             chunk: Optional[int] = None, schedule: Optional[KernelSchedule] = None):
     """Mamba2 SSD scan.  x: (B, L, H, P); dt: (B, L, H); a: (H,);
     b/c: (B, L, G, N), group layout (head h reads group h // (H // G)).
     Returns (y (B, L, H, P) in x's dtype, final state (B, H, N, P) fp32).
 
-    ``chunk`` must divide L.  dt and a may be of any float dtype: they are
+    The chunk is the resolved schedule's (module docstring), halved until
+    it divides L.  dt and a may be of any float dtype: they are
     taken in fp32, as the Pallas kernel takes them.  One call counts one
     launch, though in fp32 the kernel is two CUDA launches (the chunks'
     panels, then the scan).
@@ -153,8 +291,9 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"shapes do not agree, or G does not divide H: x "
                          f"{tuple(x.shape)}, dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
                          f"b {tuple(b_grouped.shape)}, c {tuple(c_grouped.shape)}")
-    if chunk <= 0 or l % chunk:
-        raise ValueError(f"chunk {chunk} does not divide the sequence {l}")
+    chunk = _scan_chunk("ssm_scan", schedule, chunk, l, x.device, x.dtype, {
+        "x": x.shape, "dt": dt.shape, "a": a.shape, "b": b_grouped.shape,
+        "c": c_grouped.shape})
     tensors = (x, dt, a, b_grouped, c_grouped)
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"devices differ: {[str(t.device) for t in tensors]}")
@@ -162,6 +301,9 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"x, b, c dtypes differ: {x.dtype}, {b_grouped.dtype}, "
                          f"{c_grouped.dtype}")
 
+    if x.device.type == "meta":
+        return (torch.empty((bsz, l, h, p), dtype=x.dtype, device="meta"),
+                torch.empty((bsz, h, n, p), dtype=torch.float32, device="meta"))
     if x.device.type == "cpu":
         return ref.ssm_scan_ref(x, dt, a, b_grouped, c_grouped, chunk=chunk)
     if x.device.type != "cuda":
@@ -224,12 +366,14 @@ def _mlstm_fns():
 
 
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               i_log: torch.Tensor, f_log: torch.Tensor, *, chunk: int):
+               i_log: torch.Tensor, f_log: torch.Tensor, *,
+               chunk: Optional[int] = None, schedule: Optional[KernelSchedule] = None):
     """Chunkwise mLSTM (the xLSTM matrix memory).  q/k/v: (B, L, H, P);
     i_log/f_log: (B, L, H) log-space gates.  Returns (h (B, L, H, P) in
     q's dtype, None), as the JAX package's ``ops.mlstm_scan`` does.
 
-    ``chunk`` must divide L.  The gates may be of any float dtype: they are
+    The chunk is the resolved schedule's (module docstring), halved until
+    it divides L.  The gates may be of any float dtype: they are
     taken in fp32, as the Pallas kernel takes them.  One call counts one
     launch, though the kernel is two CUDA launches (the chunks' panels, then
     the state).
@@ -243,14 +387,17 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"shapes do not agree: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, i_log {tuple(i_log.shape)}, "
                          f"f_log {tuple(f_log.shape)}")
-    if chunk <= 0 or l % chunk:
-        raise ValueError(f"chunk {chunk} does not divide the sequence {l}")
+    chunk = _scan_chunk("mlstm_scan", schedule, chunk, l, q.device, q.dtype, {
+        "q": q.shape, "k": k.shape, "v": v.shape, "i_log": i_log.shape,
+        "f_log": f_log.shape})
     tensors = (q, k, v, i_log, f_log)
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"devices differ: {[str(t.device) for t in tensors]}")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
 
+    if q.device.type == "meta":
+        return torch.empty((bsz, l, h, p), dtype=q.dtype, device="meta"), None
     if q.device.type == "cpu":
         return ref.mlstm_scan_ref(q, k, v, i_log, f_log, chunk=chunk), None
     if q.device.type != "cuda":
@@ -287,7 +434,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(
             f"mlstm_scan kernel launch failed: CUDA error {err} (1 is an invalid value: "
             f"the kernel also refuses a chunk whose state pass does not fit one "
-            f"block's shared memory, which at P=1024 is a chunk above 416 in fp32 and "
-            f"above 256 in bf16)")
+            f"block's shared memory with v streamed, which at P=1024 is a chunk "
+            f"above 2048; every chunk a schedule allows, up to 1024, fits)")
     LAUNCHES["mlstm_scan"] += 1
     return out, None

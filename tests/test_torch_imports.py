@@ -82,3 +82,29 @@ def test_xlstm_path_imports_without_pyyaml():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "48"
+
+
+def test_explorer_runs_a_dict_spec_without_pyyaml():
+    """The facade's modules (spec, explorer, tuner, executors, pruners,
+    disk tier) import and run a dict experiment with ``yaml`` blocked, as
+    ``chip_smoke.py``'s explore phase does on the card's machine."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.modules['yaml'] = None\n"
+        "import repro_torch.explorer.__main__, repro_torch.hwgen.autotune\n"
+        "from repro_torch.explorer.explorer import Explorer\n"
+        "space = {'input': [2, 8], 'output': 2, 'sequence': "
+        "[{'block': 'head', 'op_candidates': 'linear', 'linear': {'width': [4, 8]}}]}\n"
+        "report = Explorer.from_dict({'name': 'noyaml', 'search_space': space, "
+        "'criteria': ['n_params'], 'pruner': 'median', 'budget': 3, "
+        "'kernel_tuning': 'cached'}, device='cpu').run(save_report=False)\n"
+        "assert 'yaml' not in [m for m, v in sys.modules.items() if v is not None]\n"
+        "print(report.n_trials)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "3"

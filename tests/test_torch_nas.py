@@ -294,5 +294,3 @@ def test_unported_estimator_options_raise():
         test.CompiledLatencyEstimator("h100", metric="modelled")
     with pytest.raises(ValueError, match="CUDA target"):
         test.CompiledMemoryEstimator("host_cpu")
-    with pytest.raises(NotImplementedError, match="disk tier"):
-        EvaluationCache(disk="results/cache")
