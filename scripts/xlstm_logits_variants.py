@@ -13,7 +13,12 @@ s + 1 (``chip_smoke.py`` checks draw 0).  Each argument is a whole
 the card's name and power limit first, for each draw:
 
 * for each source, the max |logits difference| from the fp32 xla forward
-  over the check's tolerance (1e-3 of max |logits|);
+  over that check's tolerance (1e-3 of max |logits|: ``chip_smoke.py``'s
+  check before the float64 one), and in fp32 also the reading of
+  ``chip_smoke.py``'s check: the max over elements of |logits - the float64
+  xla forward's| over 1e-3 of max |logits| plus twice the fp32 xla
+  forward's own |error| against float64 at that element (the fp32 xla
+  forward's own error over 1e-3 of max |logits| is printed per draw);
 * with ``--bf16`` the weights are rounded to bf16 (``LM.init``'s dtype) and
   the kernels run their bf16 path; the same bf16 weights' xla forward is
   printed beside them;
@@ -132,12 +137,30 @@ def main(argv) -> int:
                       f"{(plain16(tokens).float() - want).abs().max().item() / tol:.3g}",
                       flush=True)
                 del plain16
-            elif seed == 0:
-                _first_layer(model, tokens, args.sources, builds)
+            else:
+                if seed == 0:
+                    _first_layer(model, tokens, args.sources, builds)
+                exact = LM(xla_spec)
+                exact.load_state_dict({k: v.double() for k, v in plain.state_dict().items()},
+                                      strict=True, assign=True)
+                want64 = exact(tokens)
+                del exact
+                plain_err = (want.double() - want64).abs()
+                top = 1e-3 * want64.abs().max()
+                tol64 = top + 2 * plain_err
+                print(f"draw {seed}: xla forward fp32 against float64: max |err| / (1e-3 "
+                      f"max|logits|) {(plain_err.max() / top).item():.3g}", flush=True)
             for src in args.sources:
                 with mock.patch.object(ops, "mlstm_scan", _scan_with(builds[src])):
-                    err = (model(tokens).float() - want).abs().max().item() / tol
-                print(f"draw {seed}: logits, {src}: max |err| / tol {err:.3g}", flush=True)
+                    got = model(tokens).float()
+                err = (got - want).abs().max().item() / tol
+                new = ("" if args.bf16 else
+                       f", against float64 {((got.double() - want64).abs() / tol64).max().item():.3g}")
+                print(f"draw {seed}: logits, {src}: max |err| / tol against fp32 xla "
+                      f"{err:.3g}{new}", flush=True)
+                del got
+            if not args.bf16:
+                del want64, plain_err, tol64
             del model
             if seed == 0 and not args.bf16:
                 _probes(plain, tokens, want, tol)

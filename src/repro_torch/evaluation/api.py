@@ -111,7 +111,7 @@ class CriteriaRunner:
     then objectives + soft constraints, then scalarization.
 
     This is the degenerate single-stage case of the fidelity cascade: a
-    :class:`~repro.evaluation.cascade.CascadeRunner` with no screening
+    :class:`~repro_torch.evaluation.cascade.CascadeRunner` with no screening
     stages evaluates exactly like a ``CriteriaRunner`` over its final
     stage (``CascadeRunner`` subclasses this class and inherits both
     evaluation paths unchanged)."""

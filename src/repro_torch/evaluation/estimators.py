@@ -4,17 +4,19 @@
     analytical, from BuiltModel metadata (fast, nothing runs)
   * CompiledLatencyEstimator — hardware-in-the-loop: places the candidate
     on the target's device through the generator and returns its measured
-    forward time (``metric="measured"``)
+    forward time (``metric="measured"``), or the roofline bound of its
+    forward on the target's chip (``metric="modelled"``: counted on the
+    ``meta`` device, nothing runs)
   * CompiledMemoryEstimator — the candidate's own peak device memory in
-    one forward, from the CUDA allocator
+    one forward, from the CUDA allocator; on a CPU target, which keeps no
+    allocator statistics, the peak counted on the ``meta`` device
 
 The names are the JAX package's, so one experiment names the same
 estimators in both.  A kernel-schedule tuner (``tuner=``) or schedules in
 the trial's context retarget the candidate's kernels, and the effective
 schedules' signature joins the cache keys, as in the reference.  The
-roofline-modelled latency (``metric="modelled"``) comes with a later
-slice (ROADMAP.md, Queue 1 item 3), the trained-accuracy estimator with
-training.
+trained-accuracy estimator comes with training (ROADMAP.md Queue 1 item
+11).
 """
 from __future__ import annotations
 
@@ -28,8 +30,10 @@ from repro_torch.device import resolve_device
 from repro_torch.evaluation.api import Estimator
 from repro_torch.evaluation.cache import EvaluationCache
 from repro_torch.explorer.registry import ESTIMATORS
-from repro_torch.hwgen.autotune import ScheduleTuner, discover_kernel_calls, meta_forward
-from repro_torch.hwgen.generator import HardwareManager, TorchGenerator, measurement_gate
+from repro_torch.hwgen.autotune import ScheduleTuner, discover_kernel_calls
+from repro_torch.hwgen.generator import (
+    HardwareManager, TorchGenerator, measurement_gate, meta_forward, program_cost)
+from repro_torch.hwgen.roofline import roofline_terms
 from repro_torch.hwgen.targets import TargetSpec
 from repro_torch.kernels import schedule as ksched
 
@@ -149,6 +153,13 @@ class _CompiledEstimator(Estimator):
                      {k: s.to_dict() for k, s in sorted(plan.items())})
         return plan, sig
 
+    def _count(self, candidate: BuiltModel, plan):
+        """One forward of the candidate at ``self.batch`` on the plan's
+        schedules, counted on the ``meta`` device (nothing runs)."""
+        l, c = candidate.input_shape[-1], candidate.input_shape[0]
+        x = torch.empty((self.batch, l, c), dtype=torch.float32, device="meta")
+        return program_cost(candidate, (x,), schedules=plan[0])
+
     def _artifact(self, candidate: BuiltModel, plan=None):
         """The candidate with weights drawn from seed 0, run once on the
         target's device on a zero batch of ``self.batch`` examples, its
@@ -176,8 +187,16 @@ class _CompiledEstimator(Estimator):
 @ESTIMATORS.register("latency_s")
 class CompiledLatencyEstimator(_CompiledEstimator):
     """Hardware-in-the-loop latency via the generator pipeline (paper §VI
-    mode 2): the mean time of one forward on the target's device.  Results
-    are cached by full architecture signature."""
+    mode 2).  Results are cached by full architecture signature.
+
+    ``metric="measured"`` returns the mean time of one forward on the
+    target's device; ``metric="modelled"`` the roofline bound of one
+    forward (:func:`~repro_torch.hwgen.generator.program_cost` against
+    the target's chip constants): deterministic across runs, and nothing
+    is placed on a device or run.  As in the reference, its compute term
+    divides by the chip's bf16 peak whatever the candidate's dtype, so
+    for fp32 candidates it is the bound of the same work in bf16.
+    """
 
     name = "latency_s"
 
@@ -187,11 +206,7 @@ class CompiledLatencyEstimator(_CompiledEstimator):
                  metric: str = "measured",
                  tuner: Optional[ScheduleTuner] = None):
         super().__init__(target, batch=batch, cache=cache, tuner=tuner)
-        if metric == "modelled":
-            raise NotImplementedError(
-                "latency metric 'modelled' (the roofline bound) is not ported "
-                "yet: ROADMAP.md Queue 1 item 3 (metric: modelled)")
-        if metric != "measured":
+        if metric not in ("measured", "modelled"):
             raise ValueError(
                 f"unknown latency metric {metric!r}; expected 'measured' or 'modelled'")
         self.manager = manager or HardwareManager()
@@ -199,6 +214,20 @@ class CompiledLatencyEstimator(_CompiledEstimator):
 
     def estimate(self, candidate: BuiltModel, context=None) -> float:
         plan = self._schedule_plan(candidate, context)
+        if self.metric == "modelled":
+            # cache the chip-independent terms and apply the target's chip
+            # afterwards: a sibling target of the same mesh scope gets its
+            # modelled latency from the cached terms
+            def compute_terms():
+                cost = self._count(candidate, plan)
+                return [cost.flops, cost.bytes_accessed, cost.collective_bytes]
+
+            terms = self.cache.get_or_compute(
+                self._program_key("roofline_terms", candidate, plan[1]), compute_terms)
+            report = roofline_terms(
+                hlo_flops=terms[0], hlo_bytes=terms[1], collective_bytes=terms[2],
+                n_chips=1, chip=self.generator.target.chip)
+            return float(report.bound_s)
 
         def compute() -> float:
             artifact = self._artifact(candidate, plan)
@@ -212,24 +241,19 @@ class CompiledLatencyEstimator(_CompiledEstimator):
 class CompiledMemoryEstimator(_CompiledEstimator):
     """Peak bytes the CUDA allocator held for one forward of the candidate
     (its weights, inputs, activations and output), whatever else the card
-    holds.  A CPU target keeps no such statistics."""
+    holds.  A CPU target keeps no such statistics: there the peak is
+    counted on the ``meta`` device (``ProgramCost.peak_bytes``: weights,
+    input and the largest pair of consecutive activations, the
+    counterpart of the reference's memory analysis), and nothing runs."""
 
     name = "peak_bytes"
-
-    def __init__(self, target: TargetSpec | str, batch: int = 1,
-                 cache: Optional[EvaluationCache | str] = None,
-                 tuner: Optional[ScheduleTuner] = None):
-        super().__init__(target, batch=batch, cache=cache, tuner=tuner)
-        if self.generator.target.device != "cuda":
-            raise ValueError(
-                f"peak_bytes needs a CUDA target: {self.generator.target.name} "
-                f"runs on {self.generator.target.device}, which has no "
-                f"allocator statistics")
 
     def estimate(self, candidate: BuiltModel, context=None) -> float:
         plan = self._schedule_plan(candidate, context)
 
         def compute() -> float:
+            if self.generator.target.device != "cuda":
+                return float(self._count(candidate, plan).peak_bytes)
             artifact = self._artifact(candidate, plan)
             return float(artifact.memory["peak_bytes_per_device"])
 

@@ -1,15 +1,17 @@
 """The component walk behind ``python -m repro_torch.explorer
 --list-components``: every registry kind and the components the port has
 registered under it, read from the live registries with constructor
-signatures.
+signatures; and the ``fidelity`` sections of the experiment reference,
+rendered from the port's spec metadata (``FIELD_DOCS``/``KEYS``) as the
+JAX package's ``explorer/docgen.py`` renders them.
 
 The JAX package's ``explorer/docgen.py`` also renders the committed
-reference docs (``docs/reference/*.md``) from the experiment and sweep
-spec metadata; those documents describe the reference, and the port has
-no generator of its own for them.
+reference docs (``docs/reference/*.md``) whole; those documents describe
+the reference, and the port writes no file of its own for them.
 """
 from __future__ import annotations
 
+import dataclasses
 import inspect
 from typing import Any, Dict, List
 
@@ -78,3 +80,68 @@ def list_components_text() -> str:
                 lines.append(f"  {'':<20} {e['summary']}")
         lines.append("")
     return "\n".join(lines).rstrip() + "\n"
+
+
+# ---------------------------------------------------------------------------
+# experiment spec walk (validation metadata)
+# ---------------------------------------------------------------------------
+
+def _spec_rows(cls: Any) -> List[Dict[str, str]]:
+    """One row per declared key of a spec dataclass: name, default (from
+    the dataclass field), description (from FIELD_DOCS)."""
+    docs: Dict[str, str] = getattr(cls, "FIELD_DOCS", {})
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    keys = list(getattr(cls, "KEYS", fields))
+    rows = []
+    for key in keys:
+        f = fields.get(key)
+        if f is None or f.default is dataclasses.MISSING:
+            if f is not None and f.default_factory is not dataclasses.MISSING:  # type: ignore[misc]
+                default = repr(f.default_factory())
+            else:
+                default = "—"
+        else:
+            default = repr(f.default)
+        desc = docs.get(key)
+        if desc is None:
+            raise AssertionError(
+                f"{cls.__name__}.FIELD_DOCS is missing key {key!r} — the "
+                f"generated reference would silently omit it")
+        rows.append({"key": key, "default": default, "description": desc})
+    return rows
+
+
+def _spec_table(title: str, cls: Any, note: str = "") -> List[str]:
+    parts = [f"## `{title}`", ""]
+    if note:
+        parts += [note, ""]
+    parts += ["| key | default | description |", "|---|---|---|"]
+    for row in _spec_rows(cls):
+        parts.append(f"| `{row['key']}` | `{row['default']}` | "
+                     f"{row['description']} |")
+    parts.append("")
+    return parts
+
+
+def fidelity_markdown() -> str:
+    """The experiment reference's three ``fidelity`` tables (the section,
+    a stage, a stage's keep rule), as the reference renders them into
+    ``docs/reference/experiment_spec.md``."""
+    from repro_torch.explorer.experiment import FidelitySpec, KeepSpec, StageSpec
+
+    parts = _spec_table(
+        "fidelity", FidelitySpec,
+        note="The multi-fidelity evaluation cascade: cohorts are screened "
+             "in-process through the declared stages (cheapest first) and "
+             "only survivors reach the executor for the compiled top-level "
+             "criteria.  Screened-out trials end in state `screened` with "
+             "`user_attrs[\"fidelity_stage\"]` naming the cutting stage.")
+    parts += _spec_table(
+        "fidelity.stages[i]", StageSpec,
+        note="One screening stage; estimator names must be unique across "
+             "all stages *and* the top-level criteria.")
+    parts += _spec_table(
+        "fidelity.stages[i].keep", KeepSpec,
+        note="Exactly one of the three keys; stage scores scalarize "
+             "through the experiment aggregator, lower = better.")
+    return "\n".join(parts).rstrip() + "\n"

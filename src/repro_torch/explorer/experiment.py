@@ -33,8 +33,8 @@ alternatives — a typo fails at parse time, not trial 37.
 This is the JAX package's ``explorer/experiment.py`` on the port.  A
 section whose modules the port does not have yet raises a
 :class:`NotPortedError` (a ``NotImplementedError``) at parse time, naming
-its ROADMAP.md item: ``fidelity`` (the cascade), ``serving``, the
-``remote`` executor backend, ``metric: modelled`` and sweep documents.
+its ROADMAP.md item: ``serving``, the ``remote`` executor backend and
+sweep documents.
 ``yaml`` is imported only to read YAML (the machine with the card has no
 PyYAML; a dict spec needs none).
 """
@@ -67,11 +67,6 @@ class NotPortedError(NotImplementedError):
 
 # what each unported section waits for (ROADMAP.md, Queue 1)
 NOT_PORTED = {
-    "modelled": "latency metric 'modelled' (the roofline bound) is not ported yet: "
-                "ROADMAP.md Queue 1 item 3 (metric: modelled)",
-    "fidelity": "the 'fidelity' section (zero-cost proxies and the evaluation "
-                "cascade) is not ported yet: ROADMAP.md Queue 1 item 5 "
-                "(proxies and cascade)",
     "sweep": "sweep documents (base/axes) are not ported yet: ROADMAP.md Queue 1 "
              "item 6 (sweeps)",
     "serving": "the 'serving' section (the traffic-shaped serving estimators) is "
@@ -92,12 +87,6 @@ def _refuse_unported(raw: Mapping[str, Any]) -> None:
         raise NotPortedError(NOT_PORTED["remote"])
     if raw.get("serving") is not None:
         raise NotPortedError(NOT_PORTED["serving"])
-    if raw.get("fidelity") is not None:
-        raise NotPortedError(NOT_PORTED["fidelity"])
-    for c in raw.get("criteria") or ():
-        params = c.get("params") if isinstance(c, Mapping) else None
-        if isinstance(params, Mapping) and params.get("metric") == "modelled":
-            raise NotPortedError(NOT_PORTED["modelled"])
 
 
 CRITERIA_KINDS = ("objective", "soft_constraint", "hard_constraint")
@@ -367,8 +356,8 @@ class CriterionSpec:
         "limit": "constraint threshold; required for both constraint "
                  "kinds, ignored for objectives",
         "params": "estimator constructor kwargs, validated against its "
-                  "signature at parse time (`target`, `cache` and `tuner` "
-                  "are injected by the Explorer)",
+                  "signature at parse time (`target`, `cache`, `tuner` and "
+                  "`device` are injected by the Explorer)",
     }
 
     @classmethod
@@ -398,11 +387,11 @@ class CriterionSpec:
         if kind != "objective" and limit is None:
             raise ExperimentError(f"{where}: kind {kind!r} requires a 'limit'")
         params = _require_mapping(raw.get("params") or {}, f"{where}.params")
-        # target/cache/tuner are injected by the Explorer; everything
-        # else must bind against the estimator constructor
+        # target/cache/tuner/device are injected by the Explorer;
+        # everything else must bind against the estimator constructor
         probe = dict(params)
         sig_params = inspect.signature(factory).parameters
-        for injected in ("target", "cache", "tuner"):
+        for injected in ("target", "cache", "tuner", "device"):
             if injected in sig_params:
                 probe.setdefault(injected, None)
         _check_component_kwargs(factory, probe, where)
@@ -425,15 +414,15 @@ class CriterionSpec:
         return d
 
     def build_estimator(self, target: Any = None, cache: Any = None,
-                        tuner: Any = None):
+                        tuner: Any = None, device: Any = None):
         """Instantiate the estimator, injecting the experiment's hardware
-        target, shared cache and kernel-schedule tuner wherever the
-        constructor accepts them."""
+        target, shared cache, kernel-schedule tuner and device (where the
+        zero-cost proxies run) wherever the constructor accepts them."""
         factory = ESTIMATORS.get(self.estimator)
         kwargs = dict(self.params)
         sig_params = inspect.signature(factory).parameters
         for name, value in (("target", target), ("cache", cache),
-                            ("tuner", tuner)):
+                            ("tuner", tuner), ("device", device)):
             if name in sig_params and name not in kwargs and value is not None:
                 kwargs[name] = value
         return factory(**kwargs)
@@ -500,6 +489,159 @@ class BudgetSpec:
 
     def to_dict(self) -> Dict[str, Any]:
         return {"n_trials": self.n_trials, "timeout_s": self.timeout_s}
+
+
+@dataclasses.dataclass
+class KeepSpec:
+    """Survivor rule for one screening stage — exactly one key."""
+
+    top_k: Optional[int] = None
+    top_frac: Optional[float] = None
+    threshold: Optional[float] = None
+
+    KEYS = ("top_k", "top_frac", "threshold")
+    FIELD_DOCS = {
+        "top_k": "keep the k best-ranked candidates of the cohort "
+                 "(integer >= 1; lower stage score ranks better, ties "
+                 "keep ask order)",
+        "top_frac": "keep the best `ceil(frac * cohort)` candidates "
+                    "(float in (0, 1]; always at least one)",
+        "threshold": "keep candidates whose scalarized stage score is "
+                     "<= this value (per-candidate; no cohort ranking)",
+    }
+
+    @classmethod
+    def from_raw(cls, raw: Any, where: str) -> "KeepSpec":
+        if raw is None:
+            raise ExperimentError(
+                f"{where}: missing 'keep'; every fidelity stage needs a "
+                f"survivor rule (one of {cls.KEYS})")
+        raw = _require_mapping(raw, where)
+        _check_keys(raw, set(cls.KEYS), where)
+        set_keys = [k for k in cls.KEYS if raw.get(k) is not None]
+        if len(set_keys) != 1:
+            raise ExperimentError(
+                f"{where}: exactly one of {cls.KEYS} must be set, "
+                f"got {set_keys or 'none'}")
+        top_k = raw.get("top_k")
+        if top_k is not None:
+            top_k = int(top_k)
+            if top_k < 1:
+                raise ExperimentError(f"{where}: top_k must be >= 1, got {top_k}")
+        top_frac = raw.get("top_frac")
+        if top_frac is not None:
+            top_frac = float(top_frac)
+            if not 0.0 < top_frac <= 1.0:
+                raise ExperimentError(
+                    f"{where}: top_frac must be in (0, 1], got {top_frac}")
+        threshold = raw.get("threshold")
+        return cls(top_k=top_k, top_frac=top_frac,
+                   threshold=None if threshold is None else float(threshold))
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {k: getattr(self, k) for k in self.KEYS
+                if getattr(self, k) is not None}
+
+
+@dataclasses.dataclass
+class StageSpec:
+    """One screening stage of the fidelity cascade (the *final* stage is
+    the experiment's top-level ``criteria`` and needs no declaration)."""
+
+    name: str = ""
+    criteria: List[CriterionSpec] = dataclasses.field(default_factory=list)
+    keep: KeepSpec = dataclasses.field(default_factory=KeepSpec)
+
+    KEYS = ("name", "criteria", "keep")
+    FIELD_DOCS = {
+        "name": "stage label, recorded on screened-out trials as "
+                "`user_attrs[\"fidelity_stage\"]`; must be unique and not "
+                "`final` (reserved for the top-level criteria)",
+        "criteria": "criterion entries exactly like the top-level "
+                    "`criteria` list (zero-cost proxies `synflow` / "
+                    "`grad_norm` and analytic estimators are the natural "
+                    "fit); at least one `kind: objective`",
+        "keep": "survivor rule (see table below)",
+    }
+
+    @classmethod
+    def from_raw(cls, raw: Any, where: str) -> "StageSpec":
+        raw = _require_mapping(raw, where)
+        _check_keys(raw, set(cls.KEYS), where)
+        name = raw.get("name")
+        if not name or not isinstance(name, str):
+            raise ExperimentError(f"{where}: missing or empty 'name'")
+        if name in ("final", "promoted"):
+            raise ExperimentError(
+                f"{where}: stage name {name!r} is reserved (the top-level "
+                f"criteria form the final stage; 'promoted' marks survivors)")
+        raw_criteria = raw.get("criteria")
+        if not isinstance(raw_criteria, (list, tuple)) or not raw_criteria:
+            raise ExperimentError(
+                f"{where}: criteria must be a non-empty list of criterion "
+                f"entries")
+        criteria = [CriterionSpec.from_raw(c, f"{where}.criteria[{i}]")
+                    for i, c in enumerate(raw_criteria)]
+        if not any(c.kind == "objective" for c in criteria):
+            raise ExperimentError(
+                f"{where}: a screening stage needs at least one "
+                f"kind='objective' criterion to rank the cohort by")
+        return cls(name=name, criteria=criteria,
+                   keep=KeepSpec.from_raw(raw.get("keep"), f"{where}.keep"))
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"name": self.name,
+                "criteria": [c.to_dict() for c in self.criteria],
+                "keep": self.keep.to_dict()}
+
+
+@dataclasses.dataclass
+class FidelitySpec:
+    """The multi-fidelity evaluation cascade: candidates are asked a
+    *generation* at a time, screened in-process through the declared
+    stages (cheapest first), and only survivors are promoted to the
+    executor for the full (measured) top-level criteria."""
+
+    stages: List[StageSpec] = dataclasses.field(default_factory=list)
+    generation: int = 16
+
+    KEYS = ("stages", "generation")
+    FIELD_DOCS = {
+        "stages": "**required** — non-empty list of screening stages, "
+                  "cheapest first (see table below); the experiment's "
+                  "top-level `criteria` are the implicit final stage",
+        "generation": "cohort size: how many trials are asked and "
+                      "screened together before survivors are promoted "
+                      "(integer >= 1, default 16)",
+    }
+
+    @classmethod
+    def from_raw(cls, raw: Any, where: str = "fidelity") -> Optional["FidelitySpec"]:
+        if raw is None:
+            return None
+        raw = _require_mapping(raw, where)
+        _check_keys(raw, set(cls.KEYS), where)
+        raw_stages = raw.get("stages")
+        if not isinstance(raw_stages, (list, tuple)) or not raw_stages:
+            raise ExperimentError(
+                f"{where}: stages must be a non-empty list of "
+                f"{{name, criteria, keep}} entries")
+        stages = [StageSpec.from_raw(s, f"{where}.stages[{i}]")
+                  for i, s in enumerate(raw_stages)]
+        names = [s.name for s in stages]
+        dupes = sorted({n for n in names if names.count(n) > 1})
+        if dupes:
+            raise ExperimentError(
+                f"{where}: duplicate stage name(s) {dupes}")
+        generation = int(raw.get("generation", 16))
+        if generation < 1:
+            raise ExperimentError(
+                f"{where}: generation must be >= 1, got {generation}")
+        return cls(stages=stages, generation=generation)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"stages": [s.to_dict() for s in self.stages],
+                "generation": self.generation}
 
 
 @dataclasses.dataclass
@@ -643,8 +785,7 @@ class FaultsSpec:
         return d
 
 
-# the reference's keys; `fidelity` and `serving` are refused (NOT_PORTED)
-# unless null
+# the reference's keys; `serving` is refused (NOT_PORTED) unless null
 TOP_LEVEL_KEYS = (
     "name", "search_space", "sampler", "executor", "schedule", "criteria",
     "fidelity", "kernel_tuning", "target", "cache", "persistence", "budget",
@@ -698,6 +839,7 @@ class ExperimentSpec:
     persistence: Optional[str] = None
     budget: BudgetSpec = dataclasses.field(default_factory=BudgetSpec)
     pruner: Optional[PrunerSpec] = None
+    fidelity: Optional[FidelitySpec] = None
     kernel_tuning: Optional[KernelTuningSpec] = None
     faults: Optional[FaultsSpec] = None
     scalarize: bool = True
@@ -740,6 +882,22 @@ class ExperimentSpec:
                 f"scores aggregate by estimator name, so duplicates collide"
             )
 
+        fidelity = FidelitySpec.from_raw(raw.get("fidelity"))
+        if fidelity is not None:
+            # estimator names must be unique across the WHOLE cascade —
+            # every stage records values on the trial by estimator name
+            cascade_names = list(names)
+            for s in fidelity.stages:
+                cascade_names.extend(c.estimator for c in s.criteria)
+            dupes = sorted({n for n in cascade_names
+                            if cascade_names.count(n) > 1})
+            if dupes:
+                raise ExperimentError(
+                    f"fidelity stages and criteria reference estimator(s) "
+                    f"{dupes} more than once across the cascade; trial "
+                    f"values record by estimator name, so duplicates collide"
+                )
+
         target = str(raw.get("target", "host_cpu"))
         TARGETS.get(target)
 
@@ -767,6 +925,7 @@ class ExperimentSpec:
             persistence=None if persistence is None else str(persistence),
             budget=BudgetSpec.from_raw(raw.get("budget")),
             pruner=PrunerSpec.from_raw(raw.get("pruner")),
+            fidelity=fidelity,
             kernel_tuning=KernelTuningSpec.from_raw(raw.get("kernel_tuning")),
             faults=FaultsSpec.from_raw(raw.get("faults")),
             scalarize=scalarize,
@@ -809,6 +968,8 @@ class ExperimentSpec:
             d["persistence"] = self.persistence
         if self.pruner is not None:
             d["pruner"] = self.pruner.to_dict()
+        if self.fidelity is not None:
+            d["fidelity"] = self.fidelity.to_dict()
         if self.kernel_tuning is not None:
             d["kernel_tuning"] = self.kernel_tuning.to_dict()
         if self.faults is not None:

@@ -28,18 +28,19 @@ The device: candidates run where the spec's target says (``h100`` on
 CUDA, ``host_cpu`` on the CPU).  :class:`Explorer` takes the device the
 caller asked for (CUDA unless told otherwise, as every entry point of the
 port) and refuses a target that runs elsewhere, so nothing quietly runs
-on the CPU in place of the card.  Not ported yet: the report's
-``artifacts`` summary (the executable store, ROADMAP.md Queue 1 item 8)
-and the ``fidelity`` funnel (item 5; the spec refuses the section).
+on the CPU in place of the card; the zero-cost proxies of a ``fidelity``
+section run there too.  Not ported yet: the report's ``artifacts``
+summary (the executable store, ROADMAP.md Queue 1 item 8).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import time
 import uuid
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -99,6 +100,7 @@ class SpecObjective:
             from repro_torch.core.space import parse_search_space
             from repro_torch.evaluation.api import CriteriaRunner, OptimizationCriteria
             from repro_torch.evaluation.cache import EvaluationCache
+            from repro_torch.evaluation.cascade import CascadeRunner, FidelityStage, KeepRule
 
             spec = ExperimentSpec.from_dict(self.spec_dict)
             space = parse_search_space(dict(spec.search_space))
@@ -118,14 +120,28 @@ class SpecObjective:
                                       budget=kt.budget, overrides=kt.kernels)
 
             def build_criterion(c):
+                # the target's device is the one the Explorer was asked
+                # for (Explorer checks it): the proxies run there too
                 return OptimizationCriteria(
-                    c.build_estimator(target=target, cache=cache, tuner=tuner),
+                    c.build_estimator(target=target, cache=cache, tuner=tuner,
+                                      device=target.device),
                     kind=c.kind, direction=c.direction,
                     weight=c.weight, limit=c.limit,
                 )
 
             criteria = [build_criterion(c) for c in spec.criteria]
-            runner = CriteriaRunner(criteria, cache=cache)
+            if spec.fidelity is not None:
+                # screening stages from the fidelity section, the
+                # top-level criteria as the implicit final stage
+                stages = [
+                    FidelityStage(s.name, [build_criterion(c) for c in s.criteria],
+                                  keep=KeepRule(**s.keep.to_dict()))
+                    for s in spec.fidelity.stages
+                ]
+                stages.append(FidelityStage("final", criteria))
+                runner = CascadeRunner(stages, cache=cache)
+            else:
+                runner = CriteriaRunner(criteria, cache=cache)
             # a prior run's state for the same spec is dead weight now —
             # its counters must not leak into this run's report
             for stale in [k for k in _PROCESS_STATE
@@ -150,6 +166,29 @@ class SpecObjective:
 
         _, space, builder, _, _, _ = self._state()
         return builder.build(sample_architecture(space, trial))
+
+    def screen_cohort(self, trials):
+        """Fidelity-cascade screen hook for ``ParallelStudy.optimize``:
+        sample each cohort trial's architecture *in the parent* (so the
+        distribution registry is complete before any worker runs), build
+        the candidates (weights unset), and let the cascade's screening
+        stages decide who gets promoted to the executor."""
+        from repro_torch.core.translate import sample_architecture
+        from repro_torch.search.parallel import ScreenDecision
+
+        _, space, builder, runner, _, _ = self._state()
+        models = []
+        for trial in trials:
+            arch = sample_architecture(space, trial)
+            trial.set_user_attr("signature", arch.signature())
+            models.append(builder.build(arch))
+        result = runner.screen_cohort(models, trials=trials)
+        return ScreenDecision(
+            promoted=[trials[i] for i in result.promoted],
+            screened=[(trials[i], stage) for i, stage in result.screened.items()],
+            infeasible=[(trials[i], stage, exc)
+                        for i, (stage, exc) in result.infeasible.items()],
+        )
 
     def _suggest_schedules(self, spec, model, trial):
         """``kernel_tuning.mode: search``: expose each discovered kernel's
@@ -256,6 +295,36 @@ def _aggregate_launches(trials) -> Dict[str, int]:
     return totals
 
 
+def _spearman(xs: Sequence[float], ys: Sequence[float]) -> Optional[float]:
+    """Tie-aware (average-rank) Spearman rank correlation, pure python —
+    the report layer must not grow a scipy dependency.  Returns ``None``
+    when either side is constant (correlation undefined)."""
+
+    def ranks(vs: Sequence[float]) -> List[float]:
+        order = sorted(range(len(vs)), key=lambda i: vs[i])
+        out = [0.0] * len(vs)
+        i = 0
+        while i < len(order):
+            j = i
+            while j + 1 < len(order) and vs[order[j + 1]] == vs[order[i]]:
+                j += 1
+            avg = (i + j) / 2.0 + 1.0
+            for k in range(i, j + 1):
+                out[order[k]] = avg
+            i = j + 1
+        return out
+
+    rx, ry = ranks(list(xs)), ranks(list(ys))
+    n = len(rx)
+    mx, my = sum(rx) / n, sum(ry) / n
+    cov = sum((a - mx) * (b - my) for a, b in zip(rx, ry))
+    vx = sum((a - mx) ** 2 for a in rx)
+    vy = sum((b - my) ** 2 for b in ry)
+    if vx <= 0.0 or vy <= 0.0:
+        return None
+    return cov / math.sqrt(vx * vy)
+
+
 def _dominates(a: List[float], b: List[float], signs: List[float]) -> bool:
     """True if a is no worse than b on every objective and better on one
     (after sign-normalizing so every objective minimizes)."""
@@ -292,6 +361,10 @@ class ExplorationReport:
     cache: Optional[Dict[str, Any]]
     wall_clock_s: float
     toolchain: Dict[str, str]
+    # fidelity-cascade funnel (asked/screened/infeasible/promoted/compiled
+    # counts, per-stage cut counts, proxy-vs-final Spearman); None when
+    # the experiment has no fidelity section
+    fidelity: Optional[Dict[str, Any]] = None
     # kernel-schedule tuning summary (mode, schedules chosen for the best
     # trial, tune/cache-hit counters, tune wall-clock); None when the
     # experiment has no kernel_tuning section or mode is off
@@ -400,7 +473,11 @@ class Explorer:
                 # batch of slow trials
                 study.optimize(objective, remaining,
                                n_workers=spec.executor.n_workers,
-                               timeout_s=spec.budget.timeout_s)
+                               timeout_s=spec.budget.timeout_s,
+                               screen=(objective.screen_cohort
+                                       if spec.fidelity is not None else None),
+                               cohort=(spec.fidelity.generation
+                                       if spec.fidelity is not None else None))
         finally:
             if spec.faults is not None:
                 from repro_torch import faults as _faults
@@ -456,6 +533,68 @@ class Explorer:
             if not any(_dominates(other, vals, signs) for _, other in pts)
         ]
         return [_trial_summary(t, vals) for t, vals in front]
+
+    def _fidelity_report(self) -> Optional[Dict[str, Any]]:
+        """Per-stage funnel + proxy-vs-final rank correlation.
+
+        ``compiled`` is how many candidates the run placed and ran once
+        (:meth:`TorchGenerator.generate` calls: per-pid max of the
+        cumulative ``generates`` counter, summed across workers — same
+        discipline as the cache aggregation): with a warm cache it is
+        *below* the promoted count, and screened-out candidates never
+        contribute.  A final stage of analytic or ``metric: modelled``
+        criteria generates nothing, so ``compiled`` is 0 there, where the
+        reference counts an XLA compile for each modelled candidate.  ``spearman`` correlates each
+        screening stage's scalarized score with the final scalarized
+        value over trials that completed the full evaluation — the
+        proxy-quality number the cascade's keep rules implicitly bet on."""
+        from repro_torch.evaluation.cascade import STAGE_SCORE_ATTR
+        from repro_torch.search.trial import TrialState
+
+        spec, study = self.spec, self.study
+        if spec.fidelity is None:
+            return None
+        screened_by_stage: Dict[str, int] = {}
+        infeasible_by_stage: Dict[str, int] = {}
+        promoted = 0
+        for t in study.trials:
+            stage = t.user_attrs.get("fidelity_stage")
+            if stage is None:
+                continue
+            if stage == "promoted":
+                promoted += 1
+            elif t.state == TrialState.SCREENED:
+                screened_by_stage[stage] = screened_by_stage.get(stage, 0) + 1
+            elif t.state == TrialState.INFEASIBLE:
+                infeasible_by_stage[stage] = infeasible_by_stage.get(stage, 0) + 1
+        per_pid: Dict[int, int] = {}
+        for t in study.trials:
+            w = t.user_attrs.get("worker")
+            if isinstance(w, dict) and "pid" in w:
+                per_pid[w["pid"]] = max(per_pid.get(w["pid"], 0),
+                                        int(w.get("generates", 0)))
+        spearman: Dict[str, Optional[float]] = {}
+        finals = [t for t in study.completed_trials if t.values]
+        for s in spec.fidelity.stages:
+            key = STAGE_SCORE_ATTR + s.name
+            pairs = [(float(t.user_attrs[key]), float(t.values[0]))
+                     for t in finals if key in t.user_attrs]
+            spearman[s.name] = (_spearman([p[0] for p in pairs],
+                                          [p[1] for p in pairs])
+                                if len(pairs) >= 3 else None)
+        return {
+            "generation": spec.fidelity.generation,
+            "funnel": {
+                "asked": len(study.trials),
+                "screened": sum(screened_by_stage.values()),
+                "infeasible": sum(infeasible_by_stage.values()),
+                "promoted": promoted,
+                "compiled": sum(per_pid.values()),
+            },
+            "screened_by_stage": screened_by_stage,
+            "infeasible_by_stage": infeasible_by_stage,
+            "spearman": spearman,
+        }
 
     def _kernel_tuning_report(self) -> Optional[Dict[str, Any]]:
         """Schedules chosen (best trial's per-kernel plan), sweep effort
@@ -539,6 +678,7 @@ class Explorer:
             criteria_values=criteria_values,
             pareto_front=self._pareto(),
             cache=_aggregate_cache_stats(study.trials),
+            fidelity=self._fidelity_report(),
             kernel_tuning=self._kernel_tuning_report(),
             wall_clock_s=wall_clock,
             toolchain=toolchain_versions(),

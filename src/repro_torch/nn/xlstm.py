@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn import initializers as init
+from repro_torch.nn.norms import acc, acc_dtype
 from repro_torch.nn.ssm import causal_conv1d
 
 IMPLS = ("xla", "pallas")
@@ -110,15 +111,15 @@ def mlstm_chunked(q, k, v, i_log, f_log, chunk, initial=None):
     qc = q.reshape(b, nc, qq, h, p)
     kc = k.reshape(b, nc, qq, h, p) * scale
     vc = v.reshape(b, nc, qq, h, p)
-    ic = i_log.reshape(b, nc, qq, h).float()
-    fc = f_log.reshape(b, nc, qq, h).float()
+    ic = acc(i_log.reshape(b, nc, qq, h))
+    fc = acc(f_log.reshape(b, nc, qq, h))
     fcum = torch.cumsum(fc, dim=2)  # inclusive within chunk
     ftot = fcum[:, :, -1]  # (b,nc,h)
 
     if initial is None:
-        c_s = torch.zeros((b, h, p, p), dtype=torch.float32, device=q.device)
-        n_s = torch.zeros((b, h, p), dtype=torch.float32, device=q.device)
-        m_s = torch.full((b, h), float("-inf"), dtype=torch.float32, device=q.device)
+        c_s = torch.zeros((b, h, p, p), dtype=acc_dtype(q), device=q.device)
+        n_s = torch.zeros((b, h, p), dtype=acc_dtype(q), device=q.device)
+        m_s = torch.full((b, h), float("-inf"), dtype=acc_dtype(q), device=q.device)
     else:
         c_s, n_s, m_s = initial
     tri = torch.tril(torch.ones((qq, qq), dtype=torch.bool, device=q.device))
@@ -138,10 +139,10 @@ def mlstm_chunked(q, k, v, i_log, f_log, chunk, initial=None):
         intra_w = torch.exp(a_log - m_i[..., None])
         inter_w = torch.exp(b_log - m_i)
 
-        qkT = torch.einsum("bqhp,bjhp->bhqj", qk_, kk_).float()
+        qkT = acc(torch.einsum("bqhp,bjhp->bhqj", qk_, kk_))
         s_intra = qkT * intra_w
-        h_num = torch.einsum("bhqj,bjhp->bqhp", s_intra.to(vk_.dtype), vk_).float()
-        qf = qk_.float()
+        h_num = acc(torch.einsum("bhqj,bjhp->bqhp", s_intra.to(vk_.dtype), vk_))
+        qf = acc(qk_)
         h_num = h_num + torch.einsum("bqhp,bhpd->bqhd", qf, c_s) * inter_w.transpose(1, 2)[..., None]
         denom = s_intra.sum(dim=-1)  # (b,h,q)
         denom = denom + torch.einsum("bqhp,bhp->bhq", qf, n_s) * inter_w
@@ -153,8 +154,8 @@ def mlstm_chunked(q, k, v, i_log, f_log, chunk, initial=None):
         m_next = torch.maximum(ftot_k + m_s, torch.amax(w_log, dim=-1))
         m_next = torch.clamp_min(m_next, BIG_NEG)
         kw = torch.exp(w_log - m_next[..., None])  # (b,h,q)
-        kwf = kk_.float() * kw.transpose(1, 2)[..., None]  # (b,q,h,p)
-        c_upd = torch.einsum("bjhp,bjhd->bhpd", kwf, vk_.float())
+        kwf = acc(kk_) * kw.transpose(1, 2)[..., None]  # (b,q,h,p)
+        c_upd = torch.einsum("bjhp,bjhd->bhpd", kwf, acc(vk_))
         n_upd = kwf.sum(dim=1)
         carry = torch.exp(ftot_k + m_s - m_next)[..., None]
         c_s = carry[..., None] * c_s + c_upd
@@ -174,10 +175,10 @@ def mlstm_step(state, q_t, k_t, v_t, i_t, f_t):
     m_next = torch.clamp_min(m_next, BIG_NEG)
     f_w = torch.exp(f_t + m_s - m_next)[..., None]
     i_w = torch.exp(i_t - m_next)[..., None]
-    kf, vf = k_t.float(), v_t.float()
+    kf, vf = acc(k_t), acc(v_t)
     c_next = f_w[..., None] * c_s + i_w[..., None] * kf[..., :, None] * vf[..., None, :]
     n_next = f_w * n_s + i_w * kf
-    qf = q_t.float()
+    qf = acc(q_t)
     num = torch.einsum("bhp,bhpd->bhd", qf, c_next)
     den = torch.maximum(torch.einsum("bhp,bhp->bh", qf, n_next).abs(), torch.exp(-m_next))
     h = num / den[..., None]
@@ -189,14 +190,14 @@ def mlstm_recurrent(q, k, v, i_log, f_log, initial=None):
     b, l, h, p = q.shape
     if initial is None:
         initial = (
-            torch.zeros((b, h, p, p), dtype=torch.float32, device=q.device),
-            torch.zeros((b, h, p), dtype=torch.float32, device=q.device),
-            torch.full((b, h), float("-inf"), dtype=torch.float32, device=q.device),
+            torch.zeros((b, h, p, p), dtype=acc_dtype(q), device=q.device),
+            torch.zeros((b, h, p), dtype=acc_dtype(q), device=q.device),
+            torch.full((b, h), float("-inf"), dtype=acc_dtype(q), device=q.device),
         )
     state, hs = initial, []
     for t in range(l):
         state, h_t = mlstm_step(state, q[:, t], k[:, t], v[:, t],
-                                i_log[:, t].float(), f_log[:, t].float())
+                                acc(i_log[:, t]), acc(f_log[:, t]))
         hs.append(h_t)
     return torch.stack(hs, dim=1), state
 
@@ -204,11 +205,11 @@ def mlstm_recurrent(q, k, v, i_log, f_log, initial=None):
 def _group_norm_heads(x, scale, eps=1e-6):
     """Per-head group norm over the head dim. x: (B,L,H,P), scale: (H*P,)."""
     b, l, h, p = x.shape
-    xf = x.float()
+    xf = acc(x)
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
     y = (xf - mu) * (var + eps) ** -0.5
-    return (y.reshape(b, l, h * p) * scale.float()).to(x.dtype)
+    return (y.reshape(b, l, h * p) * acc(scale)).to(x.dtype)
 
 
 def _mlstm_qkv_gates(params, cfg: MLSTMConfig, x, conv_state=None):
@@ -227,7 +228,7 @@ def _mlstm_qkv_gates(params, cfg: MLSTMConfig, x, conv_state=None):
     q = torch.einsum("blhp,hpk->blhk", xch, params["wq"])
     k = torch.einsum("blhp,hpk->blhk", xch, params["wk"])
     v = torch.einsum("blhp,hpk->blhk", xmh, params["wv"])
-    if_pre = xm.float() @ params["w_if"] + params["b_if"]
+    if_pre = acc(xm) @ params["w_if"] + params["b_if"]
     i_log = if_pre[..., : cfg.n_heads]
     f_log = F.logsigmoid(if_pre[..., cfg.n_heads :])
     return q, k, v, i_log, f_log, z, new_conv
@@ -304,9 +305,9 @@ def slstm_cell_step(state, x_gates, r_w, n_heads, d_head):
     b = x_gates.shape[0]
     # recurrent contribution: block-diagonal per head
     h_heads = h_s.reshape(b, n_heads, d_head)
-    r_contrib = torch.einsum("bhp,hpk->bhk", h_heads.float(), r_w.float())
+    r_contrib = torch.einsum("bhp,hpk->bhk", acc(h_heads), acc(r_w))
     # gate layout is per-head-major: (head, gate-kind, unit)
-    gates = (x_gates.float().reshape(b, n_heads, 4, d_head)
+    gates = (acc(x_gates).reshape(b, n_heads, 4, d_head)
              + r_contrib.reshape(b, n_heads, 4, d_head))
     i_raw, f_raw = gates[:, :, 0], gates[:, :, 1]
     z_raw, o_raw = gates[:, :, 2], gates[:, :, 3]
@@ -338,9 +339,9 @@ def slstm_block_apply(params, cfg: SLSTMConfig, x, cache=None):
     else:
         xc = F.silu(causal_conv1d(x, params["conv_w"], params["conv_b"]))
         state = (
-            torch.zeros(hp, dtype=torch.float32, device=x.device),
-            torch.zeros(hp, dtype=torch.float32, device=x.device),
-            torch.full(hp, BIG_NEG, dtype=torch.float32, device=x.device),
+            torch.zeros(hp, dtype=acc_dtype(x), device=x.device),
+            torch.zeros(hp, dtype=acc_dtype(x), device=x.device),
+            torch.full(hp, BIG_NEG, dtype=acc_dtype(x), device=x.device),
             torch.zeros(hp, dtype=x.dtype, device=x.device),
         )
     x_gates_all = xc @ params["w_gates"] + params["b_gates"]
@@ -360,7 +361,7 @@ def slstm_block_apply(params, cfg: SLSTMConfig, x, cache=None):
         h_seq = torch.stack(hs, dim=1).reshape(b, l, d)
 
     # output: group norm + gated up/down projection
-    xf = h_seq.float().reshape(b, -1, cfg.n_heads, cfg.d_head)
+    xf = acc(h_seq).reshape(b, -1, cfg.n_heads, cfg.d_head)
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
     y = ((xf - mu) * (var + 1e-6) ** -0.5).reshape(b, -1, d).to(x.dtype) * params["norm_scale"]

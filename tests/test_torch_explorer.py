@@ -81,11 +81,8 @@ def test_example_experiments_parse_as_in_jax_or_name_their_unported_section(path
 
 
 @pytest.mark.parametrize("section, value, item", [
-    ("fidelity", {"stages": [{"name": "zero_cost", "criteria": ["synflow"],
-                              "keep": {"top_k": 2}}]}, "item 5"),
     ("serving", {"max_batch": 4}, "item 10"),
     ("executor", {"backend": "remote", "workers": ["127.0.0.1:7471"]}, "item 12"),
-    ("criteria", [{"estimator": "latency_s", "params": {"metric": "modelled"}}], "item 3"),
     ("axes", {"targets": ["host_cpu"]}, "item 6"),
 ])
 def test_unported_sections_raise_a_named_not_implemented_error(section, value, item):
@@ -249,9 +246,10 @@ def test_list_components_names_the_ported_components(capsys):
     assert main(["--list-components"]) == 0
     out = capsys.readouterr().out
     for name in ("serial", "thread", "process", "median", "successive_halving",
-                 "latency_s", "peak_bytes", "h100", "host_cpu", "tpe"):
+                 "latency_s", "peak_bytes", "h100", "host_cpu", "tpe", "synflow",
+                 "grad_norm"):
         assert name in out
-    assert "remote" not in out and "synflow" not in out
+    assert "remote" not in out
 
 
 def test_jax_and_torch_values_under_one_key_are_not_read_as_each_other(tmp_path):

@@ -855,3 +855,52 @@ def test_process_backend_latencies_match_serial_on_the_card(tmp_path):
     assert serial.keys() == process.keys()
     for sig, latency in serial.items():
         assert abs(process[sig] / latency - 1) <= 0.05, (sig, latency, process[sig])
+
+
+def _grad_inputs(device):
+    """Small inputs of each kernel, every float tensor requiring a gradient."""
+    gen = torch.Generator().manual_seed(0)
+
+    def t(*shape):
+        return torch.randn(*shape, generator=gen).to(device).requires_grad_(True)
+
+    return {
+        "flash_attention": (lambda *a: ops.flash_attention(*a, causal=True),
+                            (t(1, 16, 2, 16), t(1, 16, 1, 16), t(1, 16, 1, 16))),
+        "ssm_scan": (lambda x, dt, a, b, c: ops.ssm_scan(x, dt.abs(), -a.abs(), b, c, chunk=8),
+                     (t(1, 16, 2, 8), t(1, 16, 2), t(2), t(1, 16, 1, 8), t(1, 16, 1, 8))),
+        "mlstm_scan": (lambda q, k, v, i, f: ops.mlstm_scan(q, k, v, i, -f.abs(), chunk=8),
+                       (t(1, 16, 2, 8), t(1, 16, 2, 8), t(1, 16, 2, 8), t(1, 16, 2),
+                        t(1, 16, 2))),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssm_scan", "mlstm_scan"])
+def test_plain_versions_stay_differentiable(kernel):
+    """On the CPU a wrapper runs its plain version, which autograd goes
+    through: the gradient guard is the CUDA kernels' alone."""
+    fn, args = _grad_inputs("cpu")[kernel]
+    out = fn(*args)
+    out = out[0] if isinstance(out, tuple) else out
+    grads = torch.autograd.grad(out.square().sum(), args, allow_unused=True)
+    assert out.grad_fn is not None
+    assert all(g is not None and torch.isfinite(g).all() for g in grads[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssm_scan", "mlstm_scan"])
+def test_cuda_kernels_refuse_to_cut_a_gradient(kernel):
+    """A forward-only kernel on inputs that need a gradient raises, naming
+    the item that brings backward kernels, and launches nothing; under
+    no_grad the same call launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    fn, args = _grad_inputs("cuda")[kernel]
+    before = ops.LAUNCHES[kernel]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        fn(*args)
+    assert ops.LAUNCHES[kernel] == before
+    with torch.no_grad():
+        fn(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[kernel] == before + 1
