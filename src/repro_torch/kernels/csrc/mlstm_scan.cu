@@ -43,7 +43,7 @@
 // tolerance (tests/test_torch_kernels.py models both).  The panel pass is one
 // block of 4 warps per (batch, head, chunk, 64 x 64 tile on or below the
 // diagonal): 3 blocks a chunk at Q = 128, 192 at the forward shape, where the
-// fp32 path has 64; the diagonal tile's upper right quarter is skipped and
+// fp32 path has 128; the diagonal tile's upper right quarter is skipped and
 // the tiles above the diagonal are neither computed nor written.  The state
 // pass has 8 warps, each 32 x 16 of a 128-row block of h and 32 x 32 of a
 // 256-row block of the C update.  Tiles of q, k, v and S come from L2
@@ -55,20 +55,33 @@
 // chip_smoke.py drives this path through the xlstm-1.3b forward with bf16
 // weights (its xlstm_forward_bf16 phase).
 //
-// fp32 inputs (namespace simt): the products on the CUDA cores, 4 x 4
-// register blocks fed by 16-byte shared loads, each sum in the order of the
-// plain version's fp32 matrix products (ascending over P or over the chunk).
-// Tensor-core versions of the fp32 path were built and measured on an H100
-// (PERF.md; scripts/mlstm_variants.py, scripts/xlstm_logits_variants.py):
-// split-TF32 and fp64 products ran the call in 1.27 and 1.39 ms against 2.91
-// and held the kernel's 1e-4 tolerance.  But chip_smoke.py holds the
-// xlstm-1.3b forward's logits to 1e-3 of their max from impl="xla", and with
-// random weights that forward moves its logits 24.6 times that tolerance
-// under noise of 1e-7 of max |h| on its mLSTM outputs.  Over four draws of
-// weights and tokens, this path's logits landed at 0.27-0.31 of the
-// tolerance and split-TF32's at 0.39-432 (above it in three draws).  Why
-// this path tracks the xla forward so closely is not known: that both sum
-// in the same order is a guess that no run has tested.
+// fp32 inputs (namespace simt): the products on the CUDA cores, each output
+// one fp32 FMA chain in the order of the plain version's fp32 matrix
+// products (ascending over P or over the chunk; above chunk 416 at P = 1024,
+// a fresh sum a staged tile of 32 steps, added in order), and every other
+// sum in its first version's order, so that h is bit for bit what this path
+// gave before it was restructured.  The xlstm-1.3b forward's logits check
+// (chip_smoke.py's xlstm_forward phase: the same weights' impl="xla" forward
+// in float64, within 1e-3 of max |logits| plus twice the fp32 impl="xla"
+// forward's own error) passes no tensor-core version: over four draws of
+// weights and tokens split-TF32 (m16n8k8, hi*hi + hi*lo + lo*hi) read 0.78,
+// 3.8, 0.42 and 317 of it, fp64 mma.sync (m16n8k8, exact products, fp64
+// sums) 1.27, 1.39, 0.60 and 314, and this order 0.29, 0.45, 0.39 and 0.50;
+// both held the kernel's own 1e-4 tolerance at the forward's shape (PERF.md;
+// scripts/mlstm_variants.py, scripts/xlstm_logits_variants.py).  Noise of
+// 1e-7 of max |h| on its mLSTM outputs moves that model's logits 24.6 times
+// 1e-3 of their max, so only a kernel that rounds as cuBLAS's fp32 products
+// do stays inside the check on every draw.
+// The structure is rebuilt for parallelism: the panel pass is one block per
+// (batch, head, chunk, 64 chunk rows), 128 at the forward shape, which walks
+// its row's panel tiles on or below the diagonal in order, carrying its
+// rows' partial row sums from tile to tile; the m chain is run 8 chunks a
+// round, a warp a chunk.  In the state pass each warp updates its own 128
+// rows of C, 8 x 8 a lane, from its own two-stage cp.async ring of k (no
+// barrier across the block; scaled in place by the lane that copied it), v
+// lands by cp.async while the chunk's scalars are read, and the other
+// contractions keep two staged tiles in flight through registers (q read by
+// rows, eight threads a row, and stored transposed and swizzled).
 //
 // Bound.  At the forward shape of xlstm-1.3b (B = 1, L = 2048, H = 4,
 // P = 1024, Q = 128) a call is about 36.6 GFLOP of products (2 Q (Q + 1) P +
@@ -78,15 +91,15 @@
 // split-TF32's 165 TFLOP/s (chip_smoke.py's fp32 bound; 0.55 ms at the CUDA
 // cores' 67), 0.037 ms in bf16 at 989 TFLOP/s.
 //
-// What still holds it back (PERF.md has the measured times): in bf16, every
-// one of the 32 column blocks of a head streams the whole chunk's q and k
-// from L2 (about 1.1 GB a call), which alone takes about 0.6 ms of the state
-// pass, and the state pass is one block of 8 warps a SM (C's slice fills
-// shared memory), so copies and products overlap only in part; a
-// thread-block cluster sharing the staged tiles would divide the streaming.
-// mma.sync, not wgmma; every thread issues copies.  The fp32 path runs at
-// about a fifth of the CUDA cores' rate, and a tensor-core fp32 path waits on
-// a logits check that it can pass (ROADMAP Queue 3).
+// What still holds it back (PERF.md has the measured times): every one of
+// the 32 column blocks of a head streams the whole chunk's q and k from L2
+// (about 1.1 GB a call in bf16, twice that in fp32), and the state pass is
+// one block of 8 warps a SM (C's slice fills shared memory), so copies and
+// products overlap only in part; a thread-block cluster sharing the staged
+// tiles would divide the streaming.  In bf16, mma.sync, not wgmma; every
+// thread issues copies.  In fp32, q C and S v are 4 x 4 a thread (a round
+// of h is 128 x 32) and wait on a block barrier a staged tile: taking the
+// products out of the state pass leaves about half its time (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -122,6 +135,10 @@ __device__ __forceinline__ void cp_async_commit() {
 // Waits until none of this thread's committed copy groups is pending.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// Waits until at most the newest of this thread's committed groups is pending.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -203,6 +220,13 @@ constexpr int KT = 32;       // reduction steps per staged tile
 constexpr int LDA = RB + 4;  // row of a staged k-major tile
 constexpr int RB2 = 128;     // rows of a pass-2 tile (chunk rows, rows of P)
 constexpr int LDA2 = RB2 + 4;
+// the update with v staged whole: each warp's rows of C, the rows of C a
+// warp takes a round, and the chunk rows a stage of its ring
+constexpr int WARP_ROWS = MAX_P / (THREADS / 32);
+constexpr int WR = 64;
+constexpr int KU = 8;
+static_assert(THREADS / 32 * 2 * KU * WR <= 2 * KT * LDA2, "the warps' rings fit the block's");
+static_assert(MAX_P % THREADS == 0 && THREADS % RB == 0, "whole shares of P and of the rows");
 
 struct Params {
   const void* q;
@@ -228,7 +252,8 @@ __host__ __device__ inline long long scratch_floats(int B, int L, int H, int P, 
   return chunks * (q64 * q64 + 4 * q64 + P + 1);
 }
 
-__host__ inline int panel_smem(int Q) { return 4 * (5 * round_up(Q, RB) + 2 * KT * LDA); }
+// two stages of the staged q and k tiles
+__host__ inline int panel_smem(int Q) { return 4 * (4 * round_up(Q, RB) + 4 * KT * LDA); }
 // STREAM: the chunk's v columns come through a two-stage ring of KT-row
 // tiles beside the staged A tiles, in place of all Q rows staged at once, so
 // that shared memory no longer grows with the chunk's rows times TV.
@@ -239,26 +264,42 @@ __host__ inline int state_smem(int P, int Q) {
   return 4 * (p128 * TV + p128 + vrows * TV + 2 * KT * LDA2 + 4 * round_up(Q, RB) + THREADS);
 }
 
-// dst[pp][ii] = src[(r0 + ii) * rs + p0 + pp] for a 64-row, KT-column tile
-// (k-major, rows of LDA floats); zero past row nrows or column P.  Eight
-// threads read a row's 32 elements together.
-__device__ __forceinline__ void stage_transposed(float* dst, const float* src, long long rs, int r0,
-                                                 int nrows, int p0, int P) {
-  for (int e = threadIdx.x; e < RB * (KT / 4); e += THREADS) {
-    const int ii = e / (KT / 4), pp = 4 * (e % (KT / 4));
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + ii < nrows && p0 + pp < P) x = load4(src + (long long)(r0 + ii) * rs + p0 + pp);
-    dst[(pp + 0) * LDA + ii] = x.x;
-    dst[(pp + 1) * LDA + ii] = x.y;
-    dst[(pp + 2) * LDA + ii] = x.z;
-    dst[(pp + 3) * LDA + ii] = x.w;
+// A 64-row, KT-column tile in flight: two of its 512 quads a thread.
+struct Tile2 {
+  float4 r[2];
+};
+
+// Rows r0.. (64) and columns p0.. (KT) of src (rows of rs floats), zero past
+// row nrows or column P.  Eight threads read a row's 32 elements together.
+__device__ __forceinline__ void fetch_panel(Tile2& t, const float* src, long long rs, int r0,
+                                            int nrows, int p0, int P) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int e = threadIdx.x + u * THREADS, ii = e / (KT / 4), pp = 4 * (e % (KT / 4));
+    t.r[u] = (r0 + ii < nrows && p0 + pp < P) ? load4(src + (long long)(r0 + ii) * rs + p0 + pp)
+                                               : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+// That tile stored k-major: dst[pp][ii], rows of LDA floats.
+__device__ __forceinline__ void put_panel(const Tile2& t, float* dst) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int e = threadIdx.x + u * THREADS, ii = e / (KT / 4), pp = 4 * (e % (KT / 4));
+    dst[(pp + 0) * LDA + ii] = t.r[u].x;
+    dst[(pp + 1) * LDA + ii] = t.r[u].y;
+    dst[(pp + 2) * LDA + ii] = t.r[u].z;
+    dst[(pp + 3) * LDA + ii] = t.r[u].w;
   }
 }
 
 // ---------------------------------------------------------------------------
-// pass 1: the chunk's panel and per-row scalars
+// pass 1: the chunk's panel and per-row scalars, one block per 64 rows
 // ---------------------------------------------------------------------------
 
+// One block per (batch, head, chunk, 64 rows of the chunk): the row tile's
+// panel tiles on or below the diagonal, in order, each thread carrying its
+// rows' partial row sums from tile to tile as a block over the whole chunk
+// did, and a share of the chunk's n update.
 // BLOCKED (the chunks above 416 at P = 1024, which also stream v in pass 2):
 // each staged tile's products go into a fresh accumulator added to the
 // total, so a long sum's rounding grows with its tiles, not its terms.
@@ -268,92 +309,128 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
   const int Q = p.Q, q64 = round_up(Q, RB);
   float* fcum = smem;        // (q64,)
   float* igs = fcum + q64;   // (q64,)
-  float* mrow = igs + q64;   // (q64,)
-  float* rsum = mrow + q64;  // (q64,)
-  float* kws = rsum + q64;   // (q64,)
-  float* As = kws + q64;     // (KT, LDA): q^T
-  float* Bs = As + KT * LDA; // (KT, LDA): k^T
-  __shared__ float sh_mprev, sh_mnext, sh_ftot;
+  float* kws = igs + q64;    // (q64,)
+  float* mrow = kws + q64;   // (q64,): the block's rows from 0
+  float* As = mrow + q64;    // 2 x (KT, LDA): q^T
+  float* Bs = As + 2 * KT * LDA;  // 2 x (KT, LDA): k^T
+  __shared__ float sh_mprev, sh_mnext, sh_ftot, sh_round[2 * (THREADS / 32)];
 
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int ti = blockIdx.x, c = blockIdx.y, bh = blockIdx.z, h = bh % p.H, b = bh / p.H;
+  const int i0 = ti * RB;
   const int tid = threadIdx.x;
-  const long long chunk_id = ((long long)b * p.H + h) * p.nc + c;
+  const long long chunk_id = (long long)bh * p.nc + c;
   const float* igp = p.ig + b * p.i_sb + h * p.i_sh;
   const float* fgp = p.fg + b * p.f_sb + h * p.f_sh;
 
-  // 1. the m chain over the chunks up to this one (warp 0): fcum is an
-  // inclusive shuffle scan 32 steps at a time
-  if (tid < 32) {
-    float m = BIG_NEG;
-    for (int cc = 0; cc <= c; ++cc) {
-      const long long l0 = (long long)cc * Q;
-      float run = 0.f;
-      for (int j0 = 0; j0 < Q; j0 += 32) {
-        const int j = j0 + tid;
-        float f = j < Q ? fgp[(l0 + j) * p.f_sl] : 0.f;
+  // 1. the m chain over the chunks up to this one, 8 chunks a round: each
+  // warp takes one, its fcum an inclusive shuffle scan 32 steps at a time,
+  // run once for ftot and again for the max of ftot - fcum_j + i_j (the
+  // same sums in the same order, so no store of the chunk's fcum is needed
+  // but this chunk's); thread 0 then carries m over the round in order
+  const int warp = tid >> 5, lane = tid & 31;
+  // f(j, fcum_j, i_j) for j < Q in order; returns fcum_{Q-1} (the lane
+  // that holds it: past Q the scan adds zeros in another order)
+  auto scan = [&](long long l0, auto f) {
+    float run = 0.f, last = 0.f;
+    for (int j0 = 0; j0 < Q; j0 += 32) {
+      const int j = j0 + lane;
+      float fj = j < Q ? fgp[(l0 + j) * p.f_sl] : 0.f;
+      const float ij = j < Q ? igp[(l0 + j) * p.i_sl] : 0.f;
 #pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const float o = __shfl_up_sync(FULL, f, off);
-          if (tid >= off) f += o;
-        }
-        f += run;
-        if (j < Q) {
-          fcum[j] = f;
-          igs[j] = igp[(l0 + j) * p.i_sl];
-        }
-        run = __shfl_sync(FULL, f, 31);
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_up_sync(FULL, fj, off);
+        if (lane >= off) fj += o;
       }
-      __syncwarp();
-      const float ftot = fcum[Q - 1];
+      fj += run;
+      if (j < Q) f(j, fj, ij);
+      run = __shfl_sync(FULL, fj, 31);
+      last = __shfl_sync(FULL, fj, min(Q - 1 - j0, 31));
+    }
+    return last;
+  };
+  float m = BIG_NEG;  // thread 0's
+  for (int base = 0; base <= c; base += THREADS / 32) {
+    const int cc = base + warp;
+    if (cc <= c) {
+      const long long l0 = (long long)cc * Q;
+      const float ftot = scan(l0, [](int, float, float) {});
       float wmax = -INFINITY;
-      for (int j = tid; j < Q; j += 32) wmax = fmaxf(wmax, ftot - fcum[j] + igs[j]);
+      scan(l0, [&](int j, float fj, float ij) {
+        wmax = fmaxf(wmax, ftot - fj + ij);
+        if (cc == c) {
+          fcum[j] = fj;
+          igs[j] = ij;
+        }
+      });
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) wmax = fmaxf(wmax, __shfl_xor_sync(FULL, wmax, off));
-      const float m_next = fmaxf(fmaxf(ftot + m, wmax), BIG_NEG);
-      if (cc < c) {
-        m = m_next;
-      } else if (tid == 0) {
-        sh_mprev = m;
-        sh_mnext = m_next;
-        sh_ftot = ftot;
+      if (lane == 0) {
+        sh_round[2 * warp] = ftot;
+        sh_round[2 * warp + 1] = wmax;
       }
-      __syncwarp();  // every lane has read fcum before the next chunk writes it
     }
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 0; w < THREADS / 32 && base + w <= c; ++w) {
+        const float ftot = sh_round[2 * w];
+        const float m_next = fmaxf(fmaxf(ftot + m, sh_round[2 * w + 1]), BIG_NEG);
+        if (base + w == c) {
+          sh_mprev = m;
+          sh_mnext = m_next;
+          sh_ftot = ftot;
+        }
+        m = m_next;
+      }
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // 2. per-row scalars: the stabiliser m_i is the row max of the same a_ij
   // the panel weights use
   const float m_prev = sh_mprev, m_next = sh_mnext, ftot = sh_ftot;
   float* rows = p.rows + chunk_id * 4 * q64;
-  for (int i = tid; i < q64; i += THREADS) {
-    float mi = 0.f, iw = 0.f, e = 0.f, kw = 0.f;
+  for (int j = tid; j < q64; j += THREADS)
+    kws[j] = j < Q ? expf(ftot - fcum[j] + igs[j] - m_next) : 0.f;
+  {  // the row maxima of a_ij in four parts (a max is exact in any order),
+     // in the staging space before the tiles use it
+    const int r = tid % RB, quarter = tid / RB, i = i0 + r;
+    float amax = -INFINITY;
     if (i < Q) {
       const float fi = fcum[i];
-      float amax = -INFINITY;
-      for (int j = 0; j <= i; ++j) amax = fmaxf(amax, fi - fcum[j] + igs[j]);
+      for (int j = quarter; j <= i; j += THREADS / RB) amax = fmaxf(amax, fi - fcum[j] + igs[j]);
+    }
+    As[quarter * RB + r] = amax;
+  }
+  __syncthreads();
+  for (int r = tid; r < RB; r += THREADS) {
+    const int i = i0 + r;
+    float mi = 0.f, iw = 0.f, e = 0.f;
+    if (i < Q) {
+      const float fi = fcum[i];
+      const float amax = fmaxf(fmaxf(As[r], As[RB + r]), fmaxf(As[2 * RB + r], As[3 * RB + r]));
       const float b_log = fi + m_prev;
       mi = fmaxf(fmaxf(amax, b_log), BIG_NEG);
       iw = expf(b_log - mi);
       e = expf(-mi);
-      kw = expf(ftot - fi + igs[i] - m_next);
     }
-    mrow[i] = mi;
-    rsum[i] = 0.f;
-    kws[i] = kw;
+    mrow[r] = mi;
     rows[q64 + i] = iw;
     rows[2 * q64 + i] = e;
-    rows[3 * q64 + i] = kw;
   }
-  if (tid == 0) p.carry[chunk_id] = expf(ftot + m_prev - m_next);
-  __syncthreads();
+  if (ti == 0 && tid == 0) p.carry[chunk_id] = expf(ftot + m_prev - m_next);
+  __syncthreads();  // kws is whole, and the row maxima are read before the tiles land
+  for (int r = tid; r < RB; r += THREADS) rows[3 * q64 + i0 + r] = kws[i0 + r];
 
   // 3. the n update of the chunk, u = sum_j (k_j P^-1/2) exp(w_j - m'), once
-  // here rather than in every value-column block of pass 2
+  // here rather than in every value-column block of pass 2; its columns
+  // shared among the first half of the chunk's row tiles, which have the
+  // fewer panel tiles
   const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh + (long long)c * Q * p.q_sl;
   const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh + (long long)c * Q * p.k_sl;
-  for (int pq = 4 * tid; pq < p.P; pq += 4 * THREADS) {
+  const int u_tiles = (gridDim.x + 1) / 2;
+  for (int pq = 4 * (tid + THREADS * ti); ti < u_tiles && pq < p.P; pq += 4 * THREADS * u_tiles) {
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
     for (int j = 0; j < Q; ++j) {
       const float4 x = load4(kp + j * p.k_sl + pq);
       const float w = kws[j];
@@ -365,68 +442,91 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
     *reinterpret_cast<float4*>(p.u + chunk_id * p.P + pq) = acc;
   }
 
-  // 4. the panel, 64 x 64 tiles on or below the diagonal; a thread owns rows
-  // i0 + 4 ty + r and columns j0 + 4 tx + cc
+  // 4. the row tile's panel, its 64 x 64 tiles on or below the diagonal in
+  // order; a thread owns rows i0 + 4 ty + r and columns j0 + 4 tx + cc.
+  // Stage s is tile s / nps, columns p0 = (s % nps) KT of P; stage s + 1 is
+  // read into registers while the block computes on stage s.
   float* panel = p.panel + chunk_id * q64 * q64;
   const int ty = tid / 16, tx = tid % 16;
-  for (int i0 = 0; i0 < q64; i0 += RB) {
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
-    // the tiles above the diagonal are all masked: zeros, which pass 2
-    // reads in its 128-row tiles
-    for (int j0 = i0 + RB; j0 < q64; j0 += RB)
-      for (int e = tid; e < RB * RB / 4; e += THREADS)
-        *reinterpret_cast<float4*>(panel + (long long)(j0 + e / (RB / 4)) * q64 + i0 +
-                                   4 * (e % (RB / 4))) = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int j0 = 0; j0 <= i0; j0 += RB) {
-      float acc[4][4] = {};
-      for (int p0 = 0; p0 < p.P; p0 += KT) {
-        stage_transposed(As, qp, p.q_sl, i0, Q, p0, p.P);
-        stage_transposed(Bs, kp, p.k_sl, j0, Q, p0, p.P);
-        __syncthreads();
-        float blk[4][4] = {};
-        float (&sum)[4][4] = BLOCKED ? blk : acc;
-#pragma unroll 8
-        for (int kk = 0; kk < KT; ++kk) {
-          const float4 a = *reinterpret_cast<const float4*>(As + kk * LDA + 4 * ty);
-          const float4 bv = *reinterpret_cast<const float4*>(Bs + kk * LDA + 4 * tx);
+  // the tiles above the diagonal are all masked: zeros, which pass 2 reads
+  // in its 128-row tiles
+  for (int j0 = i0 + RB; j0 < q64; j0 += RB)
+    for (int e = tid; e < RB * RB / 4; e += THREADS)
+      *reinterpret_cast<float4*>(panel + (long long)(j0 + e / (RB / 4)) * q64 + i0 +
+                                 4 * (e % (RB / 4))) = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int nps = (p.P + KT - 1) / KT, n = (ti + 1) * nps;
+  Tile2 ta, tb;
+  auto fetch = [&](int s) {
+    const int p0 = s % nps * KT;
+    fetch_panel(ta, qp, p.q_sl, i0, Q, p0, p.P);
+    fetch_panel(tb, kp, p.k_sl, s / nps * RB, Q, p0, p.P);
+  };
+  fetch(0);
+  put_panel(ta, As);
+  put_panel(tb, Bs);
+  __syncthreads();
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[4][4];
+  for (int s = 0; s < n; ++s) {
+    const int buf = s & 1;
+    if (s % nps == 0) {
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float ar = get(a, r);
-            sum[r][0] += ar * bv.x;
-            sum[r][1] += ar * bv.y;
-            sum[r][2] += ar * bv.z;
-            sum[r][3] += ar * bv.w;
-          }
-        }
-        if constexpr (BLOCKED) add_tile(acc, blk);
-        __syncthreads();
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) acc[r][cc] = 0.f;
+    }
+    if (s + 1 < n) fetch(s + 1);
+    const float* A = As + buf * KT * LDA;
+    const float* B = Bs + buf * KT * LDA;
+    float blk[4][4] = {};
+    float (&sum)[4][4] = BLOCKED ? blk : acc;
+#pragma unroll 8
+    for (int kk = 0; kk < KT; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(A + kk * LDA + 4 * ty);
+      const float4 bv = *reinterpret_cast<const float4*>(B + kk * LDA + 4 * tx);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float ar = get(a, r);
+        sum[r][0] += ar * bv.x;
+        sum[r][1] += ar * bv.y;
+        sum[r][2] += ar * bv.z;
+        sum[r][3] += ar * bv.w;
       }
+    }
+    if constexpr (BLOCKED) add_tile(acc, blk);
+    if (s % nps == nps - 1) {
+      // the tile is summed: stabilise, mask, store S transposed and add to
+      // the row sums
+      const int j0 = s / nps * RB;
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
         const int j = j0 + 4 * tx + cc;
-        float s[4];
+        float sv[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int i = i0 + 4 * ty + r;
-          s[r] = 0.f;
+          sv[r] = 0.f;
           if (i < Q && j <= i)
-            s[r] = acc[r][cc] * p.scale * expf(fcum[i] - fcum[j] + igs[j] - mrow[i]);
-          part[r] += s[r];
+            sv[r] = acc[r][cc] * p.scale * expf(fcum[i] - fcum[j] + igs[j] - mrow[4 * ty + r]);
+          part[r] += sv[r];
         }
         *reinterpret_cast<float4*>(panel + (long long)j * q64 + i0 + 4 * ty) =
-            make_float4(s[0], s[1], s[2], s[3]);
+            make_float4(sv[0], sv[1], sv[2], sv[3]);
       }
     }
-    // row sums over the 16 threads of a row group (one half-warp)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) part[r] += __shfl_xor_sync(FULL, part[r], off);
-      if (tx == 0) rsum[i0 + 4 * ty + r] = part[r];
+    if (s + 1 < n) {
+      put_panel(ta, As + (buf ^ 1) * KT * LDA);
+      put_panel(tb, Bs + (buf ^ 1) * KT * LDA);
     }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int i = tid; i < q64; i += THREADS) rows[i] = rsum[i];
+  // row sums over the 16 threads of a row group (one half-warp)
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) part[r] += __shfl_xor_sync(FULL, part[r], off);
+    if (tx == 0) rows[i0 + 4 * ty + r] = part[r];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -439,13 +539,20 @@ struct Tile4 {
   float4 r[4];
 };
 
-// acc[r][cc] += sum_kk A[kk][4 ty + r] B[kk][4 tx + cc] over a staged tile:
-// two 16-byte shared loads feed 16 FMAs.
+// The staged q tile of q C holds q's element (i, k) at k LDA2 + (i ^ swq(k)),
+// so that a warp's transposing stores of eight threads a row of q (one
+// coalesced read) fall on different banks.
+__device__ __forceinline__ int swq(int k) { return ((k >> 2) & 7) << 2; }
+
+// acc[r][cc] += sum_kk A[kk][4 ty + r] B[kk][4 tx + cc] over a staged tile
+// (A swizzled as the q tile is, if asked): two 16-byte shared loads feed 16
+// FMAs.
 __device__ __forceinline__ void mma_tile(float (&acc)[4][4], const float* A, const float* B,
-                                         int ty, int tx) {
+                                         int ty, int tx, bool swizzled) {
 #pragma unroll 8
   for (int kk = 0; kk < KT; ++kk) {
-    const float4 a = *reinterpret_cast<const float4*>(A + kk * LDA2 + 4 * ty);
+    const float4 a =
+        *reinterpret_cast<const float4*>(A + kk * LDA2 + (swizzled ? (4 * ty) ^ swq(kk) : 4 * ty));
     const float4 bv = *reinterpret_cast<const float4*>(B + kk * TV + 4 * tx);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -467,13 +574,13 @@ __device__ __forceinline__ void put_rows(const Tile4& t, float* dst) {
   }
 }
 
-// A 128-row, 32-column tile stored transposed: quad e is row e % 128,
-// columns 4 (e / 128); neighbouring threads write neighbouring words.
+// A 128-row, 32-column tile of q stored transposed and swizzled (swq):
+// quad e is row e / 8, columns 4 (e % 8), eight threads a row.
 __device__ __forceinline__ void put_transposed(const Tile4& t, float* dst) {
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
-    const int e = threadIdx.x + u * THREADS;
-    float* d = dst + 4 * (e / RB2) * LDA2 + e % RB2;
+    const int e = threadIdx.x + u * THREADS, pq = 4 * (e % (KT / 4));
+    float* d = dst + pq * LDA2 + ((e / (KT / 4)) ^ pq);
     d[0] = t.r[u].x;
     d[LDA2] = t.r[u].y;
     d[2 * LDA2] = t.r[u].z;
@@ -481,18 +588,27 @@ __device__ __forceinline__ void put_transposed(const Tile4& t, float* dst) {
   }
 }
 
-// A contraction over n staged tiles, double-buffered: tile s + 1 is read
-// from global memory into registers while the block computes on tile s.
+// A contraction over n staged tiles through two stages of shared memory
+// and two tiles of registers: tile s + 2 is read from global memory while
+// the block computes on tile s, so each read has two tiles' compute to land
+// (one tile in flight a SM left most of the state pass waiting on L2).
 template <class Fetch, class Put, class Body>
 __device__ __forceinline__ void pipeline(float* As, int n, Fetch fetch, Put put, Body body) {
-  Tile4 t;
-  fetch(t, 0);
-  put(t, As);
+  float* const A1 = As + KT * LDA2;
+  Tile4 ta, tb;  // the tiles of even and of odd index
+  fetch(ta, 0);
+  if (n > 1) fetch(tb, 1);
+  put(ta, As);
   __syncthreads();
-  for (int s = 0; s < n; ++s) {
-    if (s + 1 < n) fetch(t, s + 1);
-    body(As + (s & 1) * KT * LDA2, s);
-    if (s + 1 < n) put(t, As + ((s + 1) & 1) * KT * LDA2);
+  for (int s = 0; s < n; s += 2) {
+    if (s + 2 < n) fetch(ta, s + 2);
+    body(As, s);
+    if (s + 1 < n) put(tb, A1);
+    __syncthreads();
+    if (s + 1 >= n) break;
+    if (s + 3 < n) fetch(tb, s + 3);
+    body(A1, s + 1);
+    if (s + 2 < n) put(ta, As);
     __syncthreads();
   }
 }
@@ -505,30 +621,46 @@ __device__ __forceinline__ void pipeline_v(float* As, float* Vr, const float* vs
                                            int Q, int cols, int n, Fetch fetch, Put put,
                                            Body body) {
   const int jj = threadIdx.x / (TV / 4), col = 4 * (threadIdx.x % (TV / 4));
-  Tile4 t;
-  float4 vq;
-  auto fetch_v = [&](int s) {
+  auto fetch_v = [&](float4& vq, int s) {
     const int j = s * KT + jj;
     vq = (j < Q && col < cols) ? load4(vsrc + (long long)j * v_sl + col)
                                : make_float4(0.f, 0.f, 0.f, 0.f);
   };
-  auto put_v = [&](int buf) {
+  auto put_v = [&](const float4& vq, int buf) {
     *reinterpret_cast<float4*>(Vr + buf * KT * TV + jj * TV + col) = vq;
   };
-  fetch(t, 0);
-  fetch_v(0);
-  put(t, As);
-  put_v(0);
+  float* const A1 = As + KT * LDA2;
+  Tile4 ta, tb;
+  float4 va, vb;
+  fetch(ta, 0);
+  fetch_v(va, 0);
+  if (n > 1) {
+    fetch(tb, 1);
+    fetch_v(vb, 1);
+  }
+  put(ta, As);
+  put_v(va, 0);
   __syncthreads();
-  for (int s = 0; s < n; ++s) {
-    if (s + 1 < n) {
-      fetch(t, s + 1);
-      fetch_v(s + 1);
+  for (int s = 0; s < n; s += 2) {
+    if (s + 2 < n) {
+      fetch(ta, s + 2);
+      fetch_v(va, s + 2);
     }
-    body(As + (s & 1) * KT * LDA2, Vr + (s & 1) * KT * TV, s);
+    body(As, Vr, s);
     if (s + 1 < n) {
-      put(t, As + ((s + 1) & 1) * KT * LDA2);
-      put_v((s + 1) & 1);
+      put(tb, A1);
+      put_v(vb, 1);
+    }
+    __syncthreads();
+    if (s + 1 >= n) break;
+    if (s + 3 < n) {
+      fetch(tb, s + 3);
+      fetch_v(vb, s + 3);
+    }
+    body(A1, Vr + KT * TV, s + 1);
+    if (s + 2 < n) {
+      put(ta, As);
+      put_v(va, 0);
     }
     __syncthreads();
   }
@@ -566,25 +698,31 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
     const float* qc = qb + l0 * p.q_sl;
     const float* kc = kb + l0 * p.k_sl;
     __syncthreads();  // the previous chunk is done with vs, rs, ns and As
-    for (int e = tid; e < 4 * q64; e += THREADS) rs[e] = p.rows[chunk_id * 4 * q64 + e];
-    if constexpr (!STREAM) {
+    if constexpr (!STREAM) {  // the chunk's v columns, in flight while rs is read
       for (int e = tid; e < q32 * (TV / 4); e += THREADS) {
         const int j = e / (TV / 4), col = 4 * (e % (TV / 4));
-        float4 x = zero;
-        if (j < Q && t0 + col < P) x = load4(vb + (l0 + j) * p.v_sl + t0 + col);
-        *reinterpret_cast<float4*>(vs + j * TV + col) = x;
+        const bool ok = j < Q && t0 + col < P;
+        cp_async<16>(vs + j * TV + col, ok ? vb + (l0 + j) * p.v_sl + t0 + col : vb, ok);
       }
+      cp_async_commit();
     }
     const float carry = p.carry[chunk_id];
+    float uq[MAX_P / THREADS];  // the chunk's n update, used at its end
+#pragma unroll
+    for (int k = 0; k < MAX_P / THREADS; ++k)
+      uq[k] = tid + k * THREADS < P ? p.u[chunk_id * P + tid + k * THREADS] : 0.f;
+#pragma unroll 4
+    for (int e = tid; e < 4 * q64; e += THREADS) rs[e] = p.rows[chunk_id * 4 * q64 + e];
+    cp_async_wait_all();
     __syncthreads();
     // acc += A^T B over a staged tile (STREAM: through a fresh accumulator)
-    auto product = [&](float (&acc)[4][4], const float* A, const float* B) {
+    auto product = [&](float (&acc)[4][4], const float* A, const float* B, bool swizzled) {
       if constexpr (STREAM) {
         float blk[4][4] = {};
-        mma_tile(blk, A, B, ty, tx);
+        mma_tile(blk, A, B, ty, tx, swizzled);
         add_tile(acc, blk);
       } else {
-        mma_tile(acc, A, B, ty, tx);
+        mma_tile(acc, A, B, ty, tx, swizzled);
       }
     };
     // a contraction whose B operand is the chunk's v: body(A, V, s) with V
@@ -614,7 +752,7 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
                                      : zero;
             }
           },
-          put_rows, [&](const float* A, const float* V, int) { product(ai, A, V); });
+          put_rows, [&](const float* A, const float* V, int) { product(ai, A, V, false); });
       // inter: q C and q . n over P
       float qn = 0.f;
       const int row = tid % RB2, half = tid / RB2;  // q . n: 16 of a tile's 32 steps
@@ -623,7 +761,7 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
           [&](Tile4& t, int s) {
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
-              const int e = tid + u * THREADS, ii = e % RB2, pq = 4 * (e / RB2);
+              const int e = tid + u * THREADS, ii = e / (KT / 4), pq = 4 * (e % (KT / 4));
               t.r[u] = (i0 + ii < Q && s * KT + pq < P)
                            ? load4(qc + (long long)(i0 + ii) * p.q_sl + s * KT + pq)
                            : zero;
@@ -631,10 +769,10 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
           },
           put_transposed,
           [&](const float* A, int s) {
-            product(ae, A, Cs + s * KT * TV);
+            product(ae, A, Cs + s * KT * TV, true);
 #pragma unroll
             for (int kk = 16 * half; kk < 16 * half + 16; ++kk)
-              qn += A[kk * LDA2 + row] * ns[s * KT + kk];
+              qn += A[kk * LDA2 + (row ^ swq(kk))] * ns[s * KT + kk];
           });
       red[tid] = qn;
       __syncthreads();
@@ -645,44 +783,127 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
         const float qn_i = red[ii] + red[RB2 + ii];
         const float iw = rs[q64 + i];
         const float den = fmaxf(fabsf(rs[i] + qn_i * iw), rs[2 * q64 + i]);
-        float* out = hb + (l0 + i) * h_sl + t0 + 4 * tx;
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc)
-          if (t0 + 4 * tx + cc < P) out[cc] = (ai[r][cc] + ae[r][cc] * iw) / den;
+        if (t0 + 4 * tx < P)  // P is a multiple of 4
+          *reinterpret_cast<float4*>(hb + (l0 + i) * h_sl + t0 + 4 * tx) = make_float4(
+              (ai[r][0] + ae[r][0] * iw) / den, (ai[r][1] + ae[r][1] * iw) / den,
+              (ai[r][2] + ae[r][2] * iw) / den, (ai[r][3] + ae[r][3] * iw) / den);
       }
     }
 
-    // the state update, 128 rows of P at a time: C <- carry C + (k w)^T v
-    for (int pr0 = 0; pr0 < P; pr0 += RB2) {
-      float acc[4][4] = {};
-      with_v(
-          (Q + KT - 1) / KT,
-          [&](Tile4& t, int s) {
+    // the state update: C <- carry C + (k w)^T v.  Staged whole, v feeds
+    // 512 rows of C at a time, 8 x 8 a thread; streamed, 128 rows at a time
+    // through v's ring
+    if constexpr (!STREAM) {
+      // each warp owns WARP_ROWS rows of C, WR a round, 8 x 8 a lane (rows
+      // 4 uy + r and WR / 2 + 4 uy + r, columns 4 ux + cc and 16 + 4 ux + cc),
+      // and streams its rows' columns of k through a two-stage cp.async ring
+      // of its own, so the update waits on no barrier across the block
+      const int warp = tid >> 5, lane = tid & 31, uy = lane / 4, ux = lane % 4;
+      float* ring = As + warp * 2 * KU * WR;  // 2 x (KU, WR)
+      const int n = (Q + KU - 1) / KU;
+      for (int pr0 = WARP_ROWS * warp; pr0 < min(P, WARP_ROWS * (warp + 1)); pr0 += WR) {
+        float acc[8][8] = {};
+        // stage s: rows j = s KU.. of k for rows pr0.. of C, copied as they
+        // are and scaled in place, (k P^-1/2) exp(w_j - m'), by the lane that
+        // copied them
+        auto quads = [&](int s, auto f) {
+          float* dst = ring + (s & 1) * KU * WR;
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const int e = tid + u * THREADS, j = s * KT + e / 32, pp = 4 * (e % 32);
-              float4 x = zero;
-              if (j < Q && pr0 + pp < P) {
-                x = load4(kc + (long long)j * p.k_sl + pr0 + pp);
-                const float kw = rs[3 * q64 + j];  // (k P^-1/2) exp(w_j - m')
-                x = make_float4(x.x * p.scale * kw, x.y * p.scale * kw, x.z * p.scale * kw,
-                                x.w * p.scale * kw);
+          for (int u = 0; u < KU * WR / 128; ++u) {
+            const int e = lane + 32 * u, jj = e / (WR / 4), pp = 4 * (e % (WR / 4));
+            const int j = s * KU + jj;
+            f(dst + jj * WR + pp, j, pr0 + pp, j < Q && pr0 + pp < P);
+          }
+        };
+        auto issue = [&](int s) {
+          quads(s, [&](float* d, int j, int pc, bool ok) {
+            cp_async<16>(d, ok ? kc + (long long)j * p.k_sl + pc : kc, ok);
+          });
+          cp_async_commit();
+        };
+        issue(0);
+        for (int s = 0; s < n; ++s) {
+          if (s + 1 < n) {
+            issue(s + 1);  // its stage was last read before the warp barrier that ended s - 1
+            cp_async_wait_one();
+          } else {
+            cp_async_wait_all();
+          }
+          quads(s, [&](float* d, int j, int, bool ok) {
+            if (!ok) return;
+            float4* d4 = reinterpret_cast<float4*>(d);
+            const float4 x = *d4;
+            const float kw = rs[3 * q64 + j];
+            *d4 = make_float4(x.x * p.scale * kw, x.y * p.scale * kw, x.z * p.scale * kw,
+                              x.w * p.scale * kw);
+          });
+          __syncwarp();  // stage s has landed and is scaled
+          const float* A = ring + (s & 1) * KU * WR;
+#pragma unroll
+          for (int kk = 0; kk < KU; ++kk) {
+            const float* ar = A + kk * WR + 4 * uy;
+            const float* vr = vs + (s * KU + kk) * TV + 4 * ux;
+            const float4 a0 = *reinterpret_cast<const float4*>(ar);
+            const float4 a1 = *reinterpret_cast<const float4*>(ar + WR / 2);
+            const float4 b0 = *reinterpret_cast<const float4*>(vr);
+            const float4 b1 = *reinterpret_cast<const float4*>(vr + TV / 2);
+            const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+#pragma unroll
+              for (int cc = 0; cc < 8; ++cc) acc[r][cc] += a[r] * bv[cc];
+          }
+          __syncwarp();  // stage s is read before s + 2 is copied over it
+        }
+        // rows of C are this lane's alone
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int pr = pr0 + (r < 4 ? 4 * uy + r : WR / 2 + 4 * uy + r - 4);
+          if (pr >= P) continue;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float4* cp = reinterpret_cast<float4*>(Cs + pr * TV + 4 * ux + half * (TV / 2));
+            const float4 old = *cp;
+            const float* ac = acc[r] + 4 * half;
+            *cp = make_float4(carry * old.x + ac[0], carry * old.y + ac[1],
+                              carry * old.z + ac[2], carry * old.w + ac[3]);
+          }
+        }
+      }
+    } else {
+      for (int pr0 = 0; pr0 < P; pr0 += RB2) {
+        float acc[4][4] = {};
+        with_v(
+            (Q + KT - 1) / KT,
+            [&](Tile4& t, int s) {
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                const int e = tid + u * THREADS, j = s * KT + e / 32, pp = 4 * (e % 32);
+                float4 x = zero;
+                if (j < Q && pr0 + pp < P) {
+                  x = load4(kc + (long long)j * p.k_sl + pr0 + pp);
+                  const float kw = rs[3 * q64 + j];  // (k P^-1/2) exp(w_j - m')
+                  x = make_float4(x.x * p.scale * kw, x.y * p.scale * kw, x.z * p.scale * kw,
+                                  x.w * p.scale * kw);
+                }
+                t.r[u] = x;
               }
-              t.r[u] = x;
-            }
-          },
-          put_rows, [&](const float* A, const float* V, int) { product(acc, A, V); });
-      // rows of C are this thread's alone
+            },
+            put_rows, [&](const float* A, const float* V, int) { product(acc, A, V, false); });
+        // rows of C are this thread's alone
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float4* cp = reinterpret_cast<float4*>(Cs + (pr0 + 4 * ty + r) * TV + 4 * tx);
-        const float4 old = *cp;
-        *cp = make_float4(carry * old.x + acc[r][0], carry * old.y + acc[r][1],
-                          carry * old.z + acc[r][2], carry * old.w + acc[r][3]);
+        for (int r = 0; r < 4; ++r) {
+          float4* cp = reinterpret_cast<float4*>(Cs + (pr0 + 4 * ty + r) * TV + 4 * tx);
+          const float4 old = *cp;
+          *cp = make_float4(carry * old.x + acc[r][0], carry * old.y + acc[r][1],
+                            carry * old.z + acc[r][2], carry * old.w + acc[r][3]);
+        }
       }
     }
-    const float* u = p.u + chunk_id * P;
-    for (int e = tid; e < P; e += THREADS) ns[e] = carry * ns[e] + u[e];
+#pragma unroll
+    for (int k = 0; k < MAX_P / THREADS; ++k)
+      if (tid + k * THREADS < P) ns[tid + k * THREADS] = carry * ns[tid + k * THREADS] + uq[k];
   }
 }
 
@@ -705,7 +926,7 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   err = cudaFuncSetAttribute(mlstm_chunk_state<STREAM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_chunk_panel<STREAM><<<dim3(p.nc, p.H, B), THREADS, smem1, stream>>>(p);
+  mlstm_chunk_panel<STREAM><<<dim3(round_up(p.Q, RB) / RB, p.nc, B * p.H), THREADS, smem1, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   mlstm_chunk_state<STREAM><<<dim3((p.P + TV - 1) / TV, p.H, B), THREADS, smem2, stream>>>(p);
@@ -1445,6 +1666,7 @@ extern "C" int repro_mlstm_scan_fwd(
   const float* ig = static_cast<const float*>(i_log);
   const float* fg = static_cast<const float*>(f_log);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nc > 65535 || (long long)B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
     if (!simt::fits(P, Q)) return static_cast<int>(cudaErrorInvalidValue);
     float* rows = base + chunks * q64 * q64;
@@ -1454,7 +1676,6 @@ extern "C" int repro_mlstm_scan_fwd(
                    i_sb, i_sl, i_sh, f_sb, f_sl, f_sh};
     return simt::streams(P, Q) ? simt::launch<true>(p, B, s) : simt::launch<false>(p, B, s);
   }
-  if (nc > 65535 || (long long)B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
   float* rowpart = base + chunks * q64 * q64;
   float* scal = rowpart + chunks * (q64 / tc::TILE) * q64;
   float* u = scal + chunks * 3 * q64;
