@@ -74,13 +74,27 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    process at full width: 4 requests must be served; one prompt's prefill
    logits (the decode step looped over the prompt) against the kernel
    forward's logits at the same positions;
-10. a JSON line per kernel, the card's name and power limit, and the
+10. zamba2_forward: ``LM.forward`` of zamba2-2.7b as published (54 Mamba2
+   layers, the weight-shared attention block run 9 times; random weights,
+   seed 0) over 2048 tokens: ``ssm_scan`` launched 54 times and
+   ``flash_attention`` 9, the plain versions never; the logits held to the
+   float64 ``impl="xla"`` forward as in 8; device time by kind; then
+   zamba2_serve, as 9 (flash 9 times a prefill; the Mamba2 layers loop
+   their decode step);
+11. moe_forward: dbrx-132b at its published widths cut to one of its 40
+   layers (16 experts of 10752, top 4; 48 heads of 128 over 8 KV heads),
+   attention on flash, over 2048 tokens: the logits held to the float64
+   ``impl="xla"`` forward as in 8, save the tokens whose expert set moved
+   where the float64 router's margin between its 4th and 5th probability is
+   below 1e-5 (counted); any other token that moves fails;
+12. a JSON line per kernel, the card's name and power limit, and the
    ``{"ok": true, ...}`` line last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -112,6 +126,14 @@ FLASH_CASES = [
     # ragged S inside a 64-row tile, D not a multiple of 16, group 4, and a
     # window that crosses 64-row tiles
     (2, 777, 8, 2, 36, True, 100),
+    # zamba2-2.7b's shared attention (causal, 32 heads of 80) in its forward
+    # and at both served prompts (the 64-token one shorter than a query
+    # tile), and dbrx-132b's (48 heads of 128 over 8 KV
+    # heads) in the moe_forward phase
+    (1, 2048, 32, 32, 80, True, None),
+    (1, 128, 32, 32, 80, True, None),
+    (1, 64, 32, 32, 80, True, None),
+    (1, 2048, 48, 8, 128, True, None),
     # head dims above 128: nemotron-4-340b's 192 (96 heads over 8 KV heads)
     # and paligemma-3b's 256 (8 heads, one KV head), and 256 ragged and
     # non-causal
@@ -121,7 +143,7 @@ FLASH_CASES = [
 ]
 TOLERANCE = {
     "float32": 1e-4,   # order of summation only
-    "bfloat16": 2e-2,  # the plain version rounds P to bf16 before P @ V
+    "bfloat16": 2e-2,  # the output's rounding and P rounded to bf16 before P @ V
 }
 REPORTED_CASE = (1, 512, 16, 8, 128, True, None)  # the longer served prompt
 NAS_FLASH_CASE = (1, 2048, 32, 32, 80, False, None)
@@ -152,6 +174,10 @@ SSM_CASES = [
     (2, 512, 8, 2, 64, 128, 128),
     (2, 200, 6, 3, 24, 72, 100),
     (1, 2048, 16, 1, 128, 128, 1024),
+    # zamba2-2.7b's Mamba2 layers in its forward (batch 1, 2048 tokens) and
+    # at the served prompt the zamba2_serve phase checks (128 tokens)
+    (1, 2048, 80, 1, 64, 64, 128),
+    (1, 128, 80, 1, 64, 64, 128),
 ]
 # cases also run with dt and a in bf16 (the wrapper takes them in fp32)
 SSM_BF16_DT_CASES = [(2, 200, 6, 3, 24, 72, 100)]
@@ -230,7 +256,7 @@ MLSTM_H_REL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
 MLSTM_TOL = 1e-4
 # Chunks above the ones the kernel staged whole before (416 in fp32, 256 in
 # bf16 at P = 1024; it streams v there, and in fp32 sums each staged tile
-# apart): over 512 or 1024 terms the fp32 plain version itself lands up to
+# apart and keeps the gates' cumsum in double): over 512 or 1024 terms the fp32 plain version itself lands up to
 # 2.6 times MLSTM_TOL from the float64 plain version on an H100
 # (scripts/mlstm_chunk_accuracy.py, PERF.md), so it cannot be the yardstick.  These cases are held to the float64 plain
 # version instead: each element within the dtype's tolerance of it plus
@@ -252,6 +278,25 @@ XLSTM_LOGITS_REL = 1e-3  # of max |logits|
 XLSTM_SERVE_ARGS = ["--arch", XLSTM_ARCH, "--requests", "4", "--arrival", "burst",
                     "--prompt-lens", "64,128", "--gen-lens", "8", "--max-batch", "4",
                     "--queue-limit", "4", "--seed", "0", "--device", "cuda"]
+
+# zamba2-2.7b as published: 54 Mamba2 layers and one weight-shared attention
+# block run after every 6th (9 runs); its forward and serve are held as
+# xlstm-1.3b's are (XLSTM_LOGITS_REL, against the float64 impl="xla" forward)
+ZAMBA2_ARCH = "zamba2-2.7b"
+ZAMBA2_SEQ = 2048
+ZAMBA2_SERVE_ARGS = ["--arch", ZAMBA2_ARCH, *XLSTM_SERVE_ARGS[2:]]
+
+# dbrx-132b at its published widths, one of its 40 layers: one layer's 16
+# experts are 12.7 GB in fp32 and the float64 reference doubles the model,
+# so one card holds one layer beside its reference
+MOE_ARCH = "dbrx-132b"
+MOE_SEQ = 2048
+MOE_LAYERS = 1
+# A token whose top-k expert set differs from the float64 forward's is
+# exempt from the logits check only where the float64 router's margin (its
+# k-th probability less its (k+1)-th) is below MOE_MARGIN: there fp32 may
+# rightly route otherwise.  Any other change of expert set fails.
+MOE_MARGIN = 1e-5
 
 
 def profile_window(torch, label, step, warmup=2, steps=3) -> None:
@@ -454,7 +499,8 @@ def _counted(calls, fn):
 def profile_by_kind(torch, label, step, ranges=()) -> dict:
     """One run of ``step`` (which ends in a device sync) under
     ``torch.profiler``: its host wall time, device time by kind of kernel
-    (GEMMs, the mLSTM scan, the rest), for each ``record_function`` range
+    (GEMMs, the mLSTM scan, the SSD scan, flash attention, the rest:
+    elementwise passes, copies, reductions), for each ``record_function`` range
     named in ``ranges`` the host time inside it, the device time of the
     kernels launched in it and its span on the device, and the device's
     busy share of the wall time.  The host's operators are recorded only
@@ -467,7 +513,7 @@ def profile_by_kind(torch, label, step, ranges=()) -> dict:
         step()
         wall_ms = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
-    kinds = {"gemm": 0.0, "mlstm_scan": 0.0, "rest": 0.0}
+    kinds = {"gemm": 0.0, "mlstm_scan": 0.0, "ssm_scan": 0.0, "flash": 0.0, "rest": 0.0}
     kernels, in_ranges = [], {}
     for ev in averages:
         on_device = str(ev.device_type).endswith("CUDA")
@@ -487,6 +533,10 @@ def profile_by_kind(torch, label, step, ranges=()) -> dict:
         kernels.append((ms, ev.key, ev.count))
         if "mlstm_chunk" in low:
             kinds["mlstm_scan"] += ms
+        elif "ssm_panel" in low or "ssm_scan_fwd" in low:
+            kinds["ssm_scan"] += ms
+        elif "flash_fwd" in low:
+            kinds["flash"] += ms
         elif any(tag in low for tag in ("gemm", "gemv", "cutlass", "xmma")):
             kinds["gemm"] += ms
         else:
@@ -504,6 +554,65 @@ def profile_by_kind(torch, label, step, ranges=()) -> dict:
     return row
 
 
+def _xla_forwards(torch, ops, serve, spec, model, tokens) -> dict:
+    """The yardsticks of a kernel forward of ``model`` (an ``LM`` of
+    ``spec`` on the kernels): the same weights' forward with every kernel
+    sub-block on its plain layer (``impl="xla"``), in fp32 (sharing the
+    weights) and in float64 (a copy).  Returns their logits ("plain",
+    "float64"), their host walls and the kernel launches the plain one made
+    (there must be none)."""
+    import dataclasses
+
+    from repro_torch.models.lm import LM
+
+    xla = dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "xla"))
+    out = {}
+    for name, dtype in (("plain", None), ("float64", torch.float64)):
+        other = LM(xla)
+        other.load_state_dict({k: v if dtype is None else v.to(dtype)
+                               for k, v in model.state_dict().items()},
+                              strict=True, assign=True)
+        with torch.inference_mode():
+            before = sum(ops.LAUNCHES.values())
+            t0 = time.perf_counter()
+            out[name] = other(tokens)
+            torch.cuda.synchronize()
+            out[f"{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3
+            out[f"{name}_kernel_launches"] = sum(ops.LAUNCHES.values()) - before
+        del other
+    return out
+
+
+def _float64_readings(logits, plain, logits64, held=None) -> dict:
+    """The logits check of a kernel forward: each element within
+    ``XLSTM_LOGITS_REL`` of max |float64 logits| plus twice what the fp32
+    ``impl="xla"`` forward (``plain``) misses float64 by there; over the
+    tokens ``held`` marks ((B, S) bool; all by default).  Also the fp32
+    forward's own reading, and the check before (the fp32 forward within
+    ``XLSTM_LOGITS_REL`` of its max |logits|)."""
+    scale = XLSTM_LOGITS_REL * logits64.abs().max()
+    if held is not None:
+        logits, plain, logits64 = logits[held], plain[held], logits64[held]
+    plain_err = (plain.double() - logits64).abs()
+    over = ((logits.double() - logits64).abs() / (scale + 2 * plain_err)).max().item()
+    err = (logits - plain).abs().max().item()
+    tol = XLSTM_LOGITS_REL * plain.abs().max().item()
+    return {
+        "max_err_over_tol": over,
+        "tol": (f"against the float64 impl=xla forward: {XLSTM_LOGITS_REL} max|logits| "
+                f"+ 2 |fp32 impl=xla - float64| per element"),
+        "plain_fp32_err_over_tol": (plain_err / scale).max().item(),
+        "old_check": {"against": "the fp32 impl=xla forward", "max_abs_err": err,
+                      "tol": tol, "max_err_over_tol": err / tol},
+    }
+
+
+def _sub_count(spec, kind) -> int:
+    """Sub-blocks of ``kind`` a forward of ``spec`` runs (the shared layer
+    once a run)."""
+    return sum(sub.kind == kind for layer in spec.layers for sub in layer.subs)
+
+
 def xlstm_forward_phase(torch, ops, ref, serve) -> dict:
     """``LM.forward`` of xlstm-1.3b at full width over ``XLSTM_SEQ`` tokens,
     every mLSTM block on the kernel (``serve.swap_kernel_impl``).  Raises
@@ -519,63 +628,22 @@ def xlstm_forward_phase(torch, ops, ref, serve) -> dict:
     from repro_torch.nn import xlstm as xlstm_mod
 
     spec = get_arch(XLSTM_ARCH).spec()
-    n_mlstm = sum(sub.kind == "mlstm" for layer in spec.layers for sub in layer.subs)
+    n_mlstm = _sub_count(spec, "mlstm")
     model = LM(dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "pallas")))
     model.init(torch.Generator(device="cuda").manual_seed(0))
     tokens = torch.randint(0, spec.vocab, (1, XLSTM_SEQ), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(1))
     n_params = sum(t.numel() for t in model.state_dict().values())
-
-    plain_calls = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    walls = []
-    with mock.patch.object(ref, "mlstm_scan_ref", _counted(plain_calls, ref.mlstm_scan_ref)), \
-            torch.inference_mode():
-        ops.LAUNCHES.clear()
-        t0 = time.perf_counter()
-        logits = model(tokens)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        launches = dict(ops.LAUNCHES)
-        t0 = time.perf_counter()
-        model(tokens)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated()
-
-    # the same weights with every mLSTM block on its plain layer
-    plain = LM(dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "xla")))
-    plain.load_state_dict(model.state_dict(), strict=True, assign=True)
-    with torch.inference_mode():
-        before = ops.LAUNCHES["mlstm_scan"]
-        t0 = time.perf_counter()
-        plain_logits = plain(tokens)
-        torch.cuda.synchronize()
-        plain_wall = (time.perf_counter() - t0) * 1e3
-        plain_launches = ops.LAUNCHES["mlstm_scan"] - before
-    del plain
+    run = _kernel_forward(torch, ops, ref, model, tokens)
+    logits, launches = run["logits"], run["launches"]
+    del run["logits"]
 
     # the check: the same weights' forward with impl="xla" in float64
-    exact = LM(dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "xla")))
-    exact.load_state_dict({k: v.double() for k, v in model.state_dict().items()},
-                          strict=True, assign=True)
-    with torch.inference_mode():
-        t0 = time.perf_counter()
-        logits64 = exact(tokens)
-        torch.cuda.synchronize()
-        exact_wall = (time.perf_counter() - t0) * 1e3
-    del exact
-    plain_err = (plain_logits.double() - logits64).abs()
-    tol64 = XLSTM_LOGITS_REL * logits64.abs().max() + 2 * plain_err
-    over = ((logits.double() - logits64).abs() / tol64).max().item()
-    plain_over = (plain_err / (XLSTM_LOGITS_REL * logits64.abs().max())).max().item()
-    # the check before: the fp32 impl="xla" forward, 1e-3 of max |logits|
-    err = (logits - plain_logits).abs().max().item()
-    tol = XLSTM_LOGITS_REL * plain_logits.abs().max().item()
+    xla = _xla_forwards(torch, ops, serve, spec, model, tokens)
+    readings = _float64_readings(logits, xla["plain"], xla["float64"])
     finite = bool(torch.isfinite(logits).all())
     logits_shape = tuple(logits.shape)
-    del logits, plain_logits, logits64, plain_err, tol64
+    del logits, xla["plain"], xla["float64"]
 
     # where the time goes: the sLSTM blocks' time loops and the mLSTM blocks
     def ranged(name, fn):
@@ -593,25 +661,23 @@ def xlstm_forward_phase(torch, ops, ref, serve) -> dict:
                                ranges=("slstm_block", "mlstm_block"))
     summary = {
         "arch": spec.name, "n_params": n_params, "tokens": list(tokens.shape),
-        "wall_ms": walls, "device_ms": prof["device_ms"],
+        "wall_ms": run["wall_ms"], "device_ms": prof["device_ms"],
         "device_ms_source": "the profiled forward's kernels (torch.profiler)",
-        "plain_impl_wall_ms": plain_wall,
+        "plain_impl_wall_ms": xla["plain_wall_ms"],
         "mlstm_layers": n_mlstm, "mlstm_scan_launches": launches.get("mlstm_scan", 0),
-        "plain_calls": len(plain_calls), "plain_impl_kernel_launches": plain_launches,
-        "max_memory_allocated": peak, "logits_shape": list(logits_shape), "finite": finite,
-        "float64_impl_wall_ms": exact_wall,
-        "max_err_over_tol": over,
-        "tol": (f"against the float64 impl=xla forward: {XLSTM_LOGITS_REL} max|logits| "
-                f"+ 2 |fp32 impl=xla - float64| per element"),
-        "plain_fp32_err_over_tol": plain_over,
-        "old_check": {"against": "the fp32 impl=xla forward", "max_abs_err": err,
-                      "tol": tol, "max_err_over_tol": err / tol},
+        "plain_calls": run["plain_calls"],
+        "plain_impl_kernel_launches": xla["plain_kernel_launches"],
+        "max_memory_allocated": run["max_memory_allocated"],
+        "logits_shape": list(logits_shape), "finite": finite,
+        "float64_impl_wall_ms": xla["float64_wall_ms"], **readings,
     }
     print("xlstm_forward " + json.dumps(summary))
-    if launches.get("mlstm_scan", 0) != n_mlstm or plain_calls or plain_launches:
+    if (launches != {"mlstm_scan": n_mlstm} or run["plain_calls"]
+            or xla["plain_kernel_launches"]):
         raise AssertionError(f"xlstm_forward: mlstm_scan launched {launches} times "
-                             f"(expected {n_mlstm}), plain calls {len(plain_calls)}, "
-                             f"launches under impl=xla {plain_launches}")
+                             f"(expected {n_mlstm}), plain calls {run['plain_calls']}, "
+                             f"launches under impl=xla {xla['plain_kernel_launches']}")
+    over = readings["max_err_over_tol"]
     if not finite or logits_shape != (1, XLSTM_SEQ, spec.vocab) or over > 1:
         raise AssertionError(f"xlstm_forward: logits max |err| / tol {over} against the "
                              f"float64 forward, finite={finite}, shape {logits_shape}")
@@ -698,22 +764,47 @@ def xlstm_forward_bf16_phase(torch, ops, ref, serve) -> dict:
     return summary
 
 
-def xlstm_serve_phase(torch, ops, ref, serve) -> dict:
-    """``launch.serve --arch xlstm-1.3b`` at full width.  Raises unless the
-    4 requests are served with 8 tokens each and one prompt's prefill
-    logits (its decode step looped over the prompt) match the kernel
-    forward's logits at the same positions.  Returns the summary."""
-    args = serve.parse_args(XLSTM_SERVE_ARGS)
+KERNEL_OF_KIND = {"attention": "flash_attention", "mamba2": "ssm_scan", "mlstm": "mlstm_scan"}
+
+
+def _forward_launches(spec) -> dict:
+    """Kernel launches one forward of ``spec`` on the kernels makes: one a
+    sub-block of each kind that has a kernel."""
+    return {kernel: _sub_count(spec, kind) for kind, kernel in KERNEL_OF_KIND.items()
+            if _sub_count(spec, kind)}
+
+
+def _plain_versions(ref, calls):
+    """Patches counting the calls of every kernel's plain version."""
+    return [mock.patch.object(ref, name, _counted(calls, getattr(ref, name)))
+            for name in ("flash_attention_ref", "ssm_scan_ref", "mlstm_scan_ref")]
+
+
+def recurrent_serve_phase(torch, ops, ref, serve, name, argv) -> dict:
+    """``launch.serve`` of a model with recurrent layers at full width
+    (``argv``: 4 requests, 8 tokens each).  Raises unless they are served
+    with no shed, each prefill launched ``flash_attention`` once per
+    attention sub-block (its recurrent layers loop their decode step and
+    launch no scan) and no plain version ran, and the longest prompt's
+    prefill logits match the kernel forward's logits at the same positions
+    within ``XLSTM_LOGITS_REL`` of their max.  Prints ``<name>_serve`` and
+    ``<name>_prefill_logits`` lines; returns the first."""
+    from contextlib import ExitStack
+
+    args = serve.parse_args(argv)
     plain_calls = []
     ops.LAUNCHES.clear()
     torch.cuda.reset_peak_memory_stats()
-    with mock.patch.object(ref, "mlstm_scan_ref", _counted(plain_calls, ref.mlstm_scan_ref)):
+    with ExitStack() as stack:
+        for patch in _plain_versions(ref, plain_calls):
+            stack.enter_context(patch)
         summary, engine = serve._serve_lm(args)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     model = engine.model
     vocab = model.spec.vocab
+    per_prefill = {"flash_attention": _sub_count(model.spec, "attention")}
     out = {
         "arch": summary["arch"], "served": summary["served"], "shed": summary["shed"],
         "prefills": summary["prefills"], "tokens_generated": summary["tokens_generated"],
@@ -721,42 +812,221 @@ def xlstm_serve_phase(torch, ops, ref, serve) -> dict:
         "prefill_ms": summary["prefill_ms"],
         "prompt_lens": [r["prompt_len"] for r in engine.completed],
         "decode_ms": summary["decode_ms"], "max_memory_allocated": peak,
-        "mlstm_scan_launches": launches.get("mlstm_scan", 0),
+        **{f"{kernel}_launches": launches.get(kernel, 0) for kernel in KERNEL_OF_KIND.values()},
         "plain_calls": len(plain_calls)}
-    print("xlstm_serve " + json.dumps(out))
+    print(f"{name}_serve " + json.dumps(out))
     if summary["served"] != 4 or summary["shed"] != 0 or summary["prefills"] != 4:
-        raise AssertionError(f"xlstm_serve: expected 4 served, 0 shed, 4 prefills: {summary}")
+        raise AssertionError(f"{name}_serve: expected 4 served, 0 shed, 4 prefills: {summary}")
+    want = {k: 4 * n for k, n in per_prefill.items() if n}
+    if {k: n for k, n in launches.items() if n} != want or plain_calls:
+        raise AssertionError(f"{name}_serve: kernels launched {launches}, expected {want}; "
+                             f"plain calls {len(plain_calls)}")
     for r in engine.completed:
         if len(r["tokens"]) != 8 or not all(0 <= t < vocab for t in r["tokens"]):
-            raise AssertionError(f"xlstm_serve: bad generation {r}")
+            raise AssertionError(f"{name}_serve: bad generation {r}")
 
     # the longest prompt's prefill logits against the kernel forward at the
     # same positions
     req = max(serve._traffic_from_args(args).requests(), key=lambda r: r.prompt_len)
     prompt = torch.as_tensor(req.prompt_tokens(vocab)[None], dtype=torch.long, device="cuda")
-    n_mlstm = sum(sub.kind == "mlstm" for layer in model.spec.layers for sub in layer.subs)
     with torch.inference_mode():
         prefill_logits, _ = model.prefill(model.init_cache(1, req.prompt_len + 1), prompt)
-        before = ops.LAUNCHES["mlstm_scan"]
+        ops.LAUNCHES.clear()
         fwd_logits = model(prompt)
         torch.cuda.synchronize()
-        fwd_launches = ops.LAUNCHES["mlstm_scan"] - before
+        fwd_launches = dict(ops.LAUNCHES)
     err = (prefill_logits - fwd_logits).abs().max().item()
     tol = XLSTM_LOGITS_REL * fwd_logits.abs().max().item()
     finite = bool(torch.isfinite(prefill_logits).all())
-    print("xlstm_prefill_logits " + json.dumps({
+    print(f"{name}_prefill_logits " + json.dumps({
         "prompt_len": req.prompt_len, "shape": list(prefill_logits.shape), "finite": finite,
         "max_abs_logit": fwd_logits.abs().max().item(), "max_abs_err": err, "tol": tol,
-        "forward_mlstm_scan_launches": fwd_launches}))
-    if fwd_launches != n_mlstm:
-        raise AssertionError(f"xlstm_serve: the forward launched mlstm_scan {fwd_launches} "
-                             f"times, expected {n_mlstm}")
+        "max_err_over_tol": err / tol,
+        **{f"forward_{kernel}_launches": n for kernel, n in fwd_launches.items()}}))
+    if fwd_launches != _forward_launches(model.spec):
+        raise AssertionError(f"{name}_serve: the forward launched {fwd_launches}, "
+                             f"expected {_forward_launches(model.spec)}")
     if not finite or prefill_logits.shape != fwd_logits.shape or err > tol:
-        raise AssertionError(f"xlstm_serve: prefill logits max |err| {err} > {tol}, "
+        raise AssertionError(f"{name}_serve: prefill logits max |err| {err} > {tol}, "
                              f"finite={finite}")
     del engine, model
     torch.cuda.empty_cache()
     return out
+
+
+def _kernel_forward(torch, ops, ref, model, tokens, runs=2) -> dict:
+    """``runs`` forwards of ``model`` on ``tokens`` with the kernels' plain
+    versions counted: the first one's logits and launches, every run's host
+    wall, the peak memory."""
+    from contextlib import ExitStack
+
+    plain_calls, walls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with ExitStack() as stack, torch.inference_mode():
+        for patch in _plain_versions(ref, plain_calls):
+            stack.enter_context(patch)
+        for run in range(runs):
+            if run == 0:
+                ops.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            out = model(tokens)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if run == 0:
+                logits, launches = out, {k: n for k, n in ops.LAUNCHES.items() if n}
+            del out
+    return {"logits": logits, "launches": launches, "plain_calls": len(plain_calls),
+            "wall_ms": walls, "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def zamba2_forward_phase(torch, ops, ref, serve) -> dict:
+    """``LM.forward`` of zamba2-2.7b as published (random fp32 weights, seed
+    0) over ``ZAMBA2_SEQ`` tokens at batch 1, every Mamba2 and attention
+    sub-block on its kernel.  Raises unless ``ssm_scan`` launched once per
+    Mamba2 layer (54) and ``flash_attention`` once per run of the shared
+    attention block (9), no plain version was called, and the logits hold
+    the float64 check of :func:`xlstm_forward_phase`.  Returns the counts
+    and times."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+
+    spec = get_arch(ZAMBA2_ARCH).spec()
+    want = _forward_launches(spec)
+    model = LM(dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "pallas")))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, spec.vocab, (1, ZAMBA2_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    run = _kernel_forward(torch, ops, ref, model, tokens)
+    logits = run.pop("logits")
+    xla = _xla_forwards(torch, ops, serve, spec, model, tokens)
+    readings = _float64_readings(logits, xla["plain"], xla["float64"])
+    finite, logits_shape = bool(torch.isfinite(logits).all()), tuple(logits.shape)
+    del logits, xla["plain"], xla["float64"]
+    prof = profile_by_kind(torch, f"zamba2 forward B=1 L={ZAMBA2_SEQ}",
+                           lambda: float(model(tokens)[0, -1, 0]))
+    kinds = prof["device_ms_by_kind"]
+    summary = {
+        "arch": spec.name, "layers": spec.n_layers,
+        "n_params": sum(t.numel() for t in model.state_dict().values()),
+        "tokens": list(tokens.shape), **run, "expected_launches": want,
+        "device_ms": prof["device_ms"], "device_ms_by_kind": kinds,
+        "ssm_scan_share": (kinds["ssm_scan"] / prof["device_ms"]
+                           if isinstance(kinds, dict) else "not measured"),
+        "device_busy_share": prof["device_busy_share"],
+        "device_ms_source": "the profiled forward's kernels (torch.profiler)",
+        "plain_impl_wall_ms": xla["plain_wall_ms"],
+        "plain_impl_kernel_launches": xla["plain_kernel_launches"],
+        "float64_impl_wall_ms": xla["float64_wall_ms"],
+        "logits_shape": list(logits_shape), "finite": finite, **readings,
+    }
+    print("zamba2_forward " + json.dumps(summary))
+    if run["launches"] != want or run["plain_calls"] or xla["plain_kernel_launches"]:
+        raise AssertionError(f"zamba2_forward: kernels launched {run['launches']} "
+                             f"(expected {want}), plain calls {run['plain_calls']}, "
+                             f"launches under impl=xla {xla['plain_kernel_launches']}")
+    over = readings["max_err_over_tol"]
+    if not finite or logits_shape != (1, ZAMBA2_SEQ, spec.vocab) or over > 1:
+        raise AssertionError(f"zamba2_forward: logits max |err| / tol {over} against the "
+                             f"float64 forward, finite={finite}, shape {logits_shape}")
+    del model
+    torch.cuda.empty_cache()
+    return summary
+
+
+def moe_forward_phase(torch, ops, ref, serve) -> dict:
+    """``LM.forward`` of dbrx-132b at its published widths cut to
+    ``MOE_LAYERS`` of its 40 layers (random fp32 weights, seed 0) over
+    ``MOE_SEQ`` tokens at batch 1, attention on flash.  Raises unless flash
+    launched once a layer and its plain version never, no token routes to
+    another expert set than the float64 forward's unless its float64
+    margin is below ``MOE_MARGIN`` (those are counted and left out of the
+    logits check), and the other tokens' logits hold the float64 check of
+    :func:`xlstm_forward_phase`.  Returns the counts and times."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+    from repro_torch.nn import moe as moe_mod
+
+    full = get_arch(MOE_ARCH).spec()
+    spec = dataclasses.replace(full, layers=full.layers[:MOE_LAYERS])
+    cfg = next(sub.cfg for sub in spec.layers[0].subs if sub.kind == "moe")
+    want = _forward_launches(spec)
+    model = LM(dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "pallas")))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, spec.vocab, (1, MOE_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+
+    # the routing of each forward's MoE layers, in the order they ran
+    routes, route = [], moe_mod.route_topk
+
+    def routed(router_logits, top_k):
+        ids, gates, probs = route(router_logits, top_k)
+        routes.append((ids, probs))
+        return ids, gates, probs
+
+    with mock.patch.object(moe_mod, "route_topk", routed):
+        run = _kernel_forward(torch, ops, ref, model, tokens, runs=1)
+        xla = _xla_forwards(torch, ops, serve, spec, model, tokens)
+    logits = run.pop("logits")
+    # split the routings into the kernel, fp32 xla and float64 forwards
+    n_moe = _sub_count(spec, "moe")
+    if len(routes) != 3 * n_moe:
+        raise AssertionError(f"moe_forward: {len(routes)} routings recorded, expected "
+                             f"3 forwards x {n_moe} MoE layers")
+    forwards = [routes[i * n_moe:(i + 1) * n_moe] for i in range(3)]
+    ids = [torch.stack([r[0] for r in fwd]) for fwd in forwards]  # (layers, B, S, K)
+    probs64 = torch.stack([r[1] for r in forwards[2]])  # (layers, B, S, E)
+    sets = [torch.sort(i, dim=-1).values for i in ids]
+    moved_at = (sets[0] != sets[2]).any(-1)  # (layers, B, S): the kernel's set differs
+    top = torch.sort(probs64, dim=-1, descending=True).values
+    margin = top[..., cfg.top_k - 1] - top[..., cfg.top_k]
+    moved = moved_at.any(0)
+    # exempt where every layer that moved the token had a near-tie margin
+    exempt = moved & ~(moved_at & (margin >= MOE_MARGIN)).any(0)
+    readings = _float64_readings(logits, xla["plain"], xla["float64"], held=~exempt)
+    dropped = [sum((moe_mod._slot_assignment(layer, cfg.n_experts, cfg.capacity(MOE_SEQ))[1]
+                    < 0).sum().item() for layer in ids[f]) for f in (0, 2)]
+    finite, logits_shape = bool(torch.isfinite(logits).all()), tuple(logits.shape)
+    del logits, xla["plain"], xla["float64"], routes[:]
+    prof = profile_by_kind(torch, f"dbrx forward depth {MOE_LAYERS} B=1 L={MOE_SEQ}",
+                           lambda: float(model(tokens)[0, -1, 0]))
+    summary = {
+        "arch": spec.name, "reduced": f"depth {full.n_layers} -> {MOE_LAYERS}",
+        "n_params": sum(t.numel() for t in model.state_dict().values()),
+        "experts": cfg.n_experts, "top_k": cfg.top_k, "capacity": cfg.capacity(MOE_SEQ),
+        "tokens": list(tokens.shape), **run, "expected_launches": want,
+        "device_ms": prof["device_ms"], "device_ms_by_kind": prof["device_ms_by_kind"],
+        "device_busy_share": prof["device_busy_share"],
+        "device_ms_source": "the profiled forward's kernels (torch.profiler)",
+        "plain_impl_wall_ms": xla["plain_wall_ms"],
+        "plain_impl_kernel_launches": xla["plain_kernel_launches"],
+        "float64_impl_wall_ms": xla["float64_wall_ms"],
+        "tokens_moved": int(moved.sum()), "tokens_exempt": int(exempt.sum()),
+        "tokens_moved_in_plain_fp32": int((sets[1] != sets[2]).any(-1).any(0).sum()),
+        "margin_exempt_below": MOE_MARGIN, "min_float64_margin": margin.min().item(),
+        "dropped_choices": dropped[0], "dropped_choices_float64": dropped[1],
+        "logits_shape": list(logits_shape), "finite": finite, **readings,
+    }
+    print("moe_forward " + json.dumps(summary))
+    if run["launches"] != want or run["plain_calls"] or xla["plain_kernel_launches"]:
+        raise AssertionError(f"moe_forward: kernels launched {run['launches']} "
+                             f"(expected {want}), plain calls {run['plain_calls']}, "
+                             f"launches under impl=xla {xla['plain_kernel_launches']}")
+    if (moved & ~exempt).any():
+        raise AssertionError(f"moe_forward: {int((moved & ~exempt).sum())} tokens route to "
+                             f"another expert set than float64's at a margin of "
+                             f"{MOE_MARGIN} or more")
+    over = readings["max_err_over_tol"]
+    if not finite or logits_shape != (1, MOE_SEQ, spec.vocab) or over > 1:
+        raise AssertionError(f"moe_forward: logits max |err| / tol {over} against the "
+                             f"float64 forward, finite={finite}, shape {logits_shape}")
+    del model
+    torch.cuda.empty_cache()
+    return summary
 
 
 def nas_phase(torch, ops, ref) -> dict:
@@ -941,7 +1211,13 @@ def flash_phase(torch, ops, gen) -> dict:
     """The flash kernel against its plain version on the same inputs, fp32
     and bf16, every case of ``FLASH_CASES``, with the kernel's, the plain
     version's and SDPA's times; the ``DEVICE_TIMED_CASES`` also with the
-    kernel's and SDPA's device time.  Returns the rows."""
+    kernel's and SDPA's device time.  A bf16 output is held to the plain
+    version run in float64 on the same (bf16) inputs: the bf16 plain
+    version, which rounds the normalised P to bf16, lies itself up to 0.022
+    from that, and beside it the kernel's reading (and SDPA's) could pass
+    the tolerance only as its error and the plain version's cancelled.  The
+    bf16 plain version's own error and the kernel's distance from it are
+    printed.  Returns the rows."""
     from repro_torch.kernels import timing
 
     rows = {}
@@ -956,8 +1232,10 @@ def flash_phase(torch, ops, gen) -> dict:
             out = ops.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
             want = _flash_plain(q, k, v, **kw)
+            held = want if dtype == "float32" else _flash_plain(
+                q.double(), k.double(), v.double(), **kw)
             torch.cuda.synchronize()
-            err = (out.float() - want.float()).abs().max().item()
+            err = (out.to(held.dtype) - held).abs().max().item()
             if not (out.shape == q.shape and out.dtype == dt and err <= TOLERANCE[dtype]):
                 raise AssertionError(f"flash_attention {case} {dtype}: max |err| "
                                      f"{err} > {TOLERANCE[dtype]} or bad shape/dtype")
@@ -976,22 +1254,26 @@ def flash_phase(torch, ops, gen) -> dict:
                 "bound_ms": max(t_ops, t_bytes) * 1e3,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             }
+            if dtype == "bfloat16":
+                row["held_to"] = "the plain version in float64"
+                row["plain_max_abs_err"] = (want.double() - held).abs().max().item()
+                row["max_abs_err_vs_bf16_plain"] = (out.float() - want.float()).abs().max().item()
             if case in DEVICE_TIMED_CASES:
                 row["device_ms"] = timing.device_ms(kernel)
                 row["library_device_ms"] = timing.device_ms(library)
             rows[(case, dtype)] = row
             print("flash_attention " + json.dumps(row))
             if case in TILED_CASES:
-                rows.update(flash_tiles(torch, ops, case, dtype, q, k, v, want, row))
-            del q, k, v, out, want
+                rows.update(flash_tiles(torch, ops, case, dtype, q, k, v, held, row))
+            del q, k, v, out, want, held
     return rows
 
 
-def flash_tiles(torch, ops, case, dtype, q, k, v, want, base) -> dict:
+def flash_tiles(torch, ops, case, dtype, q, k, v, held, base) -> dict:
     """The flash kernel at every tile pair it is built for at this case's
     head dim, each asked for by a schedule: the pair launched must be the
     one asked for, and each within the dtype's tolerance of the plain
-    version (``want``).  Rows keyed (case, dtype, (block_q, block_kv))."""
+    version as :func:`flash_phase` holds it (``held``).  Rows keyed (case, dtype, (block_q, block_kv))."""
     from repro_torch.kernels import schedule as ksched
     from repro_torch.kernels import timing
 
@@ -1008,7 +1290,7 @@ def flash_tiles(torch, ops, case, dtype, q, k, v, want, base) -> dict:
                 out = ops.flash_attention(q, k, v, schedule=sched, **kw)
             torch.cuda.synchronize()
             (call,) = sink.values()
-            err = (out.float() - want.float()).abs().max().item()
+            err = (out.to(held.dtype) - held).abs().max().item()
             if call["launched"] != {"block_q": bq, "block_kv": bk} or err > TOLERANCE[dtype]:
                 raise AssertionError(f"flash_attention {case} {dtype} tiles ({bq}, {bk}): "
                                      f"launched {call['launched']}, max |err| {err}")
@@ -1376,8 +1658,19 @@ def cascade_phase(torch, ops) -> dict:
     return runs
 
 
+# the phases that drive a whole model, by name
+MODEL_PHASES = {
+    "xlstm_forward": xlstm_forward_phase,
+    "xlstm_forward_bf16": xlstm_forward_bf16_phase,
+    "xlstm_serve": functools.partial(recurrent_serve_phase, name="xlstm",
+                                     argv=XLSTM_SERVE_ARGS),
+    "zamba2_forward": zamba2_forward_phase,
+    "zamba2_serve": functools.partial(recurrent_serve_phase, name="zamba2",
+                                      argv=ZAMBA2_SERVE_ARGS),
+    "moe_forward": moe_forward_phase,
+}
 SUBSET_PHASES = ("flash", "ssm", "nas", "modelled", "explore", "cascade", "mlstm",
-                 "xlstm_forward", "xlstm_forward_bf16", "xlstm_serve")
+                 *MODEL_PHASES)
 
 
 def main(argv=None) -> int:
@@ -1457,12 +1750,8 @@ def main(argv=None) -> int:
                 cascade_phase(torch, ops)
             elif name == "mlstm":
                 mlstm_phase(torch, ops, ref, gen)
-            elif name == "xlstm_forward":
-                xlstm_forward_phase(torch, ops, ref, serve)
-            elif name == "xlstm_forward_bf16":
-                xlstm_forward_bf16_phase(torch, ops, ref, serve)
-            else:
-                xlstm_serve_phase(torch, ops, ref, serve)
+            elif name in MODEL_PHASES:
+                MODEL_PHASES[name](torch, ops, ref, serve)
         return 0
 
     # -- 3. kernel against plain version ----------------------------------
@@ -1564,9 +1853,16 @@ def main(argv=None) -> int:
     xfwd16 = xlstm_forward_bf16_phase(torch, ops, ref, serve)
 
     # -- 9. serving xlstm-1.3b ----------------------------------------------
-    xserve = xlstm_serve_phase(torch, ops, ref, serve)
+    xserve = recurrent_serve_phase(torch, ops, ref, serve, "xlstm", XLSTM_SERVE_ARGS)
 
-    # -- 10. result --------------------------------------------------------
+    # -- 10. zamba2-2.7b: its forward, then serving it -----------------------
+    zfwd = zamba2_forward_phase(torch, ops, ref, serve)
+    zserve = recurrent_serve_phase(torch, ops, ref, serve, "zamba2", ZAMBA2_SERVE_ARGS)
+
+    # -- 11. dbrx-132b at its published widths, one layer ---------------------
+    moe = moe_forward_phase(torch, ops, ref, serve)
+
+    # -- 12. result --------------------------------------------------------
     served = kernel_rows[(REPORTED_CASE, "float32")]
     scan = ssm_rows[(SSM_REPORTED_CASE, "float32", "float32")]
     mscan = mlstm_rows[(MLSTM_REPORTED_CASE, "float32")]
@@ -1581,7 +1877,10 @@ def main(argv=None) -> int:
                                 for name, r in explore["runs"].items()},
                              **{f"cascade_{name}_screening":
                                 r["screening_launches"].get("flash_attention", 0)
-                                for name, r in cascade.items()}},
+                                for name, r in cascade.items()},
+                             "zamba2_forward": zfwd["launches"].get("flash_attention", 0),
+                             "zamba2_serve": zserve["flash_attention_launches"],
+                             "moe_forward": moe["launches"].get("flash_attention", 0)},
         "max_abs_err": served["max_abs_err"], "ms": served["ms"],
         "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
         "bound_by": served["bound_by"], "library_ms": served["library_ms"],
@@ -1597,7 +1896,9 @@ def main(argv=None) -> int:
                                 for name, r in explore["runs"].items()},
                              **{f"cascade_{name}_screening":
                                 r["screening_launches"].get("ssm_scan", 0)
-                                for name, r in cascade.items()}},
+                                for name, r in cascade.items()},
+                             "zamba2_forward": zfwd["launches"].get("ssm_scan", 0),
+                             "zamba2_serve": zserve["ssm_scan_launches"]},
         "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],
         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
         "bound_by": scan["bound_by"], "library_ms": None,

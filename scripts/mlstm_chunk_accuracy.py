@@ -9,9 +9,12 @@ For each draw of inputs (``chip_smoke.py``'s mLSTM inputs at
 each chunk of the schedules' grid above 64, one line: max |h| of the
 float64 plain version, and for each pair of (kernel, fp32 plain, float64
 plain) the largest error over the mLSTM phase's per-element tolerance
-(2^-8 |h| in bf16 plus 1e-4 max |h|) and over max |h|.  It shows whether a
-miss of the fp32 plain version's tolerance is the kernel's or fp32
-arithmetic's.  Needs a CUDA card and ``nvcc``.
+(2^-8 |h| in bf16 plus 1e-4 max |h|) and over max |h|, and the kernel's
+reading of the phase's float64 check (that tolerance plus twice the fp32
+plain version's own error, per element; the check of the chunks above
+``MLSTM_F64_CHUNK``).  It shows whether a miss of the fp32 plain version's
+tolerance is the kernel's or fp32 arithmetic's.  Needs a CUDA card and
+``nvcc``.
 """
 from __future__ import annotations
 
@@ -56,12 +59,15 @@ def main(argv=None) -> int:
                     tol = cs.MLSTM_H_REL[dtype] * b.abs() + cs.MLSTM_TOL * top
                     return [(err / tol).max().item(), err.max().item() / top]
 
+                check = (h - p64).abs() / (cs.MLSTM_H_REL[dtype] * p64.abs()
+                                           + cs.MLSTM_TOL * top + 2 * (p32 - p64).abs())
                 print(json.dumps({"draw": draw, "dtype": dtype, "chunk": chunk,
                                   "max_abs_h_f64": top,
                                   "kernel_vs_plain_fp32": over(h, p32),
                                   "kernel_vs_f64": over(h, p64),
-                                  "plain_fp32_vs_f64": over(p32, p64)}), flush=True)
-                del q, k, v, il, fl, h, p32, p64
+                                  "plain_fp32_vs_f64": over(p32, p64),
+                                  "float64_check": check.max().item()}), flush=True)
+                del q, k, v, il, fl, h, p32, p64, check
     return 0
 
 

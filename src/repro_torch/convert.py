@@ -5,8 +5,10 @@ the one leaf whose layout differs is a conv's ``w``, (K, C_in, C_out) in
 the JAX package and (C_out, C_in, K) in the port.
 
 The JAX ``LM`` keeps a segment's layers stacked on a leading ``layers``
-axis under ``params[seg]["sub_<i>"]["norm" | "inner"]``; the port keeps
-one module per layer (``<seg>.<layer>.subs.<i>.norm`` / ``.inner``).
+axis under ``params[seg]["sub_<i>"]["norm" | "inner"]``, and the
+weight-shared layer unstacked under ``params["shared"]``; the port keeps
+one module per layer (``<seg>.<layer>.subs.<i>.norm`` / ``.inner``, and
+``shared.subs.<i>...``).
 Matrices keep their ``(in, out)`` layout on both sides.  The inputs here
 are nested dicts of numpy arrays (the JAX tree after ``split``, converted
 by the caller), so this module needs nothing of JAX.
@@ -41,14 +43,17 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 
 def _port_keys(model: LM, path: Tuple[str, ...], arr: np.ndarray):
     """(port state-dict key, array) pairs for one JAX leaf; unstacks a
-    segment's leading layers axis."""
-    segs = {seg.name: seg for seg in model.segments}
-    if path[0] not in segs:
+    stacked segment's leading layers axis.  The shared layer
+    (``params["shared"]``) has none."""
+    segs = {seg.name: seg for seg in model.segments if seg.kind == "stack"}
+    if path[0] not in segs and path[0] != "shared":
         return [(".".join(path), arr)]
-    seg = segs[path[0]]
     m = _SUB.match(path[1]) if len(path) > 3 else None
     if m is None or path[2] not in ("norm", "inner"):
         return [("/".join(path), arr)]  # unexpected: reported by the caller
+    if path[0] == "shared":
+        return [(f"shared.subs.{m.group(1)}.{path[2]}.{'.'.join(path[3:])}", arr)]
+    seg = segs[path[0]]
     if arr.ndim == 0 or arr.shape[0] != seg.count:
         raise ValueError(f"{'/'.join(path)}: expected a leading layers axis of "
                          f"{seg.count}, got shape {arr.shape}")
@@ -113,40 +118,59 @@ def lm_from_jax(spec: ModelSpec, params_np: Mapping[str, Any],
 _CACHE_LEAVES = {
     "attention": {"k", "v"},
     "mlp": set(),
+    "moe": set(),
+    "mamba2": {"conv", "state"},
     "mlstm": {"conv", "c", "n", "m"},
     "slstm": {"conv", "c", "n", "m", "h"},
 }
 
 
+def _cache_keys(model: LM):
+    """(segment, the JAX cache's key for it) in the order the layers run:
+    a stacked segment's name, or ``shared_<i>`` for the i-th run of the
+    shared layer."""
+    keys, shared = [], 0
+    for seg in model.segments:
+        if seg.kind == "shared":
+            keys.append((seg, f"shared_{shared}"))
+            shared += 1
+        else:
+            keys.append((seg, seg.name))
+    return keys
+
+
 def cache_from_jax(spec: ModelSpec, cache_np: Mapping[str, Any],
                    device="cuda") -> Cache:
     """The JAX decode cache (``{seg: {sub_<i>: {leaf: array}}}``, stacked
-    on a leading layers axis) as the port's per-layer list of
-    ``{sub_<i>: {leaf: tensor}}``.  Raises on any missing or unexpected
-    segment, sub-block or leaf, and on a wrong layers axis."""
+    on a leading layers axis, and ``{shared_<i>: ...}`` unstacked for each
+    run of the shared layer) as the port's per-layer list of ``{sub_<i>:
+    {leaf: tensor}}``.  Raises on any missing or unexpected segment,
+    sub-block or leaf, and on a wrong layers axis."""
     device = resolve_device(device)
     model = LM(spec)
-    if set(cache_np) != {seg.name for seg in model.segments}:
+    keys = _cache_keys(model)
+    if set(cache_np) != {key for _, key in keys}:
         raise ValueError(f"cache segments {sorted(cache_np)} do not match "
-                         f"{[seg.name for seg in model.segments]}")
+                         f"{[key for _, key in keys]}")
     out: Cache = []
-    for seg in model.segments:
-        subs = cache_np[seg.name]
+    for seg, key in keys:
+        subs = cache_np[key]
+        stacked = seg.kind == "stack"
         kinds = {f"sub_{i}": s.kind for i, s in enumerate(seg.spec.subs)}
         if set(subs) != set(kinds):
-            raise ValueError(f"{seg.name}: cache subs {sorted(subs)} != {sorted(kinds)}")
+            raise ValueError(f"{key}: cache subs {sorted(subs)} != {sorted(kinds)}")
         for name, kind in kinds.items():
             want = _CACHE_LEAVES[kind]
             if set(subs[name]) != want:
-                raise ValueError(f"{seg.name}/{name} ({kind}): cache keys "
+                raise ValueError(f"{key}/{name} ({kind}): cache keys "
                                  f"{sorted(subs[name])} != {sorted(want)}")
             for leaf, arr in subs[name].items():
-                if np.ndim(arr) == 0 or np.shape(arr)[0] != seg.count:
-                    raise ValueError(f"{seg.name}/{name}/{leaf}: expected a leading "
+                if stacked and (np.ndim(arr) == 0 or np.shape(arr)[0] != seg.count):
+                    raise ValueError(f"{key}/{name}/{leaf}: expected a leading "
                                      f"layers axis of {seg.count}, got shape "
                                      f"{np.shape(arr)}")
         for i in range(seg.count):
-            out.append({name: {leaf: torch.from_numpy(np.array(arr[i])).to(device)
-                               for leaf, arr in subs[name].items()}
+            out.append({name: {leaf: torch.from_numpy(np.array(arr[i] if stacked else arr))
+                               .to(device) for leaf, arr in subs[name].items()}
                         for name in kinds})
     return out

@@ -58,9 +58,10 @@
 // fp32 inputs (namespace simt): the products on the CUDA cores, each output
 // one fp32 FMA chain in the order of the plain version's fp32 matrix
 // products (ascending over P or over the chunk; above chunk 416 at P = 1024,
-// a fresh sum a staged tile of 32 steps, added in order), and every other
-// sum in its first version's order, so that h is bit for bit what this path
-// gave before it was restructured.  The xlstm-1.3b forward's logits check
+// a fresh sum a staged tile of 32 steps, added in order, and the gates'
+// cumsum in double), and every other sum in its first version's order, so
+// that h is bit for bit what this path gave before it was restructured (at
+// chunks up to 416).  The xlstm-1.3b forward's logits check
 // (chip_smoke.py's xlstm_forward phase: the same weights' impl="xla" forward
 // in float64, within 1e-3 of max |logits| plus twice the fp32 impl="xla"
 // forward's own error) passes no tensor-core version: over four draws of
@@ -103,6 +104,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -252,8 +255,12 @@ __host__ __device__ inline long long scratch_floats(int B, int L, int H, int P, 
   return chunks * (q64 * q64 + 4 * q64 + P + 1);
 }
 
-// two stages of the staged q and k tiles
-__host__ inline int panel_smem(int Q) { return 4 * (4 * round_up(Q, RB) + 4 * KT * LDA); }
+// the chunk's gates and row scalars (fcum in double when BLOCKED), then two
+// stages of the staged q and k tiles
+template <bool BLOCKED>
+__host__ inline int panel_smem(int Q) {
+  return 4 * ((BLOCKED ? 5 : 4) * round_up(Q, RB) + 4 * KT * LDA);
+}
 // STREAM: the chunk's v columns come through a two-stage ring of KT-row
 // tiles beside the staged A tiles, in place of all Q rows staged at once, so
 // that shared memory no longer grows with the chunk's rows times TV.
@@ -302,18 +309,25 @@ __device__ __forceinline__ void put_panel(const Tile2& t, float* dst) {
 // did, and a share of the chunk's n update.
 // BLOCKED (the chunks above 416 at P = 1024, which also stream v in pass 2):
 // each staged tile's products go into a fresh accumulator added to the
-// total, so a long sum's rounding grows with its tiles, not its terms.
+// total, so a long sum's rounding grows with its tiles, not its terms; and
+// fcum is scanned and kept in double, each difference fcum_i - fcum_j (and
+// ftot - fcum_j) rounded to fp32 once.  Over 1024 steps fcum reaches about
+// -50, where an fp32 ulp is 4e-6: differences of fp32 fcum put that error
+// into every weight of a row, and a row whose panel sum nearly cancels
+// turns it into up to 3e-4 of max |h| (twice the float64 check's allowance).
 template <bool BLOCKED>
 __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
+  using F = typename std::conditional<BLOCKED, double, float>::type;
   extern __shared__ float smem[];
   const int Q = p.Q, q64 = round_up(Q, RB);
-  float* fcum = smem;        // (q64,)
-  float* igs = fcum + q64;   // (q64,)
+  F* fcum = reinterpret_cast<F*>(smem);                // (q64,)
+  float* igs = reinterpret_cast<float*>(fcum + q64);   // (q64,)
   float* kws = igs + q64;    // (q64,)
   float* mrow = kws + q64;   // (q64,): the block's rows from 0
   float* As = mrow + q64;    // 2 x (KT, LDA): q^T
   float* Bs = As + 2 * KT * LDA;  // 2 x (KT, LDA): k^T
-  __shared__ float sh_mprev, sh_mnext, sh_ftot, sh_round[2 * (THREADS / 32)];
+  __shared__ float sh_mprev, sh_mnext, sh_round[2 * (THREADS / 32)];
+  __shared__ F sh_ftot;
 
   const int ti = blockIdx.x, c = blockIdx.y, bh = blockIdx.z, h = bh % p.H, b = bh / p.H;
   const int i0 = ti * RB;
@@ -331,14 +345,14 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
   // f(j, fcum_j, i_j) for j < Q in order; returns fcum_{Q-1} (the lane
   // that holds it: past Q the scan adds zeros in another order)
   auto scan = [&](long long l0, auto f) {
-    float run = 0.f, last = 0.f;
+    F run = 0.f, last = 0.f;
     for (int j0 = 0; j0 < Q; j0 += 32) {
       const int j = j0 + lane;
-      float fj = j < Q ? fgp[(l0 + j) * p.f_sl] : 0.f;
+      F fj = j < Q ? fgp[(l0 + j) * p.f_sl] : 0.f;
       const float ij = j < Q ? igp[(l0 + j) * p.i_sl] : 0.f;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(FULL, fj, off);
+        const F o = __shfl_up_sync(FULL, fj, off);
         if (lane >= off) fj += o;
       }
       fj += run;
@@ -353,10 +367,10 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
     const int cc = base + warp;
     if (cc <= c) {
       const long long l0 = (long long)cc * Q;
-      const float ftot = scan(l0, [](int, float, float) {});
+      const F ftot = scan(l0, [](int, F, float) {});
       float wmax = -INFINITY;
-      scan(l0, [&](int j, float fj, float ij) {
-        wmax = fmaxf(wmax, ftot - fj + ij);
+      scan(l0, [&](int j, F fj, float ij) {
+        wmax = fmaxf(wmax, static_cast<float>(ftot - fj) + ij);
         if (cc == c) {
           fcum[j] = fj;
           igs[j] = ij;
@@ -365,8 +379,9 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) wmax = fmaxf(wmax, __shfl_xor_sync(FULL, wmax, off));
       if (lane == 0) {
-        sh_round[2 * warp] = ftot;
+        sh_round[2 * warp] = static_cast<float>(ftot);
         sh_round[2 * warp + 1] = wmax;
+        if (cc == c) sh_ftot = ftot;
       }
     }
     __syncthreads();
@@ -377,7 +392,6 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
         if (base + w == c) {
           sh_mprev = m;
           sh_mnext = m_next;
-          sh_ftot = ftot;
         }
         m = m_next;
       }
@@ -387,17 +401,19 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
 
   // 2. per-row scalars: the stabiliser m_i is the row max of the same a_ij
   // the panel weights use
-  const float m_prev = sh_mprev, m_next = sh_mnext, ftot = sh_ftot;
+  const float m_prev = sh_mprev, m_next = sh_mnext;
+  const F ftot = sh_ftot;
   float* rows = p.rows + chunk_id * 4 * q64;
   for (int j = tid; j < q64; j += THREADS)
-    kws[j] = j < Q ? expf(ftot - fcum[j] + igs[j] - m_next) : 0.f;
+    kws[j] = j < Q ? expf(static_cast<float>(ftot - fcum[j]) + igs[j] - m_next) : 0.f;
   {  // the row maxima of a_ij in four parts (a max is exact in any order),
      // in the staging space before the tiles use it
     const int r = tid % RB, quarter = tid / RB, i = i0 + r;
     float amax = -INFINITY;
     if (i < Q) {
-      const float fi = fcum[i];
-      for (int j = quarter; j <= i; j += THREADS / RB) amax = fmaxf(amax, fi - fcum[j] + igs[j]);
+      const F fi = fcum[i];
+      for (int j = quarter; j <= i; j += THREADS / RB)
+        amax = fmaxf(amax, static_cast<float>(fi - fcum[j]) + igs[j]);
     }
     As[quarter * RB + r] = amax;
   }
@@ -406,9 +422,9 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
     const int i = i0 + r;
     float mi = 0.f, iw = 0.f, e = 0.f;
     if (i < Q) {
-      const float fi = fcum[i];
+      const F fi = fcum[i];
       const float amax = fmaxf(fmaxf(As[r], As[RB + r]), fmaxf(As[2 * RB + r], As[3 * RB + r]));
-      const float b_log = fi + m_prev;
+      const float b_log = static_cast<float>(fi + m_prev);
       mi = fmaxf(fmaxf(amax, b_log), BIG_NEG);
       iw = expf(b_log - mi);
       e = expf(-mi);
@@ -417,7 +433,7 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
     rows[q64 + i] = iw;
     rows[2 * q64 + i] = e;
   }
-  if (ti == 0 && tid == 0) p.carry[chunk_id] = expf(ftot + m_prev - m_next);
+  if (ti == 0 && tid == 0) p.carry[chunk_id] = expf(static_cast<float>(ftot + m_prev - m_next));
   __syncthreads();  // kws is whole, and the row maxima are read before the tiles land
   for (int r = tid; r < RB; r += THREADS) rows[3 * q64 + i0 + r] = kws[i0 + r];
 
@@ -507,7 +523,8 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_panel(Params p) {
           const int i = i0 + 4 * ty + r;
           sv[r] = 0.f;
           if (i < Q && j <= i)
-            sv[r] = acc[r][cc] * p.scale * expf(fcum[i] - fcum[j] + igs[j] - mrow[4 * ty + r]);
+            sv[r] = acc[r][cc] * p.scale *
+                    expf(static_cast<float>(fcum[i] - fcum[j]) + igs[j] - mrow[4 * ty + r]);
           part[r] += sv[r];
         }
         *reinterpret_cast<float4*>(panel + (long long)j * q64 + i0 + 4 * ty) =
@@ -914,12 +931,12 @@ __global__ void __launch_bounds__(THREADS) mlstm_chunk_state(Params p) {
 // tolerance.  The chunks below keep their arithmetic bit for bit.
 __host__ inline bool streams(int P, int Q) { return state_smem<false>(P, Q) > MAX_SMEM; }
 __host__ inline bool fits(int P, int Q) {
-  return panel_smem(Q) <= MAX_SMEM && state_smem<true>(P, Q) <= MAX_SMEM;
+  return panel_smem<true>(Q) <= MAX_SMEM && state_smem<true>(P, Q) <= MAX_SMEM;
 }
 
 template <bool STREAM>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  const int smem1 = panel_smem(p.Q), smem2 = state_smem<STREAM>(p.P, p.Q);
+  const int smem1 = panel_smem<STREAM>(p.Q), smem2 = state_smem<STREAM>(p.P, p.Q);
   cudaError_t err = cudaFuncSetAttribute(mlstm_chunk_panel<STREAM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
   if (err != cudaSuccess) return static_cast<int>(err);

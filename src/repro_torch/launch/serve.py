@@ -10,11 +10,12 @@ full), driven by a deterministic seeded
 
 Prompts run through :meth:`LM.prefill` and join the running batch
 mid-flight; decode advances every active slot with a per-slot position
-vector.  Every attention and mLSTM sub-block is served with
+vector.  Every attention, Mamba2 and mLSTM sub-block is served with
 ``impl="pallas"``, so each prefill of a transformer runs the
-flash-attention kernel once per layer.  A recurrent model (``--arch
-xlstm-1.3b``) prefills by looping its decode step over the prompt, as
-the JAX package does, so serving it runs no kernel.  Serving
+flash-attention kernel once per attention layer.  A recurrent layer
+(``--arch xlstm-1.3b``, the Mamba2 layers of ``--arch zamba2-2.7b``)
+prefills by looping its decode step over the prompt, as the JAX package
+does, so it runs no scan kernel in serving.  Serving
 runs on CUDA; ``--device cpu`` asks for the CPU (where the kernel's plain
 version stands in for it), and without a card nothing runs.
 """
@@ -195,14 +196,14 @@ def _map_sub_cfg(layers, kinds, **fields):
     return tuple(out)
 
 
-KERNEL_KINDS = ("attention", "mlstm")  # sub-blocks whose impl picks a kernel
+KERNEL_KINDS = ("attention", "mamba2", "mlstm")  # sub-blocks whose impl picks a kernel
 
 
 def swap_kernel_impl(layers, impl):
-    """``layers`` with ``impl`` set on every attention and mLSTM sub-block:
-    ``"pallas"`` runs the kernels (flash attention, the mLSTM scan),
-    ``"xla"`` their plain layers.  Plain dataclass surgery: it fits the
-    JAX package's specs too."""
+    """``layers`` with ``impl`` set on every attention, Mamba2 and mLSTM
+    sub-block: ``"pallas"`` runs the kernels (flash attention, the SSD
+    scan, the mLSTM scan), ``"xla"`` their plain layers.  Plain dataclass
+    surgery: it fits the JAX package's specs too."""
     return _map_sub_cfg(layers, KERNEL_KINDS, impl=impl)
 
 

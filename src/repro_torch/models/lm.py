@@ -5,16 +5,21 @@ Consecutive identical layers are grouped into *segments* as in the JAX
 package, so parameter names line up (``seg_0.<layer>.subs.<i>.norm`` /
 ``.inner`` for the JAX tree's ``seg_0/sub_<i>/{norm,inner}`` stacked on
 a leading layers axis).  Each segment is an ``nn.ModuleList`` of layers
-run in a Python loop.
+run in a Python loop.  A weight-shared layer (zamba2's attention block)
+is a segment of its own: the model holds one ``shared`` layer (the JAX
+tree's ``params["shared"]``), registered once, which every shared
+segment runs.
 
 ``LM(spec)`` lays out a skeleton on the meta device; :meth:`LM.init`
 draws the weights on a generator's device, and
 :func:`repro_torch.convert.lm_from_jax` loads the JAX package's weights.
 
-The decode cache is a list with one dict per layer, ``{"sub_<i>": ...}``
-for each sub-block as in the JAX package: attention ``{"k", "v"}`` each
-``(B, T, KH, D)``, mLSTM ``{"conv", "c", "n", "m"}``, sLSTM ``{"conv",
-"c", "n", "m", "h"}``, ``{}`` for an mlp.  :meth:`LM.prefill` and
+The decode cache is a list with one dict per layer invocation, in the
+order the layers run (so each run of the shared layer has its own),
+``{"sub_<i>": ...}`` for each sub-block as in the JAX package: attention
+``{"k", "v"}`` each ``(B, T, KH, D)``, Mamba2 ``{"conv", "state"}``,
+mLSTM ``{"conv", "c", "n", "m"}``, sLSTM ``{"conv", "c", "n", "m",
+"h"}``, ``{}`` for an mlp or moe.  :meth:`LM.prefill` and
 :meth:`LM.decode` update it in place (attention writes into its K/V; a
 recurrent sub-block replaces its dict's tensors).  Prefill of a
 recurrent kind loops its decode step over the prompt, as the JAX
@@ -23,7 +28,7 @@ package's ``lax.scan`` does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -32,6 +37,8 @@ from repro_torch.models.specs import LayerSpec, ModelSpec, SubBlock
 from repro_torch.nn import attention as attn
 from repro_torch.nn import initializers as init
 from repro_torch.nn import mlp as mlp_mod
+from repro_torch.nn import moe as moe_mod
+from repro_torch.nn import ssm as ssm_mod
 from repro_torch.nn import xlstm as xlstm_mod
 from repro_torch.nn.norms import NORM_APPLY, NORM_INIT
 
@@ -40,6 +47,7 @@ Cache = List[Dict[str, Dict[str, torch.Tensor]]]
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
+    kind: str  # "stack" | "shared"
     spec: LayerSpec
     count: int
     name: str
@@ -49,10 +57,15 @@ def build_segments(layers: Tuple[LayerSpec, ...], prefix: str = "seg") -> Tuple[
     segments = []
     i = 0
     while i < len(layers):
+        spec = layers[i]
+        if spec.shared:
+            segments.append(Segment("shared", spec, 1, f"{prefix}_{len(segments)}"))
+            i += 1
+            continue
         j = i
-        while j < len(layers) and layers[j] == layers[i]:
+        while j < len(layers) and layers[j] == spec and not layers[j].shared:
             j += 1
-        segments.append(Segment(layers[i], j - i, f"{prefix}_{len(segments)}"))
+        segments.append(Segment("stack", spec, j - i, f"{prefix}_{len(segments)}"))
         i = j
     return tuple(segments)
 
@@ -66,6 +79,10 @@ def _sub_init(sub: SubBlock, generator, dtype):
         return attn.attention_init(sub.cfg, generator, dtype)
     if sub.kind == "mlp":
         return mlp_mod.mlp_init(sub.cfg, generator, dtype)
+    if sub.kind == "moe":
+        return moe_mod.moe_init(sub.cfg, generator, dtype)
+    if sub.kind == "mamba2":
+        return ssm_mod.mamba2_init(sub.cfg, generator, dtype)
     if sub.kind == "mlstm":
         return xlstm_mod.mlstm_init(sub.cfg, generator, dtype)
     if sub.kind == "slstm":
@@ -78,6 +95,10 @@ def _sub_apply(sub: SubBlock, params, x, positions):
         return attn.attention_apply(params, sub.cfg, x, positions=positions)
     if sub.kind == "mlp":
         return mlp_mod.mlp_apply(params, sub.cfg, x)
+    if sub.kind == "moe":
+        return moe_mod.moe_apply(params, sub.cfg, x)
+    if sub.kind == "mamba2":
+        return ssm_mod.mamba2_apply(params, sub.cfg, x)
     if sub.kind == "mlstm":
         return xlstm_mod.mlstm_block_apply(params, sub.cfg, x)
     if sub.kind == "slstm":
@@ -88,6 +109,8 @@ def _sub_apply(sub: SubBlock, params, x, positions):
 def _sub_cache_init(sub: SubBlock, batch, max_seq, dtype, device):
     if sub.kind == "attention":
         return attn.init_kv_cache(sub.cfg, batch, max_seq, dtype, device=device)
+    if sub.kind == "mamba2":
+        return ssm_mod.init_ssm_cache(sub.cfg, batch, dtype, device=device)
     if sub.kind == "mlstm":
         return xlstm_mod.init_mlstm_cache(sub.cfg, batch, dtype, device=device)
     if sub.kind == "slstm":
@@ -102,8 +125,8 @@ def _sub_prefill(sub: SubBlock, params, x, cache, pos_offset):
     step, token by token, as the JAX package's ``lax.scan`` does."""
     if sub.kind == "attention":
         return attn.attention_prefill(params, sub.cfg, x, cache, pos_offset)[0]
-    if sub.kind == "mlp":
-        return mlp_mod.mlp_apply(params, sub.cfg, x)
+    if sub.kind in ("mlp", "moe"):
+        return _sub_apply(sub, params, x, None)
     ys = [_sub_decode(sub, params, x[:, t:t + 1], cache, pos_offset + t)
           for t in range(x.shape[1])]
     return torch.cat(ys, dim=1)
@@ -112,9 +135,11 @@ def _sub_prefill(sub: SubBlock, params, x, cache, pos_offset):
 def _sub_decode(sub: SubBlock, params, x, cache, pos):
     if sub.kind == "attention":
         return attn.attention_decode(params, sub.cfg, x, cache, pos)[0]
-    if sub.kind == "mlp":
-        return mlp_mod.mlp_apply(params, sub.cfg, x)
-    if sub.kind == "mlstm":
+    if sub.kind in ("mlp", "moe"):
+        return _sub_apply(sub, params, x, None)
+    if sub.kind == "mamba2":
+        y, new = ssm_mod.mamba2_decode(params, sub.cfg, x, cache)
+    elif sub.kind == "mlstm":
         y, new = xlstm_mod.mlstm_block_decode(params, sub.cfg, x, cache)
     elif sub.kind == "slstm":
         y, new = xlstm_mod.slstm_block_apply(params, sub.cfg, x, cache=cache)
@@ -124,8 +149,10 @@ def _sub_decode(sub: SubBlock, params, x, cache, pos):
     return y
 
 
-def _frozen(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+def _frozen(tensors: Dict[str, Any]) -> nn.ParameterDict:
+    """Frozen parameters; a nested dict (MoE's dense branch) nests."""
+    return nn.ParameterDict({k: _frozen(v) if isinstance(v, dict)
+                             else nn.Parameter(v, requires_grad=False)
                              for k, v in tensors.items()})
 
 
@@ -192,10 +219,14 @@ class LM(nn.Module):
                 init.normal(generator, (spec.d_model, spec.vocab), dtype, stddev=0.02),
                 requires_grad=False)
         self.final_norm = _frozen(NORM_INIT[spec.norm](spec.d_model, generator, dtype))
+        shared = [seg for seg in self.segments if seg.kind == "shared"]
+        if shared:  # one module, however many segments run it
+            self.shared = Layer(shared[0].spec, spec.norm, spec.d_model, generator, dtype)
         for seg in self.segments:
-            self.add_module(seg.name, nn.ModuleList([
-                Layer(seg.spec, spec.norm, spec.d_model, generator, dtype)
-                for _ in range(seg.count)]))
+            if seg.kind == "stack":
+                self.add_module(seg.name, nn.ModuleList([
+                    Layer(seg.spec, spec.norm, spec.d_model, generator, dtype)
+                    for _ in range(seg.count)]))
 
     def init(self, generator: torch.Generator, dtype=torch.float32) -> "LM":
         """Draw every weight on ``generator``'s device (the JAX package's
@@ -205,7 +236,11 @@ class LM(nn.Module):
         return self
 
     def layers(self) -> List[Layer]:
-        return [layer for seg in self.segments for layer in getattr(self, seg.name)]
+        """The layers in the order they run (the shared one at each of its
+        segments)."""
+        return [layer for seg in self.segments
+                for layer in ([self.shared] if seg.kind == "shared"
+                              else getattr(self, seg.name))]
 
     # -- forward ------------------------------------------------------------
 
@@ -229,8 +264,9 @@ class LM(nn.Module):
     # -- decode -------------------------------------------------------------
 
     def init_cache(self, batch: int, max_seq: int, dtype=torch.float32) -> Cache:
-        """Fresh decode caches on the model's device, one dict per layer:
-        zeroed K/V and recurrent states, the stabilisers at -1e6."""
+        """Fresh decode caches on the model's device, one dict per layer
+        invocation: zeroed K/V and recurrent states, the stabilisers at
+        -1e6."""
         if max_seq > self.spec.max_position:
             raise ValueError(f"max_seq {max_seq} exceeds max_position "
                              f"{self.spec.max_position}")

@@ -3,9 +3,11 @@
 A model is: embedding -> [LayerSpec, ...] -> final norm -> LM head.
 Each LayerSpec is a tuple of residual *sub-blocks* (pre-norm residual:
 ``h = h + f(norm(h))``).  A standard transformer layer is
-``(attention, mlp)``; an xLSTM layer is ``(mlstm,)`` or ``(slstm,)``.
-The port builds the attention, mlp, mlstm and slstm kinds; the other
-kinds of the JAX IR raise until their slice lands.
+``(attention, mlp)``; a Mamba2 layer is ``(mamba2,)``; an xLSTM layer is
+``(mlstm,)`` or ``(slstm,)``; a DBRX layer is ``(attention, moe)``.  A
+layer marked ``shared`` is weight-tied to the model's one shared block
+(zamba2).  The port builds every kind of the JAX IR but
+``cross_attention``, which raises until its slice lands.
 """
 from __future__ import annotations
 
@@ -14,11 +16,15 @@ from typing import Any, Optional, Tuple
 
 from repro_torch.nn.attention import AttentionConfig
 from repro_torch.nn.mlp import MLPConfig
+from repro_torch.nn.moe import MoEConfig
 
-SUBBLOCK_KINDS = ("attention", "mlp", "mlstm", "slstm")
-# kinds of the JAX IR that arrive with a later slice of the port
-LATER_KINDS = ("cross_attention", "moe", "mamba2")
-POSITIONALS = ("rope", "none")  # "learned" arrives with a later slice
+SUBBLOCK_KINDS = ("attention", "mlp", "moe", "mamba2", "mlstm", "slstm")
+# what of the JAX IR is still to port, and the ROADMAP item that brings it
+LATER = ("ROADMAP.md Queue 1 item 9b (the rest of the LM substrate: cross-attention "
+         "and the encoder of whisper-medium, learned positions, the VLM prefix of "
+         "paligemma-3b)")
+LATER_KINDS = ("cross_attention",)
+POSITIONALS = ("rope", "none")  # "learned": LATER
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,8 +35,8 @@ class SubBlock:
     def __post_init__(self):
         if self.kind in LATER_KINDS:
             raise NotImplementedError(
-                f"sub-block kind {self.kind!r} is not ported yet; it arrives "
-                f"with the LM-substrate slice (the port has {SUBBLOCK_KINDS})")
+                f"sub-block kind {self.kind!r} is not ported yet: {LATER} "
+                f"(the port has {SUBBLOCK_KINDS})")
         if self.kind not in SUBBLOCK_KINDS:
             raise ValueError(f"unknown sub-block kind {self.kind!r}")
 
@@ -38,6 +44,7 @@ class SubBlock:
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     subs: Tuple[SubBlock, ...]
+    shared: bool = False  # weight-tied to the model's shared block (zamba2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +63,8 @@ class ModelSpec:
     def __post_init__(self):
         if self.positional not in POSITIONALS:
             raise NotImplementedError(
-                f"positional {self.positional!r} is not ported; the port has {POSITIONALS}")
+                f"positional {self.positional!r} is not ported yet: {LATER} "
+                f"(the port has {POSITIONALS})")
 
     @property
     def n_layers(self) -> int:
@@ -87,4 +95,30 @@ def transformer_layer(
             rope_theta=rope_theta, causal=True, window=window)),
         SubBlock("mlp", MLPConfig(d_model, d_ff, activation=activation,
                                   gated=gated, use_bias=mlp_bias)),
+    ))
+
+
+def moe_layer(
+    d_model: int,
+    n_heads: int,
+    n_kv_heads: int,
+    d_ff: int,
+    n_experts: int,
+    top_k: int,
+    *,
+    qk_norm: bool = False,
+    dense_residual: bool = False,
+    activation: str = "silu",
+    capacity_factor: float = 1.25,
+    rope_theta: float = 10000.0,
+) -> LayerSpec:
+    """A decoder layer whose feed-forward is a mixture of experts."""
+    return LayerSpec(subs=(
+        SubBlock("attention", AttentionConfig(
+            d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv_heads,
+            qk_norm=qk_norm, rope=True, rope_theta=rope_theta, causal=True)),
+        SubBlock("moe", MoEConfig(
+            d_model=d_model, d_ff=d_ff, n_experts=n_experts, top_k=top_k,
+            capacity_factor=capacity_factor, activation=activation,
+            dense_residual=dense_residual)),
     ))

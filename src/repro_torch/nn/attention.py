@@ -13,7 +13,9 @@ framework must) would double its memory traffic.
 
 The sequence-mixing math is grouped (no materialized KV repetition): q is
 reshaped to (batch, seq, kv_heads, group, d_head) and contracted directly
-against the grouped KV.
+against the grouped KV.  The plain path's softmax and norms sum in fp32,
+or in float64 when the weights are float64
+(:func:`repro_torch.nn.norms.acc`).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.nn import initializers as init
+from repro_torch.nn.norms import acc
 from repro_torch.nn.rope import apply_rope
 
 NEG_INF = -1e30
@@ -50,7 +53,7 @@ class AttentionConfig:
         if self.impl not in IMPLS:
             raise NotImplementedError(
                 f"attention impl {self.impl!r} is not ported; the port has "
-                f"{IMPLS} (xla_chunked arrives with the LM-substrate slice)")
+                f"{IMPLS} (xla_chunked: ROADMAP.md Queue 1 item 9b)")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"n_heads {self.n_heads} is not a multiple of "
                              f"n_kv_heads {self.n_kv_heads}")
@@ -89,9 +92,9 @@ def attention_init(cfg: AttentionConfig, generator=None, dtype=torch.float32):
 
 
 def _headwise_rmsnorm(x, scale, eps=1e-6):
-    xf = x.float()
+    xf = acc(x)
     var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * scale.to(xf.dtype)).to(x.dtype)
 
 
 def _project_qkv(params, cfg: AttentionConfig, x, positions):
@@ -122,7 +125,7 @@ def grouped_attention(q, k, v, mask, scale):
     b, s, h, dh = q.shape
     kheads = k.shape[2]
     qg = q.reshape(b, s, kheads, h // kheads, dh)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
+    scores = acc(torch.einsum("bskgd,btkd->bkgst", qg, k)) * scale
     scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)

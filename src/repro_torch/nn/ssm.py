@@ -5,8 +5,13 @@ a chunk are matrix products, and the state is carried from one chunk to
 the next.  With ``impl="pallas"`` the chunked scan is the CUDA kernel
 behind :func:`repro_torch.kernels.ops.ssm_scan` (the name is the JAX
 package's, so one spec drives both packages); :func:`ssd_chunked` is its
-plain version.  :func:`causal_conv1d` also has the one-step decode form
-the xLSTM blocks use; the Mamba2 decode step arrives with a later slice.
+plain version.  Decode is one step of the recurrence
+(:func:`ssd_recurrent_step`, :func:`mamba2_decode`) against a cache of
+the conv window and the state (:func:`init_ssm_cache`).
+
+The plain path sums in fp32, or in float64 when the weights are float64
+(:func:`repro_torch.nn.norms.acc`): the reference forward a check holds
+an fp32 one to.
 
 Layout conventions (the JAX package's):
   x     (B, L, H, P)   inner activations, H heads of dim P
@@ -23,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn import initializers as init
+from repro_torch.nn.norms import acc, acc_dtype
 
 IMPLS = ("xla", "pallas")
 
@@ -94,8 +100,10 @@ def causal_conv1d(x, w, b, state=None):
 def ssd_chunked(x, dt, A, B_, C_, chunk):
     """Chunked SSD scan.  Shapes per module docstring; returns (y, final_state).
 
-    y: (B, L, H, P) in x's dtype;  final_state: (B, H, N, P) in fp32.
+    y: (B, L, H, P) in x's dtype;  final_state: (B, H, N, P) in fp32
+    (float64 for float64 x).
     """
+    f = acc_dtype(x)
     b, l, h, p = x.shape
     g, n = B_.shape[2], B_.shape[3]
     if l % chunk:
@@ -104,7 +112,7 @@ def ssd_chunked(x, dt, A, B_, C_, chunk):
     rep = h // g
 
     xc = x.reshape(b, nc, q, h, p)
-    dtc = dt.reshape(b, nc, q, h).float()
+    dtc = dt.reshape(b, nc, q, h).to(f)
     Bc = B_.reshape(b, nc, q, g, n).repeat_interleave(rep, dim=3)  # (b,nc,q,h,n)
     Cc = C_.reshape(b, nc, q, g, n).repeat_interleave(rep, dim=3)
 
@@ -113,7 +121,7 @@ def ssd_chunked(x, dt, A, B_, C_, chunk):
     total = cs[:, :, -1]  # (b,nc,h)
 
     # Intra-chunk: att[i,j] = (C_i . B_j) exp(cs_i - cs_j) dt_j for j <= i.
-    cb = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc).float()
+    cb = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc).to(f)
     cs_t = cs.transpose(2, 3)  # (b,nc,h,q)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
     # Mask in log-space BEFORE exp so j>i never overflows.
@@ -124,19 +132,19 @@ def ssd_chunked(x, dt, A, B_, C_, chunk):
 
     # Chunk states: S_c = sum_j exp(total - cs_j) dt_j B_j x_j  -> (b,nc,h,n,p)
     w_state = torch.exp(total[:, :, None, :] - cs) * dtc  # (b,nc,q,h)
-    s_chunk = torch.einsum("bcqhn,bcqh,bcqhp->bchnp", Bc.float(), w_state, xc.float())
+    s_chunk = torch.einsum("bcqhn,bcqh,bcqhp->bchnp", Bc.to(f), w_state, xc.to(f))
 
     # Inter-chunk recurrence over nc: carries[c] is the state entering chunk c.
-    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    state = torch.zeros((b, h, n, p), dtype=f, device=x.device)
     carries = []
     for c in range(nc):
         carries.append(state)
         state = torch.exp(total[:, c])[:, :, None, None] * state + s_chunk[:, c]
     s_carry = torch.stack(carries, dim=1)  # (b,nc,h,n,p)
 
-    y_inter = torch.einsum("bcqhn,bchnp->bcqhp", Cc.float() * torch.exp(cs)[..., None],
+    y_inter = torch.einsum("bcqhn,bchnp->bcqhp", Cc.to(f) * torch.exp(cs)[..., None],
                            s_carry)
-    y = (y_intra.float() + y_inter).reshape(b, l, h, p)
+    y = (y_intra.to(f) + y_inter).reshape(b, l, h, p)
     return y.to(x.dtype), state
 
 
@@ -148,10 +156,25 @@ def _split_proj(cfg: Mamba2Config, zxbcdt):
     return z, xbc, dt_raw
 
 
+def ssd_recurrent_step(state, x_t, dt_t, A, B_t, C_t):
+    """One decode step.  state: (B,H,N,P); x_t: (B,H,P); dt_t: (B,H);
+    B_t/C_t: (B,G,N).  Returns (y_t in x_t's dtype, new_state)."""
+    f = acc_dtype(x_t)
+    rep = x_t.shape[1] // B_t.shape[1]
+    Bh = B_t.repeat_interleave(rep, dim=1).to(f)  # (B,H,N)
+    Ch = C_t.repeat_interleave(rep, dim=1).to(f)
+    dtf = dt_t.to(f)
+    da = torch.exp(dtf * A[None, :])  # (B,H)
+    upd = torch.einsum("bhn,bh,bhp->bhnp", Bh, dtf, x_t.to(f))
+    new_state = da[:, :, None, None] * state + upd
+    y = torch.einsum("bhn,bhnp->bhp", Ch, new_state)
+    return y.to(x_t.dtype), new_state
+
+
 def _gated_norm(y, z, scale, eps=1e-6):
-    yf = (y * F.silu(z.float())).float()
+    yf = acc(y * F.silu(acc(z)))
     var = yf.square().mean(dim=-1, keepdim=True)
-    return (yf * (var + eps) ** -0.5 * scale.float()).to(y.dtype)
+    return (yf * (var + eps) ** -0.5 * scale.to(yf.dtype)).to(y.dtype)
 
 
 def mamba2_apply(params, cfg: Mamba2Config, x):
@@ -165,7 +188,7 @@ def mamba2_apply(params, cfg: Mamba2Config, x):
     xs = xbc[..., :d_in].reshape(b, l, cfg.n_heads, cfg.d_head)
     B_ = xbc[..., d_in : d_in + gn].reshape(b, l, cfg.n_groups, cfg.d_state)
     C_ = xbc[..., d_in + gn :].reshape(b, l, cfg.n_groups, cfg.d_state)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    dt = F.softplus(acc(dt_raw) + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     chunk = min(cfg.chunk, l)
     while l % chunk:
@@ -180,3 +203,35 @@ def mamba2_apply(params, cfg: Mamba2Config, x):
     y = y.reshape(b, l, d_in)
     y = _gated_norm(y, z, params["norm_scale"])
     return y @ params["out_proj"]
+
+
+def init_ssm_cache(cfg: Mamba2Config, batch, dtype=torch.float32, device=None):
+    """The conv window (B, W-1, conv_dim) in ``dtype`` and the state
+    (B, H, N, P) in fp32, both zero."""
+    conv_dim = cfg.d_inner + 2 * cfg.n_groups * cfg.d_state
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, conv_dim), dtype=dtype, device=device),
+        "state": torch.zeros((batch, cfg.n_heads, cfg.d_state, cfg.d_head),
+                             dtype=torch.float32, device=device),
+    }
+
+
+def mamba2_decode(params, cfg: Mamba2Config, x, cache):
+    """One-token decode.  x: (B, 1, d_model).  Returns (y, new cache)."""
+    b = x.shape[0]
+    d_in, gn = cfg.d_inner, cfg.n_groups * cfg.d_state
+    zxbcdt = x @ params["in_proj"]
+    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
+    xbc_t, conv_state = causal_conv1d(xbc, params["conv_w"], params["conv_b"],
+                                      state=cache["conv"].to(xbc.dtype))
+    xbc_t = F.silu(xbc_t)[:, 0]  # (B, conv_dim)
+    x_t = xbc_t[..., :d_in].reshape(b, cfg.n_heads, cfg.d_head)
+    B_t = xbc_t[..., d_in : d_in + gn].reshape(b, cfg.n_groups, cfg.d_state)
+    C_t = xbc_t[..., d_in + gn :].reshape(b, cfg.n_groups, cfg.d_state)
+    dt = F.softplus(acc(dt_raw[:, 0]) + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    y_t, state = ssd_recurrent_step(cache["state"], x_t, dt, A, B_t, C_t)
+    y_t = (y_t + x_t * params["D"][None, :, None]).to(x.dtype)
+    y = _gated_norm(y_t.reshape(b, 1, d_in), z, params["norm_scale"])
+    out = y @ params["out_proj"]
+    return out, {"conv": conv_state.to(cache["conv"].dtype), "state": state}

@@ -46,6 +46,8 @@ def test_traffic_stream_matches_jax_copy(seed, arrival):
     pytest.param("qwen3-1.7b", "pallas", id="pallas"),
     pytest.param("xlstm-1.3b", "xla", id="xlstm-1.3b-xla"),
     pytest.param("xlstm-1.3b", "pallas", id="xlstm-1.3b-pallas"),
+    pytest.param("zamba2-2.7b", "xla", id="zamba2-2.7b-xla"),
+    pytest.param("zamba2-2.7b", "pallas", id="zamba2-2.7b-pallas"),
 ])
 def test_engine_matches_jax_engine(arch, impl):
     """The traffic of tests/test_serving.py's engine test: same summary,
