@@ -87,7 +87,23 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    ``impl="xla"`` forward as in 8, save the tokens whose expert set moved
    where the float64 router's margin between its 4th and 5th probability is
    below 1e-5 (counted); any other token that moves fails;
-12. a JSON line per kernel, the card's name and power limit, and the
+12. paligemma_forward: paligemma-3b as published (18 layers, 8 heads of 256
+   over one KV head; random weights, seed 0) over 2048 tokens, the first 256
+   positions overwritten by seeded patch embeddings: ``flash_attention``
+   launched 18 times (causal, D = 256), the plain version never; the logits
+   held to the float64 ``impl="xla"`` forward as in 8; device time by kind;
+   then paligemma_serve, as 9 (text prompts: flash 18 times a prefill);
+13. whisper_forward: whisper-medium as published (24 encoder and 24 decoder
+   layers; random weights, seed 0): ``encode`` of 1500 seeded frame
+   embeddings, then the forward of 448 tokens against the encoder output:
+   ``flash_attention`` launched 48 times (24 non-causal over the 1500 frames,
+   24 causal over the 448 tokens), cross-attention never (it runs the plain
+   grouped math, as in the JAX package), the plain version never; the
+   logits held to the float64 ``impl="xla"`` encode and forward as in 8;
+   device time by kind; then ``init_cache`` with the encoder output, a
+   prefill of the first 384 tokens and 4 decode steps, their logits held to
+   the forward's at the same positions within 1e-3 of their max;
+14. a JSON line per kernel, the card's name and power limit, and the
    ``{"ok": true, ...}`` line last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -140,6 +156,20 @@ FLASH_CASES = [
     (1, 512, 12, 1, 192, True, None),
     (1, 512, 8, 1, 256, True, None),
     (2, 300, 4, 2, 256, False, None),
+    # the paligemma_forward and whisper_forward phases' attention:
+    # paligemma-3b's over its 2048 tokens, whisper-medium's encoder
+    # (non-causal over 1500 frames, no multiple of a tile) and decoder
+    # (causal over its 448-token text context)
+    (1, 2048, 8, 1, 256, True, None),
+    (1, 1500, 16, 16, 64, False, None),
+    (1, 448, 16, 16, 64, True, None),
+    # the shapes the paligemma_serve phase's prefills give the kernel (its
+    # 64- and 128-token prompts) and whisper_forward's cached prefill of 384
+    # tokens; there the phases compare the kernel with itself or check it
+    # only through the logits, so these rows hold it to the plain version
+    (1, 64, 8, 1, 256, True, None),
+    (1, 128, 8, 1, 256, True, None),
+    (1, 384, 16, 16, 64, True, None),
 ]
 TOLERANCE = {
     "float32": 1e-4,   # order of summation only
@@ -147,8 +177,12 @@ TOLERANCE = {
 }
 REPORTED_CASE = (1, 512, 16, 8, 128, True, None)  # the longer served prompt
 NAS_FLASH_CASE = (1, 2048, 32, 32, 80, False, None)
-# cases whose rows also carry device time from torch.profiler
-DEVICE_TIMED_CASES = (REPORTED_CASE, NAS_FLASH_CASE, FLASH_CASES[-3], FLASH_CASES[-2])
+# cases whose rows also carry device time from torch.profiler: the served and
+# NAS shapes, D = 192 and 256 at 512 tokens, paligemma-3b's forward and
+# whisper-medium's encoder
+DEVICE_TIMED_CASES = (REPORTED_CASE, NAS_FLASH_CASE, (1, 512, 12, 1, 192, True, None),
+                      (1, 512, 8, 1, 256, True, None), (1, 2048, 8, 1, 256, True, None),
+                      (1, 1500, 16, 16, 64, False, None))
 # cases also run at every tile pair the kernel is built for at their head
 # dim (a flash_tiles line each), with the pair asked for by a schedule
 TILED_CASES = (REPORTED_CASE, NAS_FLASH_CASE)
@@ -297,6 +331,24 @@ MOE_LAYERS = 1
 # k-th probability less its (k+1)-th) is below MOE_MARGIN: there fp32 may
 # rightly route otherwise.  Any other change of expert set fails.
 MOE_MARGIN = 1e-5
+
+# paligemma-3b as published, uncut (2.51e9 parameters: 10 GB in fp32 beside
+# a 20 GB float64 reference): 2048 tokens, the first 256 of them (its
+# num_prefix_tokens) overwritten by seeded patch embeddings; served as
+# zamba2-2.7b is (text prompts: prefill takes no prefix in either package)
+PALIGEMMA_ARCH = "paligemma-3b"
+PALIGEMMA_SEQ = 2048
+PALIGEMMA_SERVE_ARGS = ["--arch", PALIGEMMA_ARCH, *XLSTM_SERVE_ARGS[2:]]
+
+# whisper-medium as published, uncut: its encoder over the 1500 frames of its
+# enc_context, its decoder over the 448 tokens of Whisper's text context; the
+# cached path prefills the first 384 tokens and decodes 4 more.  Not served:
+# the engine builds no encoder output, so its cross-attention adds zeros
+# and a prefill is not the forward's (as in the JAX package's engine)
+WHISPER_ARCH = "whisper-medium"
+WHISPER_SEQ = 448
+WHISPER_PREFILL = 384
+WHISPER_DECODE_STEPS = 4
 
 
 def profile_window(torch, label, step, warmup=2, steps=3) -> None:
@@ -554,18 +606,30 @@ def profile_by_kind(torch, label, step, ranges=()) -> dict:
     return row
 
 
-def _xla_forwards(torch, ops, serve, spec, model, tokens) -> dict:
-    """The yardsticks of a kernel forward of ``model`` (an ``LM`` of
-    ``spec`` on the kernels): the same weights' forward with every kernel
-    sub-block on its plain layer (``impl="xla"``), in fp32 (sharing the
-    weights) and in float64 (a copy).  Returns their logits ("plain",
-    "float64"), their host walls and the kernel launches the plain one made
-    (there must be none)."""
-    import dataclasses
+def _run_forward(model, tokens, dtype=None, frames=None, prefix_embeds=None):
+    """The logits of ``model`` on ``tokens``: with ``frames``, encoded first
+    and attended to by the cross-attention; with ``prefix_embeds`` over the
+    first positions.  The inputs are cast to ``dtype`` when it is given."""
+    cast = (lambda x: x) if dtype is None else (lambda x: x.to(dtype))
+    kw = {}
+    if frames is not None:
+        kw["enc_out"] = model.encode(cast(frames))
+    if prefix_embeds is not None:
+        kw["prefix_embeds"] = cast(prefix_embeds)
+    return model(tokens, **kw)
 
+
+def _xla_forwards(torch, ops, serve, spec, model, tokens, **inputs) -> dict:
+    """The yardsticks of a kernel forward of ``model`` (an ``LM`` of
+    ``spec`` on the kernels): the same weights' forward (``inputs`` as
+    :func:`_run_forward` takes them) with every kernel sub-block on its
+    plain layer (``impl="xla"``), in fp32 (sharing the weights) and in
+    float64 (a copy, made after the fp32 forward).  Returns their logits
+    ("plain", "float64"), their host walls and the kernel launches the
+    plain one made (there must be none)."""
     from repro_torch.models.lm import LM
 
-    xla = dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "xla"))
+    xla = serve.swap_spec_impl(spec, "xla")
     out = {}
     for name, dtype in (("plain", None), ("float64", torch.float64)):
         other = LM(xla)
@@ -575,7 +639,7 @@ def _xla_forwards(torch, ops, serve, spec, model, tokens) -> dict:
         with torch.inference_mode():
             before = sum(ops.LAUNCHES.values())
             t0 = time.perf_counter()
-            out[name] = other(tokens)
+            out[name] = _run_forward(other, tokens, dtype, **inputs)
             torch.cuda.synchronize()
             out[f"{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3
             out[f"{name}_kernel_launches"] = sum(ops.LAUNCHES.values()) - before
@@ -607,32 +671,29 @@ def _float64_readings(logits, plain, logits64, held=None) -> dict:
     }
 
 
-def _sub_count(spec, kind) -> int:
-    """Sub-blocks of ``kind`` a forward of ``spec`` runs (the shared layer
-    once a run)."""
-    return sum(sub.kind == kind for layer in spec.layers for sub in layer.subs)
+def _sub_count(layers, kind) -> int:
+    """Sub-blocks of ``kind`` a run of ``layers`` (a spec's decoder or
+    encoder layers) makes (the shared layer once a run)."""
+    return sum(sub.kind == kind for layer in layers for sub in layer.subs)
 
 
 def xlstm_forward_phase(torch, ops, ref, serve) -> dict:
     """``LM.forward`` of xlstm-1.3b at full width over ``XLSTM_SEQ`` tokens,
-    every mLSTM block on the kernel (``serve.swap_kernel_impl``).  Raises
+    every mLSTM block on the kernel (``serve.swap_spec_impl``).  Raises
     unless ``mlstm_scan`` launched once per mLSTM layer, the plain version
     never, and the logits match the same weights' forward with
     ``impl="xla"`` in float64 (``XLSTM_LOGITS_REL``); the reading of the
     check before it (the fp32 ``impl="xla"`` forward) is printed beside.
     Returns the counts and times."""
-    import dataclasses
-
     from repro_torch.configs import get_arch
     from repro_torch.models.lm import LM
     from repro_torch.nn import xlstm as xlstm_mod
 
     spec = get_arch(XLSTM_ARCH).spec()
-    n_mlstm = _sub_count(spec, "mlstm")
-    model = LM(dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "pallas")))
+    n_mlstm = _sub_count(spec.layers, "mlstm")
+    model = LM(serve.swap_spec_impl(spec, "pallas"))
     model.init(torch.Generator(device="cuda").manual_seed(0))
-    tokens = torch.randint(0, spec.vocab, (1, XLSTM_SEQ), device="cuda",
-                           generator=torch.Generator(device="cuda").manual_seed(1))
+    tokens = _tokens(torch, spec.vocab, XLSTM_SEQ)
     n_params = sum(t.numel() for t in model.state_dict().values())
     run = _kernel_forward(torch, ops, ref, model, tokens)
     logits, launches = run["logits"], run["launches"]
@@ -699,16 +760,13 @@ def xlstm_forward_bf16_phase(torch, ops, ref, serve) -> dict:
     forward lands as far from the fp32 one as the kernel's does;
     ``scripts/xlstm_logits_variants.py --bf16``).  Returns the counts and
     times."""
-    import dataclasses
-
     from repro_torch.configs import get_arch
     from repro_torch.models.lm import LM
 
     spec = get_arch(XLSTM_ARCH).spec()
-    n_mlstm = sum(sub.kind == "mlstm" for layer in spec.layers for sub in layer.subs)
-    tokens = torch.randint(0, spec.vocab, (1, XLSTM_SEQ), device="cuda",
-                           generator=torch.Generator(device="cuda").manual_seed(1))
-    model = LM(dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "pallas")))
+    n_mlstm = _sub_count(spec.layers, "mlstm")
+    tokens = _tokens(torch, spec.vocab, XLSTM_SEQ)
+    model = LM(serve.swap_spec_impl(spec, "pallas"))
     model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
 
     plain_calls = []
@@ -767,11 +825,11 @@ def xlstm_forward_bf16_phase(torch, ops, ref, serve) -> dict:
 KERNEL_OF_KIND = {"attention": "flash_attention", "mamba2": "ssm_scan", "mlstm": "mlstm_scan"}
 
 
-def _forward_launches(spec) -> dict:
-    """Kernel launches one forward of ``spec`` on the kernels makes: one a
-    sub-block of each kind that has a kernel."""
-    return {kernel: _sub_count(spec, kind) for kind, kernel in KERNEL_OF_KIND.items()
-            if _sub_count(spec, kind)}
+def _forward_launches(layers) -> dict:
+    """Kernel launches one run of ``layers`` on the kernels makes: one a
+    sub-block of each kind that has a kernel (cross-attention has none)."""
+    return {kernel: _sub_count(layers, kind) for kind, kernel in KERNEL_OF_KIND.items()
+            if _sub_count(layers, kind)}
 
 
 def _plain_versions(ref, calls):
@@ -780,14 +838,14 @@ def _plain_versions(ref, calls):
             for name in ("flash_attention_ref", "ssm_scan_ref", "mlstm_scan_ref")]
 
 
-def recurrent_serve_phase(torch, ops, ref, serve, name, argv) -> dict:
-    """``launch.serve`` of a model with recurrent layers at full width
-    (``argv``: 4 requests, 8 tokens each).  Raises unless they are served
-    with no shed, each prefill launched ``flash_attention`` once per
-    attention sub-block (its recurrent layers loop their decode step and
-    launch no scan) and no plain version ran, and the longest prompt's
-    prefill logits match the kernel forward's logits at the same positions
-    within ``XLSTM_LOGITS_REL`` of their max.  Prints ``<name>_serve`` and
+def lm_serve_phase(torch, ops, ref, serve, name, argv) -> dict:
+    """``launch.serve`` of a model at full width (``argv``: 4 requests, 8
+    tokens each).  Raises unless they are served with no shed, each
+    prefill launched ``flash_attention`` once per attention sub-block (a
+    recurrent layer loops its decode step and launches no scan) and no
+    plain version ran, and the longest prompt's prefill logits match the
+    kernel forward's logits at the same positions within
+    ``XLSTM_LOGITS_REL`` of their max.  Prints ``<name>_serve`` and
     ``<name>_prefill_logits`` lines; returns the first."""
     from contextlib import ExitStack
 
@@ -804,7 +862,7 @@ def recurrent_serve_phase(torch, ops, ref, serve, name, argv) -> dict:
     peak = torch.cuda.max_memory_allocated()
     model = engine.model
     vocab = model.spec.vocab
-    per_prefill = {"flash_attention": _sub_count(model.spec, "attention")}
+    per_prefill = {"flash_attention": _sub_count(model.spec.layers, "attention")}
     out = {
         "arch": summary["arch"], "served": summary["served"], "shed": summary["shed"],
         "prefills": summary["prefills"], "tokens_generated": summary["tokens_generated"],
@@ -843,9 +901,9 @@ def recurrent_serve_phase(torch, ops, ref, serve, name, argv) -> dict:
         "max_abs_logit": fwd_logits.abs().max().item(), "max_abs_err": err, "tol": tol,
         "max_err_over_tol": err / tol,
         **{f"forward_{kernel}_launches": n for kernel, n in fwd_launches.items()}}))
-    if fwd_launches != _forward_launches(model.spec):
+    if fwd_launches != _forward_launches(model.spec.layers):
         raise AssertionError(f"{name}_serve: the forward launched {fwd_launches}, "
-                             f"expected {_forward_launches(model.spec)}")
+                             f"expected {_forward_launches(model.spec.layers)}")
     if not finite or prefill_logits.shape != fwd_logits.shape or err > tol:
         raise AssertionError(f"{name}_serve: prefill logits max |err| {err} > {tol}, "
                              f"finite={finite}")
@@ -854,11 +912,15 @@ def recurrent_serve_phase(torch, ops, ref, serve, name, argv) -> dict:
     return out
 
 
-def _kernel_forward(torch, ops, ref, model, tokens, runs=2) -> dict:
-    """``runs`` forwards of ``model`` on ``tokens`` with the kernels' plain
-    versions counted: the first one's logits and launches, every run's host
-    wall, the peak memory."""
+def _kernel_forward(torch, ops, ref, model, tokens, runs=2, calls=None, **inputs) -> dict:
+    """``runs`` forwards of ``model`` on ``tokens`` (``inputs`` as
+    :func:`_run_forward` takes them) with the kernels' plain versions
+    counted: the first one's logits and launches, every run's host wall,
+    the peak memory.  ``calls``, a dict, receives the first run's kernel
+    calls by shape (``schedule.record_kernel_calls``)."""
     from contextlib import ExitStack
+
+    from repro_torch.kernels import schedule as ksched
 
     plain_calls, walls = [], []
     torch.cuda.synchronize()
@@ -867,12 +929,15 @@ def _kernel_forward(torch, ops, ref, model, tokens, runs=2) -> dict:
         for patch in _plain_versions(ref, plain_calls):
             stack.enter_context(patch)
         for run in range(runs):
-            if run == 0:
-                ops.LAUNCHES.clear()
-            t0 = time.perf_counter()
-            out = model(tokens)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
+            with ExitStack() as recording:
+                if run == 0:
+                    ops.LAUNCHES.clear()
+                    if calls is not None:
+                        recording.enter_context(ksched.record_kernel_calls(calls))
+                t0 = time.perf_counter()
+                out = _run_forward(model, tokens, **inputs)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
             if run == 0:
                 logits, launches = out, {k: n for k, n in ops.LAUNCHES.items() if n}
             del out
@@ -880,41 +945,53 @@ def _kernel_forward(torch, ops, ref, model, tokens, runs=2) -> dict:
             "wall_ms": walls, "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
-def zamba2_forward_phase(torch, ops, ref, serve) -> dict:
-    """``LM.forward`` of zamba2-2.7b as published (random fp32 weights, seed
-    0) over ``ZAMBA2_SEQ`` tokens at batch 1, every Mamba2 and attention
-    sub-block on its kernel.  Raises unless ``ssm_scan`` launched once per
-    Mamba2 layer (54) and ``flash_attention`` once per run of the shared
-    attention block (9), no plain version was called, and the logits hold
-    the float64 check of :func:`xlstm_forward_phase`.  Returns the counts
-    and times."""
-    import dataclasses
+def _flash_calls_by_shape(calls) -> dict:
+    """Flash calls recorded by ``schedule.record_kernel_calls``, counted by
+    query and key lengths and mask."""
+    out = {}
+    for (kernel, _), call in calls.items():
+        if kernel == "flash_attention":
+            key = (f"S={call['shapes']['q'][1]} T={call['shapes']['k'][1]} "
+                   f"causal={call['meta']['causal']}")
+            out[key] = out.get(key, 0) + call["calls"]
+    return out
 
-    from repro_torch.configs import get_arch
+
+def _model_forward(torch, ops, ref, serve, name, spec, tokens, **inputs):
+    """``LM.forward`` of ``spec`` (random fp32 weights, seed 0) on ``tokens``
+    (``inputs`` as :func:`_run_forward` takes them: an encoder's frames, a
+    prefix of patch embeddings), every attention, Mamba2 and mLSTM
+    sub-block of the encoder and decoder on its kernel.  Raises unless
+    each kernel launched once per sub-block of its kind, no plain version
+    was called, and the logits hold the float64 check of
+    :func:`xlstm_forward_phase`.  Prints the ``<name>_forward`` line (with
+    device time by kind); returns (that line, the model, its logits)."""
     from repro_torch.models.lm import LM
 
-    spec = get_arch(ZAMBA2_ARCH).spec()
-    want = _forward_launches(spec)
-    model = LM(dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "pallas")))
+    want = _forward_launches(spec.encoder_layers + spec.layers)
+    model = LM(serve.swap_spec_impl(spec, "pallas"))
     model.init(torch.Generator(device="cuda").manual_seed(0))
-    tokens = torch.randint(0, spec.vocab, (1, ZAMBA2_SEQ), device="cuda",
-                           generator=torch.Generator(device="cuda").manual_seed(1))
-    run = _kernel_forward(torch, ops, ref, model, tokens)
+    calls = {}
+    run = _kernel_forward(torch, ops, ref, model, tokens, calls=calls, **inputs)
     logits = run.pop("logits")
-    xla = _xla_forwards(torch, ops, serve, spec, model, tokens)
+    xla = _xla_forwards(torch, ops, serve, spec, model, tokens, **inputs)
     readings = _float64_readings(logits, xla["plain"], xla["float64"])
     finite, logits_shape = bool(torch.isfinite(logits).all()), tuple(logits.shape)
-    del logits, xla["plain"], xla["float64"]
-    prof = profile_by_kind(torch, f"zamba2 forward B=1 L={ZAMBA2_SEQ}",
-                           lambda: float(model(tokens)[0, -1, 0]))
-    kinds = prof["device_ms_by_kind"]
+    del xla["plain"], xla["float64"]
+    prof = profile_by_kind(torch, f"{name} forward B={tokens.shape[0]} L={tokens.shape[1]}",
+                           lambda: float(_run_forward(model, tokens, **inputs)[0, -1, 0]))
+    kinds, device_ms = prof["device_ms_by_kind"], prof["device_ms"]
     summary = {
         "arch": spec.name, "layers": spec.n_layers,
+        "encoder_layers": len(spec.encoder_layers),
         "n_params": sum(t.numel() for t in model.state_dict().values()),
-        "tokens": list(tokens.shape), **run, "expected_launches": want,
-        "device_ms": prof["device_ms"], "device_ms_by_kind": kinds,
-        "ssm_scan_share": (kinds["ssm_scan"] / prof["device_ms"]
-                           if isinstance(kinds, dict) else "not measured"),
+        "tokens": list(tokens.shape),
+        **{f"{key}_shape": list(x.shape) for key, x in inputs.items()},
+        **run, "expected_launches": want,
+        "flash_calls_by_shape": _flash_calls_by_shape(calls),
+        "device_ms": device_ms, "device_ms_by_kind": kinds,
+        "device_share_by_kind": ({k: ms / device_ms for k, ms in kinds.items()}
+                                 if isinstance(kinds, dict) else "not measured"),
         "device_busy_share": prof["device_busy_share"],
         "device_ms_source": "the profiled forward's kernels (torch.profiler)",
         "plain_impl_wall_ms": xla["plain_wall_ms"],
@@ -922,16 +999,132 @@ def zamba2_forward_phase(torch, ops, ref, serve) -> dict:
         "float64_impl_wall_ms": xla["float64_wall_ms"],
         "logits_shape": list(logits_shape), "finite": finite, **readings,
     }
-    print("zamba2_forward " + json.dumps(summary))
+    print(f"{name}_forward " + json.dumps(summary))
     if run["launches"] != want or run["plain_calls"] or xla["plain_kernel_launches"]:
-        raise AssertionError(f"zamba2_forward: kernels launched {run['launches']} "
+        raise AssertionError(f"{name}_forward: kernels launched {run['launches']} "
                              f"(expected {want}), plain calls {run['plain_calls']}, "
                              f"launches under impl=xla {xla['plain_kernel_launches']}")
     over = readings["max_err_over_tol"]
-    if not finite or logits_shape != (1, ZAMBA2_SEQ, spec.vocab) or over > 1:
-        raise AssertionError(f"zamba2_forward: logits max |err| / tol {over} against the "
+    if not finite or logits_shape != (*tokens.shape, spec.vocab) or over > 1:
+        raise AssertionError(f"{name}_forward: logits max |err| / tol {over} against the "
                              f"float64 forward, finite={finite}, shape {logits_shape}")
-    del model
+    return summary, model, logits
+
+
+def _tokens(torch, vocab, seq):
+    """Batch-1 tokens drawn from seed 1, as every model phase draws them."""
+    return torch.randint(0, vocab, (1, seq), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+
+
+def _embeddings(torch, *shape):
+    """Standard normal stand-ins for a stub frontend's output (frame or patch
+    embeddings), drawn from seed 2."""
+    return torch.randn(shape, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(2))
+
+
+def zamba2_forward_phase(torch, ops, ref, serve) -> dict:
+    """``LM.forward`` of zamba2-2.7b as published over ``ZAMBA2_SEQ``
+    tokens at batch 1 (:func:`_model_forward`): ``ssm_scan`` once per
+    Mamba2 layer (54) and ``flash_attention`` once per run of the shared
+    attention block (9).  Returns the counts and times."""
+    from repro_torch.configs import get_arch
+
+    spec = get_arch(ZAMBA2_ARCH).spec()
+    summary, model, logits = _model_forward(torch, ops, ref, serve, "zamba2", spec,
+                                            _tokens(torch, spec.vocab, ZAMBA2_SEQ))
+    del model, logits
+    torch.cuda.empty_cache()
+    return summary
+
+
+def paligemma_forward_phase(torch, ops, ref, serve) -> dict:
+    """``LM.forward`` of paligemma-3b as published over ``PALIGEMMA_SEQ``
+    tokens at batch 1, its first ``num_prefix_tokens`` (256) positions
+    overwritten by seeded patch embeddings (:func:`_model_forward`):
+    ``flash_attention`` once per layer (18; causal, 8 heads of 256 over one
+    KV head).  Returns the counts and times."""
+    from repro_torch.configs import get_arch
+
+    spec = get_arch(PALIGEMMA_ARCH).spec()
+    prefix = _embeddings(torch, 1, spec.num_prefix_tokens, spec.d_model)
+    summary, model, logits = _model_forward(torch, ops, ref, serve, "paligemma", spec,
+                                            _tokens(torch, spec.vocab, PALIGEMMA_SEQ),
+                                            prefix_embeds=prefix)
+    del model, logits
+    torch.cuda.empty_cache()
+    return summary
+
+
+def whisper_forward_phase(torch, ops, ref, serve) -> dict:
+    """whisper-medium as published (:func:`_model_forward`): ``encode`` of
+    ``enc_context`` (1500) seeded frame embeddings, then the forward of
+    ``WHISPER_SEQ`` tokens against the encoder output.  Raises unless flash
+    ran once per encoder layer non-causally over the frames and once per
+    decoder layer causally over the tokens (cross-attention takes the plain
+    grouped math and launches nothing); then the cached path: ``init_cache``
+    with the encoder output, a prefill of ``WHISPER_PREFILL`` tokens (flash
+    once per decoder layer) and ``WHISPER_DECODE_STEPS`` per-slot decode
+    steps, whose logits must match the forward's at the same positions
+    within ``XLSTM_LOGITS_REL`` of their max.  Returns the counts and
+    times."""
+    from repro_torch.configs import get_arch
+
+    arch = get_arch(WHISPER_ARCH)
+    spec = arch.spec()
+    tokens = _tokens(torch, spec.vocab, WHISPER_SEQ)
+    frames = _embeddings(torch, 1, arch.enc_context, spec.d_model)
+    summary, model, logits = _model_forward(torch, ops, ref, serve, "whisper", spec,
+                                            tokens, frames=frames)
+    n_enc = _sub_count(spec.encoder_layers, "attention")
+    n_dec = _sub_count(spec.layers, "attention")
+    want = {f"S={arch.enc_context} T={arch.enc_context} causal=False": n_enc,
+            f"S={WHISPER_SEQ} T={WHISPER_SEQ} causal=True": n_dec}
+    if summary["flash_calls_by_shape"] != want:
+        raise AssertionError(f"whisper_forward: flash calls {summary['flash_calls_by_shape']}"
+                             f", expected {want}")
+
+    # the cached path against the forward at the same positions
+    with torch.inference_mode():
+        enc = model.encode(frames)
+        cache = model.init_cache(1, WHISPER_SEQ, enc_out=enc)
+        ops.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        pre, cache = model.prefill(cache, tokens[:, :WHISPER_PREFILL])
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+        steps, decode_ms = [], []
+        for t in range(WHISPER_PREFILL, WHISPER_PREFILL + WHISPER_DECODE_STEPS):
+            t0 = time.perf_counter()
+            step, cache = model.decode(cache, tokens[:, t:t + 1],
+                                       torch.tensor([t], device="cuda"))
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append(step)
+        decode_launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+    cached = torch.cat([pre, *steps], dim=1)
+    want_logits = logits[:, :WHISPER_PREFILL + WHISPER_DECODE_STEPS]
+    err = (cached - want_logits).abs().max().item()
+    tol = XLSTM_LOGITS_REL * want_logits.abs().max().item()
+    finite = bool(torch.isfinite(cached).all())
+    summary["cached"] = {
+        "prefill_tokens": WHISPER_PREFILL, "decode_steps": WHISPER_DECODE_STEPS,
+        "enc_len": int(cache[0]["sub_1"]["k"].shape[1]),
+        "prefill_wall_ms": prefill_ms, "decode_wall_ms": decode_ms,
+        "prefill_launches": prefill_launches, "launches_after_decode": decode_launches,
+        "max_abs_logit": want_logits.abs().max().item(), "max_abs_err": err, "tol": tol,
+        "max_err_over_tol": err / tol, "finite": finite}
+    print("whisper_cached " + json.dumps(summary["cached"]))
+    if prefill_launches != {"flash_attention": n_dec} or decode_launches != prefill_launches:
+        raise AssertionError(f"whisper_cached: launches {prefill_launches} in the prefill, "
+                             f"{decode_launches} after decoding; expected {n_dec} flash "
+                             f"launches in the prefill and none in decode")
+    if not finite or err > tol:
+        raise AssertionError(f"whisper_cached: logits max |err| {err} > {tol}, "
+                             f"finite={finite}")
+    del model, logits, enc, cache, cached, pre, steps
     torch.cuda.empty_cache()
     return summary
 
@@ -954,11 +1147,10 @@ def moe_forward_phase(torch, ops, ref, serve) -> dict:
     full = get_arch(MOE_ARCH).spec()
     spec = dataclasses.replace(full, layers=full.layers[:MOE_LAYERS])
     cfg = next(sub.cfg for sub in spec.layers[0].subs if sub.kind == "moe")
-    want = _forward_launches(spec)
-    model = LM(dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "pallas")))
+    want = _forward_launches(spec.layers)
+    model = LM(serve.swap_spec_impl(spec, "pallas"))
     model.init(torch.Generator(device="cuda").manual_seed(0))
-    tokens = torch.randint(0, spec.vocab, (1, MOE_SEQ), device="cuda",
-                           generator=torch.Generator(device="cuda").manual_seed(1))
+    tokens = _tokens(torch, spec.vocab, MOE_SEQ)
 
     # the routing of each forward's MoE layers, in the order they ran
     routes, route = [], moe_mod.route_topk
@@ -973,7 +1165,7 @@ def moe_forward_phase(torch, ops, ref, serve) -> dict:
         xla = _xla_forwards(torch, ops, serve, spec, model, tokens)
     logits = run.pop("logits")
     # split the routings into the kernel, fp32 xla and float64 forwards
-    n_moe = _sub_count(spec, "moe")
+    n_moe = _sub_count(spec.layers, "moe")
     if len(routes) != 3 * n_moe:
         raise AssertionError(f"moe_forward: {len(routes)} routings recorded, expected "
                              f"3 forwards x {n_moe} MoE layers")
@@ -1662,12 +1854,16 @@ def cascade_phase(torch, ops) -> dict:
 MODEL_PHASES = {
     "xlstm_forward": xlstm_forward_phase,
     "xlstm_forward_bf16": xlstm_forward_bf16_phase,
-    "xlstm_serve": functools.partial(recurrent_serve_phase, name="xlstm",
+    "xlstm_serve": functools.partial(lm_serve_phase, name="xlstm",
                                      argv=XLSTM_SERVE_ARGS),
     "zamba2_forward": zamba2_forward_phase,
-    "zamba2_serve": functools.partial(recurrent_serve_phase, name="zamba2",
+    "zamba2_serve": functools.partial(lm_serve_phase, name="zamba2",
                                       argv=ZAMBA2_SERVE_ARGS),
     "moe_forward": moe_forward_phase,
+    "paligemma_forward": paligemma_forward_phase,
+    "paligemma_serve": functools.partial(lm_serve_phase, name="paligemma",
+                                         argv=PALIGEMMA_SERVE_ARGS),
+    "whisper_forward": whisper_forward_phase,
 }
 SUBSET_PHASES = ("flash", "ssm", "nas", "modelled", "explore", "cascade", "mlstm",
                  *MODEL_PHASES)
@@ -1853,16 +2049,23 @@ def main(argv=None) -> int:
     xfwd16 = xlstm_forward_bf16_phase(torch, ops, ref, serve)
 
     # -- 9. serving xlstm-1.3b ----------------------------------------------
-    xserve = recurrent_serve_phase(torch, ops, ref, serve, "xlstm", XLSTM_SERVE_ARGS)
+    xserve = lm_serve_phase(torch, ops, ref, serve, "xlstm", XLSTM_SERVE_ARGS)
 
     # -- 10. zamba2-2.7b: its forward, then serving it -----------------------
     zfwd = zamba2_forward_phase(torch, ops, ref, serve)
-    zserve = recurrent_serve_phase(torch, ops, ref, serve, "zamba2", ZAMBA2_SERVE_ARGS)
+    zserve = lm_serve_phase(torch, ops, ref, serve, "zamba2", ZAMBA2_SERVE_ARGS)
 
     # -- 11. dbrx-132b at its published widths, one layer ---------------------
     moe = moe_forward_phase(torch, ops, ref, serve)
 
-    # -- 12. result --------------------------------------------------------
+    # -- 12. paligemma-3b: its forward with a patch prefix, then serving it ----
+    pfwd = paligemma_forward_phase(torch, ops, ref, serve)
+    pserve = lm_serve_phase(torch, ops, ref, serve, "paligemma", PALIGEMMA_SERVE_ARGS)
+
+    # -- 13. whisper-medium: encoder, decoder, the cached path ----------------
+    wfwd = whisper_forward_phase(torch, ops, ref, serve)
+
+    # -- 14. result --------------------------------------------------------
     served = kernel_rows[(REPORTED_CASE, "float32")]
     scan = ssm_rows[(SSM_REPORTED_CASE, "float32", "float32")]
     mscan = mlstm_rows[(MLSTM_REPORTED_CASE, "float32")]
@@ -1880,7 +2083,12 @@ def main(argv=None) -> int:
                                 for name, r in cascade.items()},
                              "zamba2_forward": zfwd["launches"].get("flash_attention", 0),
                              "zamba2_serve": zserve["flash_attention_launches"],
-                             "moe_forward": moe["launches"].get("flash_attention", 0)},
+                             "moe_forward": moe["launches"].get("flash_attention", 0),
+                             "paligemma_forward": pfwd["launches"].get("flash_attention", 0),
+                             "paligemma_serve": pserve["flash_attention_launches"],
+                             "whisper_forward": wfwd["launches"].get("flash_attention", 0),
+                             "whisper_prefill":
+                                 wfwd["cached"]["prefill_launches"].get("flash_attention", 0)},
         "max_abs_err": served["max_abs_err"], "ms": served["ms"],
         "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
         "bound_by": served["bound_by"], "library_ms": served["library_ms"],

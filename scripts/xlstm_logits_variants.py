@@ -34,7 +34,6 @@ Needs a CUDA card and ``nvcc``.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import sys
 from pathlib import Path
 from unittest import mock
@@ -119,8 +118,8 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     spec = get_arch("xlstm-1.3b").spec()
-    kernel_spec = dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "pallas"))
-    xla_spec = dataclasses.replace(spec, layers=serve.swap_kernel_impl(spec.layers, "xla"))
+    kernel_spec = serve.swap_spec_impl(spec, "pallas")
+    xla_spec = serve.swap_spec_impl(spec, "xla")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     for seed in range(args.seeds):
         tokens = torch.randint(0, spec.vocab, (1, 2048), device="cuda",

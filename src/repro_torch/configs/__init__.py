@@ -1,9 +1,7 @@
-"""Architecture config registry: the archs the port can build so far
-(paligemma-3b and whisper-medium are still to port: ROADMAP.md Queue 1
-item 9b)."""
+"""Architecture config registry: one module per assigned architecture."""
 import importlib
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeCell, input_specs
 
 _ARCH_MODULES = (
     "qwen3_1_7b",
@@ -12,14 +10,11 @@ _ARCH_MODULES = (
     "qwen1_5_4b",
     "zamba2_2_7b",
     "xlstm_1_3b",
+    "whisper_medium",
     "dbrx_132b",
     "arctic_480b",
+    "paligemma_3b",
 )
-# the JAX package's archs that need what the port does not have yet
-_LATER = {
-    "whisper-medium": "cross-attention, the encoder and learned positions",
-    "paligemma-3b": "the VLM prefix (frontend, num_prefix_tokens) and embed_scale",
-}
 
 ARCHS = {}
 for _m in _ARCH_MODULES:
@@ -28,12 +23,9 @@ for _m in _ARCH_MODULES:
 
 
 def get_arch(name: str) -> ArchConfig:
-    if name in _LATER:
-        raise KeyError(f"arch {name!r} is not ported yet: it needs {_LATER[name]} "
-                       f"(ROADMAP.md Queue 1 item 9b); the port has: {sorted(ARCHS)}")
     if name not in ARCHS:
-        raise KeyError(f"arch {name!r} is not ported; the port has: {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "ArchConfig", "get_arch"]
+__all__ = ["ARCHS", "ArchConfig", "SHAPES", "ShapeCell", "get_arch", "input_specs"]

@@ -33,5 +33,6 @@ def smoke_spec_fn() -> ModelSpec:
 ARCH = ArchConfig(
     name="xlstm-1.3b", family="ssm",
     spec_fn=spec_fn, smoke_spec_fn=smoke_spec_fn,
+    supports_long_context=True,
     source="arXiv:2405.04517 (unverified)",
 )

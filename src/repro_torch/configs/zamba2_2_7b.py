@@ -56,5 +56,6 @@ def smoke_spec_fn() -> ModelSpec:
 ARCH = ArchConfig(
     name="zamba2-2.7b", family="hybrid",
     spec_fn=spec_fn, smoke_spec_fn=smoke_spec_fn,
+    supports_long_context=True,
     source="arXiv:2411.15242",
 )

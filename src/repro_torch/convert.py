@@ -5,10 +5,12 @@ the one leaf whose layout differs is a conv's ``w``, (K, C_in, C_out) in
 the JAX package and (C_out, C_in, K) in the port.
 
 The JAX ``LM`` keeps a segment's layers stacked on a leading ``layers``
-axis under ``params[seg]["sub_<i>"]["norm" | "inner"]``, and the
-weight-shared layer unstacked under ``params["shared"]``; the port keeps
-one module per layer (``<seg>.<layer>.subs.<i>.norm`` / ``.inner``, and
-``shared.subs.<i>...``).
+axis under ``params[seg]["sub_<i>"]["norm" | "inner"]`` (the decoder's
+``seg_<i>`` and the encoder's ``enc_<i>``), and the weight-shared layer
+unstacked under ``params["shared"]``; the port keeps one module per
+layer (``<seg>.<layer>.subs.<i>.norm`` / ``.inner``, and
+``shared.subs.<i>...``).  The other leaves (``embed``, ``pos_embed``,
+``head``, ``final_norm``, ``enc_final_norm``) keep their names.
 Matrices keep their ``(in, out)`` layout on both sides.  The inputs here
 are nested dicts of numpy arrays (the JAX tree after ``split``, converted
 by the caller), so this module needs nothing of JAX.
@@ -45,7 +47,8 @@ def _port_keys(model: LM, path: Tuple[str, ...], arr: np.ndarray):
     """(port state-dict key, array) pairs for one JAX leaf; unstacks a
     stacked segment's leading layers axis.  The shared layer
     (``params["shared"]``) has none."""
-    segs = {seg.name: seg for seg in model.segments if seg.kind == "stack"}
+    segs = {seg.name: seg for seg in model.segments + model.enc_segments
+            if seg.kind == "stack"}
     if path[0] not in segs and path[0] != "shared":
         return [(".".join(path), arr)]
     m = _SUB.match(path[1]) if len(path) > 3 else None
@@ -117,6 +120,7 @@ def lm_from_jax(spec: ModelSpec, params_np: Mapping[str, Any],
 # sub-block kind -> the leaves of its decode cache (the JAX package's)
 _CACHE_LEAVES = {
     "attention": {"k", "v"},
+    "cross_attention": {"k", "v"},  # the encoder output's, projected once
     "mlp": set(),
     "moe": set(),
     "mamba2": {"conv", "state"},

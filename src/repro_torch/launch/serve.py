@@ -15,7 +15,10 @@ vector.  Every attention, Mamba2 and mLSTM sub-block is served with
 flash-attention kernel once per attention layer.  A recurrent layer
 (``--arch xlstm-1.3b``, the Mamba2 layers of ``--arch zamba2-2.7b``)
 prefills by looping its decode step over the prompt, as the JAX package
-does, so it runs no scan kernel in serving.  Serving
+does, so it runs no scan kernel in serving.  ``--arch paligemma-3b``
+serves text prompts (prefill takes no image prefix, as in the JAX
+package); ``--arch whisper-medium`` serves with no encoder output, so its
+cross-attention adds zeros, as the JAX package's engine does.  Serving
 runs on CUDA; ``--device cpu`` asks for the CPU (where the kernel's plain
 version stands in for it), and without a card nothing runs.
 """
@@ -199,12 +202,15 @@ def _map_sub_cfg(layers, kinds, **fields):
 KERNEL_KINDS = ("attention", "mamba2", "mlstm")  # sub-blocks whose impl picks a kernel
 
 
-def swap_kernel_impl(layers, impl):
-    """``layers`` with ``impl`` set on every attention, Mamba2 and mLSTM
-    sub-block: ``"pallas"`` runs the kernels (flash attention, the SSD
-    scan, the mLSTM scan), ``"xla"`` their plain layers.  Plain dataclass
-    surgery: it fits the JAX package's specs too."""
-    return _map_sub_cfg(layers, KERNEL_KINDS, impl=impl)
+def swap_spec_impl(spec, impl):
+    """``spec`` with ``impl`` set on every attention, Mamba2 and mLSTM
+    sub-block of its decoder and encoder layers: ``"pallas"`` runs the
+    kernels (flash attention, the SSD scan, the mLSTM scan), ``"xla"`` their
+    plain layers.  Cross-attention keeps its impl: it never runs the kernel.
+    Plain dataclass surgery: it fits the JAX package's specs too."""
+    return dataclasses.replace(
+        spec, layers=_map_sub_cfg(spec.layers, KERNEL_KINDS, impl=impl),
+        encoder_layers=_map_sub_cfg(spec.encoder_layers, KERNEL_KINDS, impl=impl))
 
 
 def _serve_lm(args):
@@ -213,7 +219,7 @@ def _serve_lm(args):
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
     spec = arch.smoke_spec_fn() if args.smoke else arch.spec()
-    spec = dataclasses.replace(spec, layers=swap_kernel_impl(spec.layers, "pallas"))
+    spec = swap_spec_impl(spec, "pallas")
     generator = torch.Generator(device=device).manual_seed(0)
     model = LM(spec).init(generator, dtype=torch.float32)
 

@@ -19,11 +19,21 @@ order the layers run (so each run of the shared layer has its own),
 ``{"sub_<i>": ...}`` for each sub-block as in the JAX package: attention
 ``{"k", "v"}`` each ``(B, T, KH, D)``, Mamba2 ``{"conv", "state"}``,
 mLSTM ``{"conv", "c", "n", "m"}``, sLSTM ``{"conv", "c", "n", "m",
-"h"}``, ``{}`` for an mlp or moe.  :meth:`LM.prefill` and
+"h"}``, ``{}`` for an mlp or moe, and for cross-attention the
+encoder output's K/V ``{"k", "v"}`` each ``(B, T_enc, KH, D)``,
+projected once by :meth:`LM.init_cache` (``enc_out=``; without it they
+are empty and the sub-block adds zeros).  :meth:`LM.prefill` and
 :meth:`LM.decode` update it in place (attention writes into its K/V; a
-recurrent sub-block replaces its dict's tensors).  Prefill of a
-recurrent kind loops its decode step over the prompt, as the JAX
-package's ``lax.scan`` does.
+recurrent sub-block replaces its dict's tensors; the cross K/V stay as
+they are).  Prefill of a recurrent kind loops its decode step over the
+prompt, as the JAX package's ``lax.scan`` does.
+
+An encoder-decoder model (whisper) has encoder segments ``enc_<i>``
+and ``enc_final_norm``, run by :meth:`LM.encode` over frame embeddings;
+a learned positional table ``pos_embed`` is shared by the encoder's
+frames and the decoder's tokens.  A VLM (paligemma) passes
+``prefix_embeds`` to :meth:`LM.forward`, which overwrite the first
+embeddings.
 """
 from __future__ import annotations
 
@@ -75,7 +85,7 @@ def build_segments(layers: Tuple[LayerSpec, ...], prefix: str = "seg") -> Tuple[
 # ---------------------------------------------------------------------------
 
 def _sub_init(sub: SubBlock, generator, dtype):
-    if sub.kind == "attention":
+    if sub.kind in ("attention", "cross_attention"):
         return attn.attention_init(sub.cfg, generator, dtype)
     if sub.kind == "mlp":
         return mlp_mod.mlp_init(sub.cfg, generator, dtype)
@@ -90,9 +100,13 @@ def _sub_init(sub: SubBlock, generator, dtype):
     raise ValueError(sub.kind)
 
 
-def _sub_apply(sub: SubBlock, params, x, positions):
+def _sub_apply(sub: SubBlock, params, x, positions, enc_out=None):
     if sub.kind == "attention":
         return attn.attention_apply(params, sub.cfg, x, positions=positions)
+    if sub.kind == "cross_attention":
+        # without an encoder output this is non-causal self-attention over
+        # x, as in the JAX package
+        return attn.attention_apply(params, sub.cfg, x, kv_x=enc_out)
     if sub.kind == "mlp":
         return mlp_mod.mlp_apply(params, sub.cfg, x)
     if sub.kind == "moe":
@@ -106,9 +120,13 @@ def _sub_apply(sub: SubBlock, params, x, positions):
     raise ValueError(sub.kind)
 
 
-def _sub_cache_init(sub: SubBlock, batch, max_seq, dtype, device):
+def _sub_cache_init(sub: SubBlock, params, batch, max_seq, enc_out, dtype, device):
     if sub.kind == "attention":
         return attn.init_kv_cache(sub.cfg, batch, max_seq, dtype, device=device)
+    if sub.kind == "cross_attention":
+        if enc_out is not None:
+            return attn.precompute_cross_kv(params, sub.cfg, enc_out, dtype)
+        return attn.init_kv_cache(sub.cfg, batch, 0, dtype, device=device)
     if sub.kind == "mamba2":
         return ssm_mod.init_ssm_cache(sub.cfg, batch, dtype, device=device)
     if sub.kind == "mlstm":
@@ -125,6 +143,8 @@ def _sub_prefill(sub: SubBlock, params, x, cache, pos_offset):
     step, token by token, as the JAX package's ``lax.scan`` does."""
     if sub.kind == "attention":
         return attn.attention_prefill(params, sub.cfg, x, cache, pos_offset)[0]
+    if sub.kind == "cross_attention":
+        return attn.cross_attention_cached(params, sub.cfg, x, cache)
     if sub.kind in ("mlp", "moe"):
         return _sub_apply(sub, params, x, None)
     ys = [_sub_decode(sub, params, x[:, t:t + 1], cache, pos_offset + t)
@@ -135,6 +155,8 @@ def _sub_prefill(sub: SubBlock, params, x, cache, pos_offset):
 def _sub_decode(sub: SubBlock, params, x, cache, pos):
     if sub.kind == "attention":
         return attn.attention_decode(params, sub.cfg, x, cache, pos)[0]
+    if sub.kind == "cross_attention":  # the cross K/V are static in decode
+        return attn.cross_attention_cached(params, sub.cfg, x, cache)
     if sub.kind in ("mlp", "moe"):
         return _sub_apply(sub, params, x, None)
     if sub.kind == "mamba2":
@@ -184,8 +206,9 @@ class Layer(nn.Module):
             h = h + run(i, blk.sub, blk.inner, x)
         return h
 
-    def forward(self, h, positions):
-        return self._residual(h, lambda i, sub, p, x: _sub_apply(sub, p, x, positions))
+    def forward(self, h, positions, enc_out=None):
+        return self._residual(h, lambda i, sub, p, x: _sub_apply(sub, p, x, positions,
+                                                                  enc_out))
 
     def prefill(self, h, cache, pos_offset):
         return self._residual(h, lambda i, sub, p, x: _sub_prefill(
@@ -195,8 +218,10 @@ class Layer(nn.Module):
         return self._residual(h, lambda i, sub, p, x: _sub_decode(
             sub, p, x, cache[f"sub_{i}"], pos))
 
-    def init_cache(self, batch, max_seq, dtype, device) -> Dict[str, Dict[str, torch.Tensor]]:
-        return {f"sub_{i}": _sub_cache_init(blk.sub, batch, max_seq, dtype, device)
+    def init_cache(self, batch, max_seq, enc_out, dtype,
+                   device) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {f"sub_{i}": _sub_cache_init(blk.sub, blk.inner, batch, max_seq, enc_out,
+                                            dtype, device)
                 for i, blk in enumerate(self.subs)}
 
 
@@ -205,6 +230,7 @@ class LM(nn.Module):
         super().__init__()
         self.spec = spec
         self.segments = build_segments(spec.layers)
+        self.enc_segments = build_segments(spec.encoder_layers, prefix="enc")
         self._build(None, torch.float32)
 
     # -- init ---------------------------------------------------------------
@@ -214,6 +240,10 @@ class LM(nn.Module):
         self.embed = nn.Parameter(
             init.normal(generator, (spec.vocab, spec.d_model), dtype, stddev=0.02),
             requires_grad=False)
+        if spec.positional == "learned":
+            self.pos_embed = nn.Parameter(
+                init.normal(generator, (spec.max_position, spec.d_model), dtype, stddev=0.02),
+                requires_grad=False)
         if not spec.tie_embeddings:
             self.head = nn.Parameter(
                 init.normal(generator, (spec.d_model, spec.vocab), dtype, stddev=0.02),
@@ -224,6 +254,12 @@ class LM(nn.Module):
             self.shared = Layer(shared[0].spec, spec.norm, spec.d_model, generator, dtype)
         for seg in self.segments:
             if seg.kind == "stack":
+                self.add_module(seg.name, nn.ModuleList([
+                    Layer(seg.spec, spec.norm, spec.d_model, generator, dtype)
+                    for _ in range(seg.count)]))
+        if self.enc_segments:
+            self.enc_final_norm = _frozen(NORM_INIT[spec.norm](spec.d_model, generator, dtype))
+            for seg in self.enc_segments:
                 self.add_module(seg.name, nn.ModuleList([
                     Layer(seg.spec, spec.norm, spec.d_model, generator, dtype)
                     for _ in range(seg.count)]))
@@ -244,33 +280,71 @@ class LM(nn.Module):
 
     # -- forward ------------------------------------------------------------
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens]
+    def enc_layers(self) -> List[Layer]:
+        """The encoder's layers in the order they run."""
+        return [layer for seg in self.enc_segments for layer in getattr(self, seg.name)]
+
+    def _embed(self, tokens: torch.Tensor, prefix_embeds=None) -> torch.Tensor:
+        """Token embeddings (scaled by sqrt(d_model) when ``embed_scale``),
+        the first ``prefix_embeds.shape[1]`` rows replaced by the prefix."""
+        h = self.embed[tokens]
+        if self.spec.embed_scale:
+            h = h * (self.spec.d_model ** 0.5)
+        if prefix_embeds is not None:
+            npfx = prefix_embeds.shape[1]
+            h = torch.cat([prefix_embeds.to(h.dtype), h[:, npfx:]], dim=1)
+        return h
+
+    def _add_positions(self, h: torch.Tensor, start: int = 0) -> torch.Tensor:
+        """``h`` plus rows ``[start, start + S)`` of the learned table, when
+        the spec has one."""
+        if self.spec.positional != "learned":
+            return h
+        return h + self.pos_embed[start:start + h.shape[1]][None].to(h.dtype)
 
     def _head(self, h: torch.Tensor) -> torch.Tensor:
         h = NORM_APPLY[self.spec.norm](self.final_norm, h)
-        return h @ (self.embed.T if self.spec.tie_embeddings else self.head)
+        logits = h @ (self.embed.T if self.spec.tie_embeddings else self.head)
+        if self.spec.logit_softcap:
+            c = self.spec.logit_softcap
+            logits = torch.tanh(logits / c) * c
+        return logits
 
-    def forward(self, tokens: torch.Tensor, positions=None) -> torch.Tensor:
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder stack on precomputed frame embeddings (B, T, d_model)
+        (the stub frontend) -> the encoder output (B, T, d_model)."""
+        h = self._add_positions(frames)
+        positions = torch.arange(h.shape[1], device=h.device)[None]
+        for layer in self.enc_layers():
+            h = layer(h, positions)
+        return NORM_APPLY[self.spec.norm](self.enc_final_norm, h)
+
+    def forward(self, tokens: torch.Tensor, positions=None, *, prefix_embeds=None,
+                enc_out=None) -> torch.Tensor:
         """Full-sequence forward (the JAX package's ``LM.apply``).
-        tokens: (B, S) integer -> logits (B, S, vocab)."""
-        h = self._embed(tokens)
+        tokens: (B, S) integer -> logits (B, S, vocab).  ``prefix_embeds``
+        (B, P, d_model) overwrite the first P embeddings (a VLM's patch
+        embeddings); ``enc_out`` (B, T, d_model), from :meth:`encode`, is
+        what the cross-attention sub-blocks attend to."""
+        h = self._add_positions(self._embed(tokens, prefix_embeds))
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         for layer in self.layers():
-            h = layer(h, positions)
+            h = layer(h, positions, enc_out)
         return self._head(h)
 
     # -- decode -------------------------------------------------------------
 
-    def init_cache(self, batch: int, max_seq: int, dtype=torch.float32) -> Cache:
+    def init_cache(self, batch: int, max_seq: int, dtype=torch.float32, *,
+                   enc_out=None) -> Cache:
         """Fresh decode caches on the model's device, one dict per layer
         invocation: zeroed K/V and recurrent states, the stabilisers at
-        -1e6."""
+        -1e6, and each cross-attention's K/V projected from ``enc_out``
+        (B, T, d_model) (empty without it)."""
         if max_seq > self.spec.max_position:
             raise ValueError(f"max_seq {max_seq} exceeds max_position "
                              f"{self.spec.max_position}")
-        return [layer.init_cache(batch, max_seq, dtype, self.embed.device)
+        return [layer.init_cache(batch, max_seq, enc_out, dtype, self.embed.device)
                 for layer in self.layers()]
 
     def prefill(self, cache: Cache, tokens: torch.Tensor, pos_offset: int = 0):
@@ -280,7 +354,7 @@ class LM(nn.Module):
         Returns (logits (B, S, vocab), cache); decoding continues from
         ``pos = pos_offset + S`` with :meth:`decode`.
         """
-        h = self._embed(tokens)
+        h = self._add_positions(self._embed(tokens), pos_offset)
         for layer, c in zip(self.layers(), cache, strict=True):
             h = layer.prefill(h, c, pos_offset)
         return self._head(h), cache
@@ -293,6 +367,11 @@ class LM(nn.Module):
         Returns (logits (B, 1, vocab), cache).
         """
         h = self._embed(tokens)
+        if self.spec.positional == "learned":
+            if torch.is_tensor(pos) and pos.dim() == 1:  # per slot
+                h = h + self.pos_embed[pos.to(h.device)][:, None].to(h.dtype)
+            else:
+                h = self._add_positions(h, int(pos))
         for layer, c in zip(self.layers(), cache, strict=True):
             h = layer.decode(h, c, pos)
         return self._head(h), cache

@@ -4,10 +4,13 @@ A model is: embedding -> [LayerSpec, ...] -> final norm -> LM head.
 Each LayerSpec is a tuple of residual *sub-blocks* (pre-norm residual:
 ``h = h + f(norm(h))``).  A standard transformer layer is
 ``(attention, mlp)``; a Mamba2 layer is ``(mamba2,)``; an xLSTM layer is
-``(mlstm,)`` or ``(slstm,)``; a DBRX layer is ``(attention, moe)``.  A
-layer marked ``shared`` is weight-tied to the model's one shared block
-(zamba2).  The port builds every kind of the JAX IR but
-``cross_attention``, which raises until its slice lands.
+``(mlstm,)`` or ``(slstm,)``; a DBRX layer is ``(attention, moe)``; a
+whisper decoder layer is ``(attention, cross_attention, mlp)``.  A layer
+marked ``shared`` is weight-tied to the model's one shared block
+(zamba2).  An encoder-decoder model (whisper) adds ``encoder_layers``,
+run non-causally over frame embeddings by ``LM.encode``; a VLM
+(paligemma) overwrites the first ``num_prefix_tokens`` embeddings with
+precomputed patch embeddings.
 """
 from __future__ import annotations
 
@@ -18,13 +21,9 @@ from repro_torch.nn.attention import AttentionConfig
 from repro_torch.nn.mlp import MLPConfig
 from repro_torch.nn.moe import MoEConfig
 
-SUBBLOCK_KINDS = ("attention", "mlp", "moe", "mamba2", "mlstm", "slstm")
-# what of the JAX IR is still to port, and the ROADMAP item that brings it
-LATER = ("ROADMAP.md Queue 1 item 9b (the rest of the LM substrate: cross-attention "
-         "and the encoder of whisper-medium, learned positions, the VLM prefix of "
-         "paligemma-3b)")
-LATER_KINDS = ("cross_attention",)
-POSITIONALS = ("rope", "none")  # "learned": LATER
+SUBBLOCK_KINDS = ("attention", "cross_attention", "mlp", "moe", "mamba2", "mlstm",
+                  "slstm")
+POSITIONALS = ("rope", "learned", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,10 +32,6 @@ class SubBlock:
     cfg: Any  # one of the nn config dataclasses (frozen => hashable)
 
     def __post_init__(self):
-        if self.kind in LATER_KINDS:
-            raise NotImplementedError(
-                f"sub-block kind {self.kind!r} is not ported yet: {LATER} "
-                f"(the port has {SUBBLOCK_KINDS})")
         if self.kind not in SUBBLOCK_KINDS:
             raise ValueError(f"unknown sub-block kind {self.kind!r}")
 
@@ -55,20 +50,39 @@ class ModelSpec:
     layers: Tuple[LayerSpec, ...]
     norm: str = "rmsnorm"
     tie_embeddings: bool = False
-    # "rope": rotary inside attention (nothing at the LM level); "none":
-    # no positional signal (recurrent kinds)
+    embed_scale: bool = False  # gemma-style sqrt(d_model) embedding scaling
+    # "rope": rotary inside attention (nothing at the LM level); "learned":
+    # a (max_position, d_model) table added to the embeddings (the encoder's
+    # frames and the decoder's tokens share it); "none": no positional
+    # signal (recurrent kinds)
     positional: str = "rope"
-    max_position: int = 1 << 20  # longest context a cache may be built for
+    max_position: int = 1 << 20  # longest context; the learned table's rows
+    # Encoder (whisper): encoder layers run non-causally on frame embeddings;
+    # decoder layers gain cross-attention to the encoder output.
+    encoder_layers: Tuple[LayerSpec, ...] = ()
+    frontend: Optional[str] = None  # None | "audio_stub" | "vision_stub"
+    num_prefix_tokens: int = 0  # vlm: patch-embedding prefix length
+    logit_softcap: Optional[float] = None
 
     def __post_init__(self):
         if self.positional not in POSITIONALS:
-            raise NotImplementedError(
-                f"positional {self.positional!r} is not ported yet: {LATER} "
-                f"(the port has {POSITIONALS})")
+            raise ValueError(f"unknown positional {self.positional!r}; the port has "
+                             f"{POSITIONALS}")
 
     @property
     def n_layers(self) -> int:
         return len(self.layers)
+
+    def is_subquadratic(self) -> bool:
+        """True when decode state is O(1) in context (SSM/recurrent archs,
+        possibly with sliding-window attention)."""
+        for layer in self.layers:
+            for sub in layer.subs:
+                if sub.kind == "attention" and sub.cfg.window is None:
+                    return False
+                if sub.kind == "cross_attention":
+                    return False
+        return True
 
 
 def transformer_layer(

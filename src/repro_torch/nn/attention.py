@@ -1,11 +1,15 @@
-"""Grouped-query attention with qk-norm, RoPE, sliding windows and KV caches.
+"""Grouped-query attention with qk-norm, RoPE, sliding windows, KV caches
+and cross-attention.
 
-Four entry points:
-  * ``attention_init``    -- parameters
-  * ``attention_apply``   -- full-sequence self-attention
-  * ``attention_prefill`` -- full-sequence attention that also writes the
-                             prompt's K/V into a preallocated cache
-  * ``attention_decode``  -- single-token decode against that cache
+Entry points:
+  * ``attention_init``        -- parameters
+  * ``attention_apply``       -- full-sequence attention (training, the
+                                 encoder, cross-attention with ``kv_x``)
+  * ``attention_prefill``     -- full-sequence attention that also writes
+                                 the prompt's K/V into a preallocated cache
+  * ``attention_decode``      -- single-token decode against that cache
+  * ``precompute_cross_kv``   -- an encoder output's K/V, projected once
+  * ``cross_attention_cached``-- cross-attention against them
 
 The caches are updated in place: a serving cache is the largest tensor
 the engine holds, and copying it per step (as an immutable-array
@@ -15,7 +19,11 @@ The sequence-mixing math is grouped (no materialized KV repetition): q is
 reshaped to (batch, seq, kv_heads, group, d_head) and contracted directly
 against the grouped KV.  The plain path's softmax and norms sum in fp32,
 or in float64 when the weights are float64
-(:func:`repro_torch.nn.norms.acc`).
+(:func:`repro_torch.nn.norms.acc`).  ``impl`` picks the full-sequence
+path of self-attention: ``"xla"`` the grouped math, ``"xla_chunked"`` an
+online softmax over KV chunks (:func:`chunked_attention`), ``"pallas"``
+the flash kernel.  Cross-attention always takes the grouped math, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -25,11 +33,11 @@ from typing import Optional
 import torch
 
 from repro_torch.nn import initializers as init
-from repro_torch.nn.norms import acc
+from repro_torch.nn.norms import acc, acc_dtype
 from repro_torch.nn.rope import apply_rope
 
 NEG_INF = -1e30
-IMPLS = ("xla", "pallas")
+IMPLS = ("xla", "xla_chunked", "pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,16 +52,17 @@ class AttentionConfig:
     rope_theta: float = 10000.0
     causal: bool = True
     window: Optional[int] = None  # sliding-window size (None = full)
-    # "xla": plain grouped attention; "pallas": the flash-attention kernel
-    # (the names are the JAX package's, so one spec drives both packages)
+    # "xla": plain grouped attention; "xla_chunked": an online softmax over
+    # KV chunks; "pallas": the flash-attention kernel (the names are the JAX
+    # package's, so one spec drives both packages)
     impl: str = "xla"
     softmax_scale: Optional[float] = None
+    kv_chunk: int = 1024  # xla_chunked block size (halved until it divides T)
 
     def __post_init__(self):
         if self.impl not in IMPLS:
             raise NotImplementedError(
-                f"attention impl {self.impl!r} is not ported; the port has "
-                f"{IMPLS} (xla_chunked: ROADMAP.md Queue 1 item 9b)")
+                f"attention impl {self.impl!r} is not ported; the port has {IMPLS}")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"n_heads {self.n_heads} is not a multiple of "
                              f"n_kv_heads {self.n_kv_heads}")
@@ -97,23 +106,73 @@ def _headwise_rmsnorm(x, scale, eps=1e-6):
     return (xf * torch.rsqrt(var + eps) * scale.to(xf.dtype)).to(x.dtype)
 
 
-def _project_qkv(params, cfg: AttentionConfig, x, positions):
-    """Returns q:(B,S,H,Dh), k/v:(B,S,KH,Dh), qk-normed and rotated."""
+def _project_qkv(params, cfg: AttentionConfig, x, kv_x, positions, kv_positions):
+    """q from ``x``, k/v from ``kv_x`` (``x`` itself for self-attention).
+    Returns q:(B,S,H,Dh), k/v:(B,T,KH,Dh), qk-normed and rotated."""
     b, s, _ = x.shape
+    t = kv_x.shape[1]
     dh = cfg.head_dim
-    q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
+    q, k, v = x @ params["wq"], kv_x @ params["wk"], kv_x @ params["wv"]
     if cfg.use_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(b, s, cfg.n_heads, dh)
-    k = k.reshape(b, s, cfg.n_kv_heads, dh)
-    v = v.reshape(b, s, cfg.n_kv_heads, dh)
+    k = k.reshape(b, t, cfg.n_kv_heads, dh)
+    v = v.reshape(b, t, cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         q = _headwise_rmsnorm(q, params["q_norm"])
         k = _headwise_rmsnorm(k, params["k_norm"])
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        k = apply_rope(k, kv_positions, cfg.rope_theta)
     return q, k, v
+
+
+def chunked_attention(q, k, v, scale, *, causal=True, window=None, kv_chunk=1024):
+    """Flash-style attention in plain PyTorch: a loop over KV chunks with an
+    online softmax, O(S * kv_chunk) score memory instead of O(S^2).
+
+    q: (B,S,H,Dh); k/v: (B,T,K,Dh), T a multiple of ``kv_chunk``.  Returns
+    (B,S,H,Dh).
+    """
+    b, s, h, dh = q.shape
+    t, kheads = k.shape[1], k.shape[2]
+    g = h // kheads
+    if t % kv_chunk:
+        raise ValueError(f"kv_chunk {kv_chunk} does not divide T={t}")
+    qg = q.reshape(b, s, kheads, g, dh)
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    dt = acc_dtype(q)
+    m = torch.full((b, kheads, g, s), NEG_INF, dtype=dt, device=q.device)
+    l_sum = torch.zeros((b, kheads, g, s), dtype=dt, device=q.device)
+    out = torch.zeros((b, kheads, g, s, dh), dtype=dt, device=q.device)
+    for start in range(0, t, kv_chunk):
+        k_blk, v_blk = k[:, start:start + kv_chunk], v[:, start:start + kv_chunk]
+        scores = acc(torch.einsum("bskgd,btkd->bkgst", qg, k_blk)) * scale
+        k_pos = start + torch.arange(kv_chunk, device=q.device)[None, :]
+        mask = torch.ones((s, kv_chunk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= k_pos > q_pos - window
+        scores = scores.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        p = torch.exp(scores - m_new[..., None]).masked_fill(~mask, 0.0)
+        alpha = torch.exp(m - m_new)
+        l_sum = alpha * l_sum + p.sum(dim=-1)
+        out = out * alpha[..., None] + acc(torch.einsum(
+            "bkgst,btkd->bkgsd", p.to(v_blk.dtype), v_blk))
+        m = m_new
+    out = out / l_sum.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
+
+
+def _kv_chunk(cfg: AttentionConfig, t: int) -> int:
+    """The JAX package's chunk rule: ``cfg.kv_chunk``, at most T, halved
+    until it divides T."""
+    kv_chunk = min(cfg.kv_chunk, t)
+    while t % kv_chunk:
+        kv_chunk //= 2
+    return max(kv_chunk, 1)
 
 
 def grouped_attention(q, k, v, mask, scale):
@@ -151,17 +210,30 @@ def _flash(q, k, v, cfg: AttentionConfig):
                                 scale=cfg.scale)
 
 
-def attention_apply(params, cfg: AttentionConfig, x, positions=None, mask=None):
-    """Full-sequence self-attention.  x: (B,S,d_model)."""
+def attention_apply(params, cfg: AttentionConfig, x, positions=None, kv_x=None,
+                    kv_positions=None, mask=None):
+    """Full-sequence attention.  x: (B,S,d_model); ``kv_x`` (B,T,d_model)
+    makes it cross-attention, which is non-causal, has no window and
+    always runs the grouped math (never the kernel)."""
     b, s, _ = x.shape
+    cross = kv_x is not None
+    if kv_x is None:
+        kv_x = x
+    t = kv_x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None]
-    q, k, v = _project_qkv(params, cfg, x, positions)
-    if cfg.impl == "pallas":
+    if kv_positions is None:
+        kv_positions = torch.arange(t, device=x.device)[None]
+    q, k, v = _project_qkv(params, cfg, x, kv_x, positions, kv_positions)
+    if cfg.impl == "pallas" and not cross:
         out = _flash(q, k, v, cfg)
+    elif cfg.impl == "xla_chunked" and not cross:
+        out = chunked_attention(q, k, v, cfg.scale, causal=cfg.causal, window=cfg.window,
+                                kv_chunk=_kv_chunk(cfg, t))
     else:
         if mask is None:
-            mask = make_mask(s, s, cfg.causal, cfg.window, device=x.device)
+            mask = make_mask(s, t, cfg.causal and not cross,
+                             None if cross else cfg.window, device=x.device)
         out = grouped_attention(q, k, v, mask, cfg.scale)
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"]
 
@@ -171,6 +243,37 @@ def init_kv_cache(cfg: AttentionConfig, batch, max_seq, dtype=torch.float32,
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def precompute_cross_kv(params, cfg: AttentionConfig, enc_out, dtype=torch.float32):
+    """Project an encoder output (B,T,d_model) once into the cross-attention
+    cache ``{"k", "v"}`` (B,T,KH,Dh) every decode step reads."""
+    b, t, _ = enc_out.shape
+    k, v = enc_out @ params["wk"], enc_out @ params["wv"]
+    if cfg.use_bias:
+        k, v = k + params["bk"], v + params["bv"]
+    dh = cfg.head_dim
+    return {"k": k.reshape(b, t, cfg.n_kv_heads, dh).to(dtype),
+            "v": v.reshape(b, t, cfg.n_kv_heads, dh).to(dtype)}
+
+
+def cross_attention_cached(params, cfg: AttentionConfig, x, cache):
+    """Cross-attention of x (B,S,d_model) against a precomputed cross-KV
+    cache: every position attends to every encoder frame, with no RoPE.
+    An empty cache (no encoder output) gives zeros."""
+    b, s, _ = x.shape
+    dh = cfg.head_dim
+    q = x @ params["wq"]
+    if cfg.use_bias:
+        q = q + params["bq"]
+    q = q.reshape(b, s, cfg.n_heads, dh)
+    if cfg.qk_norm:
+        q = _headwise_rmsnorm(q, params["q_norm"])
+    t = cache["k"].shape[1]
+    mask = torch.ones((1, 1, 1, s, t), dtype=torch.bool, device=x.device)
+    out = grouped_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask,
+                            cfg.scale)
+    return out.reshape(b, s, cfg.n_heads * dh) @ params["wo"]
 
 
 def attention_prefill(params, cfg: AttentionConfig, x, cache, pos_offset=0):
@@ -186,14 +289,17 @@ def attention_prefill(params, cfg: AttentionConfig, x, cache, pos_offset=0):
         raise ValueError(f"prompt ends at {t}, past the cache's "
                          f"{cache['k'].shape[1]} positions")
     positions = (pos_offset + torch.arange(s, device=x.device))[None]
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    q, k, v = _project_qkv(params, cfg, x, x, positions, positions)
     cache["k"][:, pos_offset:t] = k.to(cache["k"].dtype)
     cache["v"][:, pos_offset:t] = v.to(cache["v"].dtype)
     if cfg.impl == "pallas" and pos_offset == 0:
         out = _flash(q, k, v, cfg)
+    elif cfg.impl == "xla_chunked" and pos_offset == 0:
+        out = chunked_attention(q, k, v, cfg.scale, causal=cfg.causal, window=cfg.window,
+                                kv_chunk=_kv_chunk(cfg, s))
     else:
         # pos_offset > 0 (chunked prompt ingestion) attends against the
-        # cache prefix, which the flash path does not slice
+        # cache prefix, which the flash and chunked paths do not slice
         mask = make_mask(s, t, cfg.causal, cfg.window, q_offset=pos_offset,
                          device=x.device)
         out = grouped_attention(q, cache["k"][:, :t].to(q.dtype),
@@ -218,7 +324,7 @@ def attention_decode(params, cfg: AttentionConfig, x, cache, pos):
     else:
         pos = int(pos)
         positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
-    q, k_new, v_new = _project_qkv(params, cfg, x, positions)
+    q, k_new, v_new = _project_qkv(params, cfg, x, x, positions, positions)
     if per_slot:
         # scatter one (K,Dh) row per sequence at that sequence's position
         rows = torch.arange(b, device=x.device)

@@ -27,7 +27,7 @@ from repro.nn import ssm as jssm  # noqa: E402
 from repro.nn.types import split  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.convert import cache_from_jax, lm_from_jax  # noqa: E402
-from repro_torch.launch.serve import swap_kernel_impl  # noqa: E402
+from repro_torch.launch.serve import swap_spec_impl  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.nn import attention as tattn  # noqa: E402
 from repro_torch.nn import ssm as tssm  # noqa: E402
@@ -61,7 +61,7 @@ def _pair(impl="xla"):
     the JAX package's weights."""
     jspec = jax_get_arch(ARCH).smoke_spec_fn()
     tspec = get_arch(ARCH).smoke_spec_fn()
-    tspec = dataclasses.replace(tspec, layers=swap_kernel_impl(tspec.layers, impl))
+    tspec = swap_spec_impl(tspec, impl)
     jmodel = JaxLM(jspec)
     params, _ = split(jmodel.init(jax.random.PRNGKey(0), dtype=jnp.float32))
     tmodel = lm_from_jax(tspec, _numpy(params), device="cpu")

@@ -113,6 +113,18 @@ CUDA_CASES = [
     # window that crosses 64-row tiles
     (2, 777, 8, 2, 36, True, 100),
     (1, 300, 4, 4, 80, False, None),  # the NAS loop's head dim, non-causal
+    # paligemma-3b's causal MQA at D = 256 over its 2048 tokens, whisper-medium's
+    # encoder (non-causal, 1500 frames: no multiple of a tile, where the JAX
+    # package's Pallas kernel leaves the padded KV columns unmasked; held here
+    # to the plain version) and its decoder's 448-token text context
+    (1, 2048, 8, 1, 256, True, None),
+    (1, 1500, 16, 16, 64, False, None),
+    (1, 448, 16, 16, 64, True, None),
+    # paligemma-3b's served prompts (64 and 128 tokens) and whisper-medium's
+    # cached prefill of 384 tokens
+    (1, 64, 8, 1, 256, True, None),
+    (1, 128, 8, 1, 256, True, None),
+    (1, 384, 16, 16, 64, True, None),
 ]
 
 

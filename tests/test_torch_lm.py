@@ -2,7 +2,6 @@
 with the JAX package's weights carried across by ``lm_from_jax``, against
 the JAX LM — forward logits, prefill logits and caches, per-slot decode —
 and the port's own prefill against its own token loop."""
-import dataclasses
 
 import numpy as np
 import pytest
@@ -17,7 +16,7 @@ from repro.models.lm import LM as JaxLM  # noqa: E402
 from repro.nn.types import split  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.convert import cache_from_jax, lm_from_jax  # noqa: E402
-from repro_torch.launch.serve import swap_kernel_impl  # noqa: E402
+from repro_torch.launch.serve import swap_spec_impl  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 
 ATOL = 1e-4  # prefill vs the token loop in tests/test_serving.py
@@ -34,8 +33,8 @@ def _pair(impl="xla"):
         # the port's helper is plain dataclass surgery and fits both specs
         # (importing the JAX dry-run module would spoof 512 host devices
         # for every process this one starts)
-        jspec = dataclasses.replace(jspec, layers=swap_kernel_impl(jspec.layers, impl))
-        tspec = dataclasses.replace(tspec, layers=swap_kernel_impl(tspec.layers, impl))
+        jspec = swap_spec_impl(jspec, impl)
+        tspec = swap_spec_impl(tspec, impl)
     jmodel = JaxLM(jspec)
     params, _ = split(jmodel.init(jax.random.PRNGKey(0), dtype=jnp.float32))
     tmodel = lm_from_jax(tspec, _numpy(params), device="cpu")

@@ -1,9 +1,14 @@
-"""The port's eight LM configs and its LM search spaces against the JAX
+"""The port's ten LM configs and its LM search spaces against the JAX
 package's: each config's specs equal the JAX ones field by field, its
 full-size parameter count (counted on ``meta``) equals ``jax.eval_shape``
 of the JAX ``LM.init``, its smoke spec's forward logits match the JAX
 LM's on the same weights; and each space's identity sample, and seeded
-samples, give the ``ModelSpec`` the JAX ``LMSpaceBuilder`` gives."""
+samples, give the ``ModelSpec`` the JAX ``LMSpaceBuilder`` gives.
+
+paligemma-3b and whisper-medium run those two checks in their own files
+(``test_torch_vlm.py``, ``test_torch_encdec.py``), through the helpers
+here: this file stays smaller than ``tests/test_cascade.py``, which xdist
+then schedules (largest file first) ahead of it."""
 import dataclasses
 
 import numpy as np
@@ -32,8 +37,10 @@ from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.search import samplers as tsamplers  # noqa: E402
 from repro_torch.search import study as tstudy  # noqa: E402
 
-PORTED = ("qwen3-1.7b", "phi4-mini-3.8b", "nemotron-4-340b", "qwen1.5-4b",
-          "zamba2-2.7b", "xlstm-1.3b", "dbrx-132b", "arctic-480b")
+# the eight configs of the decoder slice, then the VLM and the encoder-decoder
+EIGHT = ("qwen3-1.7b", "phi4-mini-3.8b", "nemotron-4-340b", "qwen1.5-4b",
+         "zamba2-2.7b", "xlstm-1.3b", "dbrx-132b", "arctic-480b")
+PORTED = EIGHT + ("paligemma-3b", "whisper-medium")
 SPACES = ("qwen3_like", "hybrid_like", "moe_like")
 JAX_SPACES = jlm_space.__file__.replace("core/lm_space.py", "configs/spaces")
 REL = 1e-5  # fp32 against fp32, sums in another order: of the max |logit|
@@ -62,14 +69,29 @@ def _assert_same(port, ref, path="spec"):
 
 
 def test_the_port_has_the_eight_configs():
-    assert sorted(ARCHS) == sorted(PORTED)
-    for name in ("paligemma-3b", "whisper-medium"):
-        with pytest.raises(KeyError, match="item 9b"):
-            get_arch(name)
+    """The eight configs of the decoder slice are there, and with
+    paligemma-3b and whisper-medium the port has every config of the JAX
+    package, each with the JAX ArchConfig's fields, and each builds."""
+    from repro.configs import ARCHS as JAX_ARCHS
+
+    assert set(EIGHT) < set(ARCHS)
+    assert sorted(ARCHS) == sorted(PORTED) == sorted(JAX_ARCHS)
+    for name in PORTED:
+        port, ref = get_arch(name), jax_get_arch(name)
+        for field in ("name", "family", "batch_kind", "supports_long_context",
+                      "enc_context", "prefix_tokens", "source"):
+            assert getattr(port, field) == getattr(ref, field), (name, field)
+        model = LM(port.spec())
+        assert len(model.layers()) == port.spec().n_layers
+        assert len(model.enc_layers()) == len(port.spec().encoder_layers)
+    with pytest.raises(KeyError, match="available"):
+        get_arch("gpt-2")
 
 
-@pytest.mark.parametrize("arch", PORTED)
-def test_specs_and_full_size_parameter_count_match_jax(arch):
+def check_specs_and_full_size_parameter_count(arch):
+    """``arch``'s specs (published, long-context, smoke) equal the JAX
+    package's field by field, and its full-size parameter count on
+    ``meta`` equals ``jax.eval_shape`` of the JAX ``LM.init``."""
     for long_context in (False, True):
         _assert_same(get_arch(arch).spec(long_context=long_context),
                      jax_get_arch(arch).spec(long_context=long_context))
@@ -83,8 +105,9 @@ def test_specs_and_full_size_parameter_count_match_jax(arch):
     assert sum(t.numel() for t in state.values()) == want
 
 
-@pytest.mark.parametrize("arch", PORTED)
-def test_smoke_forward_logits_match_jax(arch):
+def check_smoke_forward_logits(arch):
+    """The smoke spec's forward logits (tokens only) on the JAX package's
+    weights match the JAX LM's."""
     jmodel = JaxLM(jax_get_arch(arch).smoke_spec_fn())
     params, _ = split(jmodel.init(jax.random.PRNGKey(0), dtype=jnp.float32))
     tmodel = lm_from_jax(get_arch(arch).smoke_spec_fn(),
@@ -93,6 +116,16 @@ def test_smoke_forward_logits_match_jax(arch):
     want = np.asarray(jax.jit(jmodel.apply)(params, jnp.asarray(toks)), np.float64)
     got = tmodel(torch.from_numpy(toks)).double().numpy()
     assert np.abs(got - want).max() < REL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("arch", EIGHT)
+def test_specs_and_full_size_parameter_count_match_jax(arch):
+    check_specs_and_full_size_parameter_count(arch)
+
+
+@pytest.mark.parametrize("arch", EIGHT)
+def test_smoke_forward_logits_match_jax(arch):
+    check_smoke_forward_logits(arch)
 
 
 # -- the search spaces ------------------------------------------------------------

@@ -117,8 +117,11 @@ def test_attention_decode_per_slot_positions(window):
 
 
 def test_attention_config_rejects_unported_impl():
+    """An impl the port does not have is refused, naming the ones it has
+    (since xla_chunked was ported, those are all of the JAX package's)."""
     with pytest.raises(NotImplementedError, match="xla_chunked"):
-        tattn.AttentionConfig(64, 4, 2, impl="xla_chunked")
+        tattn.AttentionConfig(64, 4, 2, impl="splash")
+    assert tattn.AttentionConfig(64, 4, 2, impl="xla_chunked").impl == "xla_chunked"
 
 
 def test_initializers_draw_the_jax_distributions():

@@ -48,15 +48,17 @@ def test_traffic_stream_matches_jax_copy(seed, arrival):
     pytest.param("xlstm-1.3b", "pallas", id="xlstm-1.3b-pallas"),
     pytest.param("zamba2-2.7b", "xla", id="zamba2-2.7b-xla"),
     pytest.param("zamba2-2.7b", "pallas", id="zamba2-2.7b-pallas"),
+    pytest.param("paligemma-3b", "xla", id="paligemma-3b-xla"),
+    pytest.param("paligemma-3b", "pallas", id="paligemma-3b-pallas"),
+    pytest.param("whisper-medium", "xla", id="whisper-medium-xla"),
+    pytest.param("whisper-medium", "pallas", id="whisper-medium-pallas"),
 ])
 def test_engine_matches_jax_engine(arch, impl):
     """The traffic of tests/test_serving.py's engine test: same summary,
     same generated tokens per request, for each ported arch's smoke spec."""
-    jspec = jax_get_arch(arch).smoke_spec_fn()
     # the port's helper is plain dataclass surgery and fits both specs
-    jspec = dataclasses.replace(jspec, layers=tserve.swap_kernel_impl(jspec.layers, impl))
-    tspec = get_arch(arch).smoke_spec_fn()
-    tspec = dataclasses.replace(tspec, layers=tserve.swap_kernel_impl(tspec.layers, impl))
+    jspec = tserve.swap_spec_impl(jax_get_arch(arch).smoke_spec_fn(), impl)
+    tspec = tserve.swap_spec_impl(get_arch(arch).smoke_spec_fn(), impl)
     jmodel = JaxLM(jspec)
     params, _ = split(jmodel.init(jax.random.PRNGKey(0), dtype=jnp.float32))
     tmodel = lm_from_jax(tspec, jax.tree_util.tree_map(np.asarray, params), device="cpu")

@@ -25,7 +25,7 @@ from repro.nn import xlstm as jx  # noqa: E402
 from repro.nn.types import split  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.convert import cache_from_jax, lm_from_jax  # noqa: E402
-from repro_torch.launch.serve import swap_kernel_impl  # noqa: E402
+from repro_torch.launch.serve import swap_spec_impl  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.nn import ssm as tssm  # noqa: E402
 from repro_torch.nn import xlstm as tx  # noqa: E402
@@ -200,8 +200,8 @@ def _numpy(tree):
 def _pair(impl="xla"):
     jspec = jax_get_arch(ARCH).smoke_spec_fn()
     tspec = get_arch(ARCH).smoke_spec_fn()
-    jspec = dataclasses.replace(jspec, layers=swap_kernel_impl(jspec.layers, impl))
-    tspec = dataclasses.replace(tspec, layers=swap_kernel_impl(tspec.layers, impl))
+    jspec = swap_spec_impl(jspec, impl)
+    tspec = swap_spec_impl(tspec, impl)
     jmodel = JaxLM(jspec)
     params, _ = split(jmodel.init(jax.random.PRNGKey(0), dtype=jnp.float32))
     tmodel = lm_from_jax(tspec, _numpy(params), device="cpu")
