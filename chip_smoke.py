@@ -56,6 +56,25 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    screen's Spearman, its kernel launches (which must be some) and wall
    time; both runs screen the same trials and find the same best trial, and
    agree on each promoted candidate's latency within 5%;
+6e. sweep: ``repro_torch.explorer.sweep.run_sweep`` three times.  The
+   port's ``sweep_small.yaml`` (conv_pool, ``metric: modelled``, targets
+   host_cpu, edge_npu and h100 by samplers random and grid, 6 trials): the
+   edge_npu cells count no forward the host_cpu cells counted, the h100
+   cells measure ``peak_bytes`` on the card under their own ``@cuda``
+   scope, and a second run resumes all 6 cells doing nothing.  A kernel
+   sweep: the explore phase's spec by samplers random and grid: both
+   kernels launched through ``run_sweep``, the plain versions never, the
+   random cell's six candidates the nas phase's, the grid cell re-tuning
+   nothing, a resumed second run doing nothing; each kernel, in the
+   fastest candidate that reaches it on its tuned schedule, held to its
+   plain versions as in 6.  Then ``hw_parallel.yaml`` at target h100,
+   serial and with 2 spawned workers: the same best trial;
+6f. serving: ``serving.yaml``'s traffic-shaped criteria at target h100
+   over its conv_pool space (8 trials) and over the nas phase's space (6
+   trials): every ``prefill_latency_s`` the roofline bound of the counted
+   forward at ``max_batch``, every ``decode_latency_s`` the reference's
+   formula, a decode state for every candidate of the nas space; nothing
+   launched, allocated on the card or generated;
 7. the mLSTM scan against its plain version (fp32 and bf16, timed as in
    3), at the xlstm-1.3b forward's shape and smaller ones; the forward's
    shape and batch 4 at 512 also with the kernel's device time from
@@ -1338,9 +1357,28 @@ def nas_phase(torch, ops, ref) -> dict:
 
     # the best candidate (its seed-0 weights, from the host): its kernels
     # against its plain versions on one batch
-    model = models[summary["best"]["signature"]].to("cuda")
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    _candidate_against_plain(torch, ops, ref, "nas_best",
+                             models[summary["best"]["signature"]], space.output_dim)
+
+    # where the time goes: one forward of each candidate
     c, l = space.input_shape
+    xb = torch.zeros(NAS_BATCH, l, c, device="cuda")
+    for signature, cand in models.items():
+        cand.to("cuda")
+        profile_window(torch, f"nas forward B={NAS_BATCH} {signature}",
+                       lambda: float(cand(xb).sum()))
+        cand.to("cpu")
+    return summary
+
+
+def _candidate_against_plain(torch, ops, ref, label, model, output_dim) -> dict:
+    """One NAS candidate (weights already drawn) on one seeded batch of
+    ``NAS_BATCH`` through its kernels against the same forward through
+    their plain versions, within ``NAS_REL_TOL`` of the output's max;
+    prints a ``label`` line and raises on a miss."""
+    model = model.to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    c, l = model.input_shape
     x = torch.randn(NAS_BATCH, l, c, generator=gen, device="cuda")
 
     def plain_ssm(x_, dt, a, b, c_, *, chunk):
@@ -1352,25 +1390,18 @@ def nas_phase(torch, ops, ref) -> dict:
                 mock.patch.object(ops, "flash_attention", _flash_plain):
             plain_out = model(x)
         torch.cuda.synchronize()
+    model.to("cpu")
     err = (kernel_out - plain_out).abs().max().item()
     tol = NAS_REL_TOL * plain_out.abs().max().item()
     finite = bool(torch.isfinite(kernel_out).all())
-    print("nas_best " + json.dumps({
-        "signature": summary["best"]["signature"], "shape": list(kernel_out.shape),
-        "finite": finite, "max_abs_out": plain_out.abs().max().item(),
-        "max_abs_err": err, "tol": tol}))
-    if not finite or kernel_out.shape != (NAS_BATCH, space.output_dim) or err > tol:
-        raise AssertionError(f"nas best candidate: max |err| {err} > {tol}, "
+    row = {"signature": model.arch.signature(), "shape": list(kernel_out.shape),
+           "finite": finite, "max_abs_out": plain_out.abs().max().item(),
+           "max_abs_err": err, "tol": tol}
+    print(f"{label} " + json.dumps(row))
+    if not finite or kernel_out.shape != (NAS_BATCH, output_dim) or err > tol:
+        raise AssertionError(f"{label}: max |err| {err} > {tol}, "
                              f"finite={finite}, shape {tuple(kernel_out.shape)}")
-
-    # where the time goes: one forward of each candidate
-    xb = torch.zeros(NAS_BATCH, l, c, device="cuda")
-    for signature, cand in models.items():
-        cand.to("cuda")
-        profile_window(torch, f"nas forward B={NAS_BATCH} {signature}",
-                       lambda: float(cand(xb).sum()))
-        cand.to("cpu")
-    return summary
+    return row
 
 
 def _flash_plain(q, k, v, *, causal, window, scale=None):
@@ -1850,6 +1881,431 @@ def cascade_phase(torch, ops) -> dict:
     return runs
 
 
+# examples/experiments/spaces/conv_pool.yaml (src/repro_torch/experiments/
+# spaces/ holds the port's copy) as a dict: the card's machine has no PyYAML
+CONV_POOL_SPACE = {
+    "input": [4, 256],
+    "output": 6,
+    "sequence": [
+        {"block": "features", "op_candidates": "conv-block",
+         "type_repeat": {"type": "vary_all", "depth": [1, 2, 3]}},
+        {"block": "head", "op_candidates": "linear", "linear": {"width": [32, 64]}},
+    ],
+    "default_op_params": {"conv1d": {"kernel_size": [3, 5], "out_channels": [8, 16]}},
+    "composites": {"conv-block": {"sequence": [
+        {"block": "conv", "op_candidates": "conv1d"},
+        {"block": "pool", "op_candidates": ["maxpool", "identity"]}]}},
+    "preprocessing": {"normalize": {"kind": ["zscore", "minmax"]}},
+}
+# the port's src/repro_torch/experiments/sweep_small.yaml, its space inlined
+# (the phase gives it a fresh cache and report directory)
+SWEEP_SMALL = {
+    "name": "sweep-small",
+    "base": {
+        "name": "sweep-small-base",
+        "search_space": CONV_POOL_SPACE,
+        "sampler": {"name": "random", "seed": 0},
+        "executor": {"backend": "serial"},
+        "criteria": [
+            {"estimator": "n_params", "kind": "hard_constraint", "limit": 2.0e6},
+            {"estimator": "latency_s", "kind": "objective",
+             "params": {"batch": 8, "metric": "modelled"}},
+            {"estimator": "peak_bytes", "kind": "objective", "weight": 1.0e-9,
+             "params": {"batch": 8}},
+        ],
+        "target": "host_cpu",
+        "budget": {"n_trials": 6},
+    },
+    "axes": {"targets": ["host_cpu", "edge_npu", "h100"],
+             "samplers": [{"name": "random", "seed": 0}, {"name": "grid", "seed": 0}]},
+    "cache": "results/cache",
+    "report_dir": "results",
+}
+# examples/experiments/hw_parallel.yaml at target h100 (its space inlined)
+HW_PARALLEL = {
+    "name": "hw-parallel",
+    "search_space": CONV_POOL_SPACE,
+    "sampler": {"name": "random", "seed": 0},
+    "executor": {"backend": "process", "n_workers": 2},
+    "schedule": {"mode": "sliding_window", "tell_order": "completion"},
+    "criteria": [
+        {"estimator": "n_params", "kind": "hard_constraint", "limit": 1.0e6},
+        {"estimator": "peak_bytes", "kind": "soft_constraint", "limit": 64.0e6,
+         "weight": 0.1, "params": {"batch": 8}},
+        {"estimator": "latency_s", "kind": "objective",
+         "params": {"batch": 8, "metric": "modelled"}},
+    ],
+    "target": "h100",
+    "cache": {"dir": "results/cache"},
+    "budget": {"n_trials": 12},
+    "report_dir": "results",
+}
+# examples/experiments/serving.yaml at target h100 (its space inlined); the
+# serving phase also runs it over NAS_SPACE at SERVING_NAS_TRIALS trials
+SERVING_EXPERIMENT = {
+    "name": "serving",
+    "search_space": CONV_POOL_SPACE,
+    "sampler": {"name": "random", "seed": 7},
+    "executor": {"backend": "serial"},
+    "criteria": [
+        {"estimator": "p99_latency_s", "kind": "objective", "weight": 1.0},
+        {"estimator": "throughput_tok_s", "kind": "objective", "direction": "maximize",
+         "weight": 1.0e-6},
+        {"estimator": "kv_cache_peak_bytes", "kind": "hard_constraint", "limit": 64.0e6},
+    ],
+    "serving": {
+        "max_batch": 4, "queue_limit": 8, "dtype_bytes": 2,
+        "traffic": {"seed": 3, "n_requests": 24, "arrival": "poisson", "rate_rps": 50.0,
+                    "prompt_lens": {8: 0.75, 16: 0.25}, "gen_lens": [4, 8]},
+    },
+    "target": "h100",
+    "cache": {"dir": "results/cache"},
+    "budget": {"n_trials": 8},
+    "report_dir": "results",
+}
+SERVING_NAS_TRIALS = 6
+
+
+def _watched_sweep(torch, ops, ref, spec) -> tuple:
+    """``run_sweep(spec)`` with each cell watched.  Returns the report and
+    what the run did: by cell, its trials, the forwards counted on ``meta``
+    (``program_cost``: signature and batch), the (kernel, bucket) pairs the
+    tuner swept and the candidates generated; and over the run, the kernel
+    launches, the plain versions' calls, the generates and the bytes the
+    card holds after it against before."""
+    from repro_torch.evaluation import estimators
+    from repro_torch.explorer.explorer import Explorer
+    from repro_torch.explorer.sweep import run_sweep
+    from repro_torch.hwgen.autotune import ScheduleTuner
+    from repro_torch.hwgen.generator import generate_call_count
+
+    cells, current = {}, [None]
+    run, count, sweep = Explorer.run, estimators.program_cost, ScheduleTuner._sweep
+
+    def watched_run(self, *args, **kwargs):
+        cell = current[0] = cells.setdefault(
+            self.spec.name, {"target": self.spec.target, "counted": [], "swept": []})
+        generated, launched = generate_call_count(), dict(ops.LAUNCHES)
+        try:
+            return run(self, *args, **kwargs)
+        finally:
+            cell["generates"] = generate_call_count() - generated
+            cell["launches"] = {k: n - launched.get(k, 0) for k, n in ops.LAUNCHES.items()
+                                if n - launched.get(k, 0)}
+            cell["trials"] = [{
+                "number": t.number, "state": t.state.value,
+                "signature": t.user_attrs.get("signature"),
+                "latency_s": t.user_attrs.get("latency_s"),
+                "peak_bytes": t.user_attrs.get("peak_bytes"),
+                "kernel_schedules": t.user_attrs.get("kernel_schedules")}
+                for t in self.study.trials]
+            cell["explorer"] = self
+            current[0] = None
+
+    def watched_count(candidate, example_args, schedules=None):
+        current[0]["counted"].append([candidate.arch.signature(), example_args[0].shape[0]])
+        return count(candidate, example_args, schedules=schedules)
+
+    def watched_sweep(self, kernel, shapes, meta, bucket):
+        current[0]["swept"].append([kernel, bucket])
+        return sweep(self, kernel, shapes, meta, bucket)
+
+    plain_calls = []
+    torch.cuda.synchronize()
+    held, generated = torch.cuda.memory_allocated(), generate_call_count()
+    ops.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with mock.patch.object(Explorer, "run", watched_run), \
+            mock.patch.object(estimators, "program_cost", watched_count), \
+            mock.patch.object(ScheduleTuner, "_sweep", watched_sweep):
+        patches = _plain_versions(ref, plain_calls)
+        for patch in patches:
+            patch.start()
+        try:
+            report = run_sweep(spec)
+        finally:
+            for patch in patches:
+                patch.stop()
+    torch.cuda.synchronize()
+    return report, {
+        "cells": cells, "wall_s": time.perf_counter() - t0,
+        "launches": {k: n for k, n in ops.LAUNCHES.items() if n},
+        "plain_calls": len(plain_calls), "generates": generate_call_count() - generated,
+        "held_bytes_moved": torch.cuda.memory_allocated() - held}
+
+
+def _cell_rows(report, watch) -> list:
+    """Each cell of a watched sweep as the sweep lines print it."""
+    rows = []
+    for cell in report.cells:
+        seen = watch["cells"].get(cell["name"], {})
+        rows.append({
+            "cell": cell["name"], "resumed": cell["resumed"], "best": cell["best"],
+            "criteria_values": cell["criteria_values"],
+            "wall_clock_s": cell["wall_clock_s"], "generates": seen.get("generates", 0),
+            "launches": seen.get("launches", {}),
+            "counted": len(seen.get("counted", ())), "swept": seen.get("swept", []),
+            "trials": seen.get("trials", [])})
+    return rows
+
+
+def _resumed_quietly(label, report, again, watch) -> None:
+    """A re-run of a finished sweep resumes every cell: it runs no cell, so
+    it counts, tunes, generates, places and launches nothing, and merges to
+    the first run's matrix."""
+    quiet = {"n_resumed": again.n_resumed, "cells_run": sorted(watch["cells"]),
+             "launches": watch["launches"], "plain_calls": watch["plain_calls"],
+             "generates": watch["generates"], "held_bytes_moved": watch["held_bytes_moved"],
+             "matrix_equal": again.matrix == report.matrix}
+    print(f"{label}_resumed " + json.dumps(quiet))
+    if quiet != {"n_resumed": report.n_cells, "cells_run": [], "launches": {},
+                 "plain_calls": 0, "generates": 0, "held_bytes_moved": 0,
+                 "matrix_equal": True}:
+        raise AssertionError(f"{label}: the resumed re-run did work: {quiet}")
+
+
+def sweep_phase(torch, ops, ref, nas=None) -> dict:
+    """``run_sweep`` on the card, three runs:
+
+    (a) ``SWEEP_SMALL`` (the port's ``sweep_small.yaml``: conv_pool,
+    ``metric: modelled``, [host_cpu, edge_npu, h100] x [random 0, grid 0],
+    6 trials) on a fresh store.  Raises if an ``edge_npu`` cell counts a
+    forward a ``host_cpu`` cell counted, if the ``h100`` cells generate no
+    candidate (their ``peak_bytes`` is measured on the card) or the store
+    holds no ``peak_bytes`` entry under each of the ``@cpu`` and ``@cuda``
+    scopes, or if a second run resumes less than every cell or does any
+    work.
+
+    (b) a kernel sweep: ``explore_spec("serial", 1, ...)`` (``NAS_SPACE`` at
+    zamba2-2.7b's widths, measured on ``h100``, tuning cached) over the
+    samplers [random 0, grid 0].  Raises unless ``flash_attention`` and
+    ``ssm_scan`` both launched and no plain version ran, the random cell's
+    signatures are the nas phase's in order, the grid cell swept no
+    (kernel, bucket) the random cell swept, and a second run does nothing;
+    then holds each kernel, in the fastest candidate that reaches it on
+    its tuned schedules, to its plain versions.
+
+    (c) ``HW_PARALLEL`` (``hw_parallel.yaml`` at target ``h100``), serial
+    and with 2 spawned workers, through ``Explorer``: every trial must
+    complete and both runs must find the same best trial.
+
+    Returns the kernel sweep's launches by cell."""
+    import tempfile
+
+    from repro_torch.core.space import parse_search_space
+    from repro_torch.core.translate import sample_architecture
+    from repro_torch.evaluation.disk_cache import DiskEvaluationCache
+    from repro_torch.explorer.explorer import Explorer
+    from repro_torch.explorer.sweep import SweepSpec
+    from repro_torch.kernels import schedule as ksched
+    from repro_torch.search.samplers import RandomSampler
+    from repro_torch.search.study import Study
+
+    with tempfile.TemporaryDirectory(prefix="sweep-") as tmp:
+        # -- (a) the port's sweep_small: three targets, two samplers ---------
+        spec = SweepSpec.from_dict(dict(SWEEP_SMALL, cache=f"{tmp}/small_cache",
+                                        report_dir=f"{tmp}/small"))
+        report, watch = _watched_sweep(torch, ops, ref, spec)
+        rows = _cell_rows(report, watch)
+        for row in rows:
+            print("sweep_small " + json.dumps(row))
+        counted = {}
+        for cell in watch["cells"].values():
+            counted.setdefault(cell["target"], set()).update(map(tuple, cell["counted"]))
+        scopes = {}
+        for key, _ in DiskEvaluationCache(f"{tmp}/small_cache").entries():
+            if isinstance(key, list) and key[0] in ("peak_bytes", "roofline_terms"):
+                scopes.setdefault(f"{key[0]}@{key[1].rsplit('@', 1)[-1]}", []).append(key[3])
+        h100_generates = sum(c["generates"] for c in watch["cells"].values()
+                             if c["target"] == "h100")
+        summary = {
+            "wall_s": watch["wall_s"], "matrix": report.matrix,
+            "target_rankings": {k: [r["target"] for r in v]
+                                for k, v in report.target_rankings.items()},
+            "counted_by_target": {t: len(c) for t, c in counted.items()},
+            "edge_npu_counted_after_host_cpu":
+                len(counted.get("edge_npu", set()) & counted.get("host_cpu", set())),
+            "h100_generates": h100_generates,
+            "store_entries_by_scope": {k: len(v) for k, v in sorted(scopes.items())},
+            "launches": watch["launches"], "cache": report.cache}
+        print("sweep_small_summary " + json.dumps(summary))
+        if (report.n_cells != 6 or summary["edge_npu_counted_after_host_cpu"]
+                or not counted.get("host_cpu") or h100_generates == 0
+                or not scopes.get("peak_bytes@cpu") or not scopes.get("peak_bytes@cuda")
+                or any(c["states"] != {"complete": 6} for c in report.cells)):
+            raise AssertionError(f"sweep_small: {summary}")
+        again, watch = _watched_sweep(torch, ops, ref, spec)
+        _resumed_quietly("sweep_small", report, again, watch)
+
+        # -- (b) the kernels through a sweep: NAS_SPACE on h100 ---------------
+        base = explore_spec("serial", 1, f"{tmp}/kernels_cache")
+        spec = SweepSpec.from_dict({
+            "name": "sweep-kernels", "base": base,
+            "axes": {"samplers": SWEEP_SMALL["axes"]["samplers"]},
+            "report_dir": f"{tmp}/kernels"})
+        report, watch = _watched_sweep(torch, ops, ref, spec)
+        rows = _cell_rows(report, watch)
+        for row in rows:
+            print("sweep_kernels " + json.dumps(row))
+        random_cell, grid_cell = rows
+        if nas is not None:
+            want = [row["signature"] for row in nas["trials"]]
+        else:  # the nas phase did not run: its sampler's draws
+            space = parse_search_space(NAS_SPACE)
+            study = Study(sampler=RandomSampler(seed=0))
+            want = [sample_architecture(space, study.ask()).signature()
+                    for _ in range(NAS_TRIALS)]
+        got = [t["signature"] for t in random_cell["trials"]]
+        retuned = [b for b in grid_cell["swept"] if b in random_cell["swept"]]
+        summary = {"wall_s": watch["wall_s"], "launches": watch["launches"],
+                   "plain_calls": watch["plain_calls"],
+                   "random_signatures_are_the_nas_phases": got == want,
+                   "swept": {"random": len(random_cell["swept"]),
+                             "grid": len(grid_cell["swept"])},
+                   "grid_retuned": retuned, "best": {r["cell"]: r["best"] for r in rows}}
+        print("sweep_kernels_summary " + json.dumps(summary))
+        kernels = ("flash_attention", "ssm_scan")
+        if (any(watch["launches"].get(k, 0) == 0 for k in kernels) or watch["plain_calls"]
+                or got != want or retuned
+                or any(c["states"] != {"complete": NAS_TRIALS} for c in report.cells)):
+            raise AssertionError(f"sweep_kernels: {summary}; signatures {got} against "
+                                 f"the nas phase's {want}")
+        again, quiet = _watched_sweep(torch, ops, ref, spec)
+        _resumed_quietly("sweep_kernels", report, again, quiet)
+
+        # each kernel in the fastest candidate that reaches it, on the
+        # schedules the sweep tuned for it, against its plain versions
+        for op, kernel in (("attention", "flash_attention"), ("ssm", "ssm_scan")):
+            trial, cell = min(
+                ((t, c) for c in watch["cells"].values()
+                 for t in c["explorer"].study.trials
+                 if f"{op}(" in (t.user_attrs.get("signature") or "")),
+                key=lambda tc: tc[0].user_attrs["latency_s"])
+            model = cell["explorer"]._objective.build_model(trial)
+            model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+            plan = {k: ksched.as_schedule(k, v)
+                    for k, v in trial.user_attrs["kernel_schedules"].items()}
+            with ksched.use_schedules(plan):
+                _candidate_against_plain(torch, ops, ref, f"sweep_{kernel}", model,
+                                         NAS_SPACE["output"])
+        launches = {row["cell"].rsplit("=", 1)[-1]: row["launches"] for row in rows}
+
+        # -- (c) hw_parallel.yaml on the card: serial, then 2 spawned workers --
+        runs = {}
+        for backend, workers in (("serial", 1), ("process", 2)):
+            raw = dict(HW_PARALLEL, executor={"backend": backend, "n_workers": workers},
+                       cache={"dir": f"{tmp}/hw_{backend}"}, report_dir=f"{tmp}/hw")
+            t0 = time.perf_counter()
+            explorer = Explorer.from_dict(raw)
+            hw = explorer.run(save_report=False)
+            torch.cuda.synchronize()
+            runs[backend] = {
+                "backend": backend, "n_workers": workers,
+                "wall_s": time.perf_counter() - t0, "states": hw.states, "best": hw.best,
+                "criteria_values": hw.criteria_values, "cache": hw.cache,
+                "peak_bytes": {t.number: t.user_attrs.get("peak_bytes")
+                               for t in explorer.study.trials}}
+            print("sweep_hw_parallel " + json.dumps(runs[backend]))
+        serial, process = runs["serial"], runs["process"]
+        n = HW_PARALLEL["budget"]["n_trials"]
+        if (serial["states"] != {"complete": n} or process["states"] != {"complete": n}
+                or serial["best"]["number"] != process["best"]["number"]):
+            raise AssertionError(f"sweep hw_parallel on h100: states {serial['states']} | "
+                                 f"{process['states']}, best {serial['best']} | "
+                                 f"{process['best']}")
+    return launches
+
+
+def serving_phase(torch, ops) -> dict:
+    """``SERVING_EXPERIMENT`` (``serving.yaml`` at target ``h100``) through
+    ``Explorer`` over its conv_pool space at its 8 trials and over
+    ``NAS_SPACE`` at ``SERVING_NAS_TRIALS``.  For every trial, beside the
+    criteria (``p99_latency_s``, ``throughput_tok_s``,
+    ``kv_cache_peak_bytes``): ``prefill_latency_s`` against the roofline
+    bound of the forward counted at ``max_batch`` (the printed terms), and
+    ``decode_latency_s`` against the reference's formula on the printed
+    ``n_params``, ``flops`` and state elements.  Raises on a mismatch, on a
+    trial that did not complete, on a ``NAS_SPACE`` candidate with no decode
+    state, or if the phase launched a kernel, allocated on the card or
+    generated a candidate.  Returns the rows."""
+    import tempfile
+
+    from repro_torch.evaluation.serving import DecodeLatencyEstimator, PrefillLatencyEstimator
+    from repro_torch.explorer.explorer import Explorer
+    from repro_torch.hwgen.generator import generate_call_count, program_cost
+    from repro_torch.hwgen.roofline import roofline_terms
+    from repro_torch.hwgen.targets import get_target
+
+    chip = get_target("h100").chip
+    torch.cuda.synchronize()
+    launches, held, generated = dict(ops.LAUNCHES), torch.cuda.memory_allocated(), \
+        generate_call_count()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="serving-") as tmp:
+        for label, space, trials in (("conv_pool", CONV_POOL_SPACE,
+                                      SERVING_EXPERIMENT["budget"]["n_trials"]),
+                                     ("nas", NAS_SPACE, SERVING_NAS_TRIALS)):
+            raw = dict(SERVING_EXPERIMENT, name=f"serving-{label}", search_space=space,
+                       budget={"n_trials": trials}, cache={"dir": f"{tmp}/{label}"},
+                       report_dir=tmp)
+            t0 = time.perf_counter()
+            explorer = Explorer.from_dict(raw)
+            report = explorer.run(save_report=False)
+            wall_s = time.perf_counter() - t0
+            serving, objective = explorer.spec.serving, explorer._objective
+            prefill = PrefillLatencyEstimator("h100", serving=serving, cache=objective.cache)
+            decode = DecodeLatencyEstimator("h100", serving=serving, cache=objective.cache)
+            mean_ctx = (sum(n * w for n, w in serving.traffic.prompt_lens.items())
+                        + 0.5 * sum(n * w for n, w in serving.traffic.gen_lens.items()))
+            rows = []
+            for trial in explorer.study.trials:
+                model = objective.build_model(trial)
+                c, l = model.input_shape
+                cost = program_cost(model, (torch.empty(serving.max_batch, l, c,
+                                                        device="meta"),))
+                bound = roofline_terms(hlo_flops=cost.flops, hlo_bytes=cost.bytes_accessed,
+                                       collective_bytes=cost.collective_bytes, n_chips=1,
+                                       chip=chip)
+                state = serving.max_batch * serving.dtype_bytes * (
+                    model.state_elems_fixed + model.state_elems_per_token * mean_ctx)
+                want_decode = max(serving.max_batch * (model.flops / l) / chip.peak_flops_bf16,
+                                  (model.n_params * 4 + state) / chip.hbm_bandwidth)
+                row = {
+                    "trial": trial.number, "state": trial.state.value,
+                    "signature": trial.user_attrs.get("signature"),
+                    **{k: trial.user_attrs.get(k) for k in
+                       ("p99_latency_s", "throughput_tok_s", "kv_cache_peak_bytes")},
+                    "prefill_latency_s": prefill.estimate(model),
+                    "flops": cost.flops, "bytes": cost.bytes_accessed,
+                    "compute_s": bound.compute_s, "memory_s": bound.memory_s,
+                    "bound_s": bound.bound_s,
+                    "decode_latency_s": decode.estimate(model),
+                    "decode_formula_s": want_decode, "n_params": model.n_params,
+                    "model_flops": model.flops,
+                    "state_elems_fixed": model.state_elems_fixed,
+                    "state_elems_per_token": model.state_elems_per_token}
+                rows.append(row)
+                print(f"serving_{label} " + json.dumps(row))
+            out[label] = {"wall_s": wall_s, "states": report.states, "best": report.best,
+                          "criteria_values": report.criteria_values, "rows": rows}
+            print(f"serving_{label}_summary " + json.dumps(
+                {k: v for k, v in out[label].items() if k != "rows"}))
+            for row in rows:
+                if (row["state"] != "complete" or row["prefill_latency_s"] != row["bound_s"]
+                        or abs(row["decode_latency_s"] - row["decode_formula_s"])
+                        > 1e-12 * row["decode_formula_s"]
+                        or (label == "nas" and not row["kv_cache_peak_bytes"])):
+                    raise AssertionError(f"serving {label}: trial {row['trial']}: {row}")
+    torch.cuda.synchronize()
+    moved = {"launches": dict(ops.LAUNCHES) != launches,
+             "memory_allocated": torch.cuda.memory_allocated() != held,
+             "generates": generate_call_count() != generated}
+    print("serving_summary " + json.dumps({"touched_the_card": moved}))
+    if any(moved.values()):
+        raise AssertionError(f"serving: the modelled estimators touched the card: {moved}")
+    return out
+
+
 # the phases that drive a whole model, by name
 MODEL_PHASES = {
     "xlstm_forward": xlstm_forward_phase,
@@ -1865,8 +2321,8 @@ MODEL_PHASES = {
                                          argv=PALIGEMMA_SERVE_ARGS),
     "whisper_forward": whisper_forward_phase,
 }
-SUBSET_PHASES = ("flash", "ssm", "nas", "modelled", "explore", "cascade", "mlstm",
-                 *MODEL_PHASES)
+SUBSET_PHASES = ("flash", "ssm", "nas", "modelled", "explore", "cascade", "sweep",
+                 "serving", "mlstm", *MODEL_PHASES)
 
 
 def main(argv=None) -> int:
@@ -1944,6 +2400,10 @@ def main(argv=None) -> int:
                 explore_phase(torch, ops)
             elif name == "cascade":
                 cascade_phase(torch, ops)
+            elif name == "sweep":
+                sweep_phase(torch, ops, ref, nas)
+            elif name == "serving":
+                serving_phase(torch, ops)
             elif name == "mlstm":
                 mlstm_phase(torch, ops, ref, gen)
             elif name in MODEL_PHASES:
@@ -2041,6 +2501,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     cascade = cascade_phase(torch, ops)
 
+    # -- 6e. sweeps: three targets; the kernels through run_sweep; hw_parallel
+    torch.cuda.empty_cache()
+    sweep = sweep_phase(torch, ops, ref, nas)
+
+    # -- 6f. the traffic-shaped serving estimators: modelled, nothing runs ----
+    serving_phase(torch, ops)
+
     # -- 7. the mLSTM scan against its plain version -----------------------
     mlstm_rows = mlstm_phase(torch, ops, ref, gen)
 
@@ -2081,6 +2548,8 @@ def main(argv=None) -> int:
                              **{f"cascade_{name}_screening":
                                 r["screening_launches"].get("flash_attention", 0)
                                 for name, r in cascade.items()},
+                             **{f"sweep_{cell}": n.get("flash_attention", 0)
+                                for cell, n in sweep.items()},
                              "zamba2_forward": zfwd["launches"].get("flash_attention", 0),
                              "zamba2_serve": zserve["flash_attention_launches"],
                              "moe_forward": moe["launches"].get("flash_attention", 0),
@@ -2105,6 +2574,8 @@ def main(argv=None) -> int:
                              **{f"cascade_{name}_screening":
                                 r["screening_launches"].get("ssm_scan", 0)
                                 for name, r in cascade.items()},
+                             **{f"sweep_{cell}": n.get("ssm_scan", 0)
+                                for cell, n in sweep.items()},
                              "zamba2_forward": zfwd["launches"].get("ssm_scan", 0),
                              "zamba2_serve": zserve["ssm_scan_launches"]},
         "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],

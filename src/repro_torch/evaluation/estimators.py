@@ -4,9 +4,10 @@
     analytical, from BuiltModel metadata (fast, nothing runs)
   * CompiledLatencyEstimator — hardware-in-the-loop: places the candidate
     on the target's device through the generator and returns its measured
-    forward time (``metric="measured"``), or the roofline bound of its
-    forward on the target's chip (``metric="modelled"``: counted on the
-    ``meta`` device, nothing runs)
+    forward time (``metric="measured"``; a ``roofline`` target such as
+    ``edge_npu`` runs nothing and gives the bound below), or the roofline
+    bound of its forward on the target's chip (``metric="modelled"``:
+    counted on the ``meta`` device, nothing runs)
   * CompiledMemoryEstimator — the candidate's own peak device memory in
     one forward, from the CUDA allocator; on a CPU target, which keeps no
     allocator statistics, the peak counted on the ``meta`` device
@@ -20,6 +21,7 @@ trained-accuracy estimator comes with training (ROADMAP.md Queue 1 item
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional
 
@@ -160,6 +162,19 @@ class _CompiledEstimator(Estimator):
         x = torch.empty((self.batch, l, c), dtype=torch.float32, device="meta")
         return program_cost(candidate, (x,), schedules=plan[0])
 
+    def _roofline_terms(self, candidate: BuiltModel, plan):
+        """The chip-independent ``[flops, bytes, collective bytes]`` of one
+        forward (:meth:`_count`), cached under ``roofline_terms`` and the
+        target's ``mesh_scope``: every estimator that needs them (modelled
+        latency, the serving estimators) and every target of the same
+        scope (``host_cpu`` and ``edge_npu``) counts a candidate once."""
+        def compute_terms():
+            cost = self._count(candidate, plan)
+            return [cost.flops, cost.bytes_accessed, cost.collective_bytes]
+
+        return self.cache.get_or_compute(
+            self._program_key("roofline_terms", candidate, plan[1]), compute_terms)
+
     def _artifact(self, candidate: BuiltModel, plan=None):
         """The candidate with weights drawn from seed 0, run once on the
         target's device on a zero batch of ``self.batch`` examples, its
@@ -180,8 +195,13 @@ class _CompiledEstimator(Estimator):
             x = torch.zeros((self.batch, l, c), dtype=torch.float32)
             return self.generator.generate(model, (x,), schedules=schedules)
 
-        return self.cache.get_or_compute(self._program_key("artifact", candidate, sig),
-                                         produce)
+        artifact = self.cache.get_or_compute(
+            self._program_key("artifact", candidate, sig), produce)
+        if artifact.target is not self.generator.target:
+            # generated for a sibling target of the same mesh scope: the
+            # program is the same, but its measurement is this target's
+            artifact = dataclasses.replace(artifact, target=self.generator.target)
+        return artifact
 
 
 @ESTIMATORS.register("latency_s")
@@ -215,15 +235,10 @@ class CompiledLatencyEstimator(_CompiledEstimator):
     def estimate(self, candidate: BuiltModel, context=None) -> float:
         plan = self._schedule_plan(candidate, context)
         if self.metric == "modelled":
-            # cache the chip-independent terms and apply the target's chip
-            # afterwards: a sibling target of the same mesh scope gets its
-            # modelled latency from the cached terms
-            def compute_terms():
-                cost = self._count(candidate, plan)
-                return [cost.flops, cost.bytes_accessed, cost.collective_bytes]
-
-            terms = self.cache.get_or_compute(
-                self._program_key("roofline_terms", candidate, plan[1]), compute_terms)
+            # the chip-independent terms are cached, the target's chip is
+            # applied afterwards: a sibling target of the same mesh scope
+            # gets its modelled latency from the cached terms
+            terms = self._roofline_terms(candidate, plan)
             report = roofline_terms(
                 hlo_flops=terms[0], hlo_bytes=terms[1], collective_bytes=terms[2],
                 n_chips=1, chip=self.generator.target.chip)

@@ -33,8 +33,8 @@ alternatives — a typo fails at parse time, not trial 37.
 This is the JAX package's ``explorer/experiment.py`` on the port.  A
 section whose modules the port does not have yet raises a
 :class:`NotPortedError` (a ``NotImplementedError``) at parse time, naming
-its ROADMAP.md item: ``serving``, the ``remote`` executor backend and
-sweep documents.
+its ROADMAP.md item: the ``remote`` executor backend.  The JAX package's
+TPU targets have no counterpart in the port and are refused by name.
 ``yaml`` is imported only to read YAML (the machine with the card has no
 PyYAML; a dict spec needs none).
 """
@@ -67,26 +67,32 @@ class NotPortedError(NotImplementedError):
 
 # what each unported section waits for (ROADMAP.md, Queue 1)
 NOT_PORTED = {
-    "sweep": "sweep documents (base/axes) are not ported yet: ROADMAP.md Queue 1 "
-             "item 6 (sweeps)",
-    "serving": "the 'serving' section (the traffic-shaped serving estimators) is "
-               "not ported yet: ROADMAP.md Queue 1 item 10 (serving, the rest)",
     "remote": "the 'remote' executor backend is not ported yet: ROADMAP.md Queue 1 "
               "item 12 (remote)",
 }
 
 
 def _refuse_unported(raw: Mapping[str, Any]) -> None:
-    """Raise :class:`NotPortedError` for the first unported section of an
+    """Raise :class:`NotPortedError` for an unported section of an
     experiment document, before any component is looked up."""
-    if "base" in raw or "axes" in raw:
-        raise NotPortedError(NOT_PORTED["sweep"])
     executor = raw.get("executor")
     backend = executor.get("backend") if isinstance(executor, Mapping) else executor
     if backend == "remote":
         raise NotPortedError(NOT_PORTED["remote"])
-    if raw.get("serving") is not None:
-        raise NotPortedError(NOT_PORTED["serving"])
+
+
+def _check_target(name: str) -> None:
+    """The target must be registered; a TPU target of the JAX package is
+    refused with the reason, which a bare unknown-component error would
+    not give."""
+    from repro_torch.hwgen.targets import TPU_TARGETS
+
+    if name in TPU_TARGETS:
+        raise ExperimentError(
+            f"target {name!r} is one of the JAX package's TPU targets "
+            f"{list(TPU_TARGETS)}; the port has no TPU targets (it carries no TPU "
+            f"rates): name one of {TARGETS.names()}")
+    TARGETS.get(name)
 
 
 CRITERIA_KINDS = ("objective", "soft_constraint", "hard_constraint")
@@ -356,8 +362,8 @@ class CriterionSpec:
         "limit": "constraint threshold; required for both constraint "
                  "kinds, ignored for objectives",
         "params": "estimator constructor kwargs, validated against its "
-                  "signature at parse time (`target`, `cache`, `tuner` and "
-                  "`device` are injected by the Explorer)",
+                  "signature at parse time (`target`, `cache`, `tuner`, "
+                  "`device` and `serving` are injected by the Explorer)",
     }
 
     @classmethod
@@ -387,11 +393,11 @@ class CriterionSpec:
         if kind != "objective" and limit is None:
             raise ExperimentError(f"{where}: kind {kind!r} requires a 'limit'")
         params = _require_mapping(raw.get("params") or {}, f"{where}.params")
-        # target/cache/tuner/device are injected by the Explorer;
+        # target/cache/tuner/device/serving are injected by the Explorer;
         # everything else must bind against the estimator constructor
         probe = dict(params)
         sig_params = inspect.signature(factory).parameters
-        for injected in ("target", "cache", "tuner", "device"):
+        for injected in ("target", "cache", "tuner", "device", "serving"):
             if injected in sig_params:
                 probe.setdefault(injected, None)
         _check_component_kwargs(factory, probe, where)
@@ -414,15 +420,18 @@ class CriterionSpec:
         return d
 
     def build_estimator(self, target: Any = None, cache: Any = None,
-                        tuner: Any = None, device: Any = None):
+                        tuner: Any = None, device: Any = None,
+                        serving: Any = None):
         """Instantiate the estimator, injecting the experiment's hardware
-        target, shared cache, kernel-schedule tuner and device (where the
-        zero-cost proxies run) wherever the constructor accepts them."""
+        target, shared cache, kernel-schedule tuner, device (where the
+        zero-cost proxies run) and serving spec wherever the constructor
+        accepts them."""
         factory = ESTIMATORS.get(self.estimator)
         kwargs = dict(self.params)
         sig_params = inspect.signature(factory).parameters
         for name, value in (("target", target), ("cache", cache),
-                            ("tuner", tuner), ("device", device)):
+                            ("tuner", tuner), ("device", device),
+                            ("serving", serving)):
             if name in sig_params and name not in kwargs and value is not None:
                 kwargs[name] = value
         return factory(**kwargs)
@@ -785,7 +794,79 @@ class FaultsSpec:
         return d
 
 
-# the reference's keys; `serving` is refused (NOT_PORTED) unless null
+@dataclasses.dataclass
+class ServingSpec:
+    """Traffic-shaped serving criteria: how the engine batches and what
+    load it sees.  Injected into estimators that accept a ``serving``
+    kwarg (the :mod:`repro_torch.evaluation.serving` family), so sweeps
+    rank candidates by p99 latency / throughput *under the declared
+    traffic mix* rather than single-request kernel time."""
+
+    traffic: "Any" = None  # TrafficSpec; default built in __post_init__
+    max_batch: int = 8
+    queue_limit: int = 16
+    dtype_bytes: int = 2
+
+    KEYS = ("traffic", "max_batch", "queue_limit", "dtype_bytes")
+    FIELD_DOCS = {
+        "traffic": "declared traffic mix: seeded arrival process + "
+                   "prompt/generation length mixes; replays bit-identically "
+                   "at a fixed seed",
+        "max_batch": "continuous-batching concurrency limit — the engine "
+                     "decodes at most this many requests per step "
+                     "(integer >= 1, default 8)",
+        "queue_limit": "bounded admission queue depth; arrivals beyond it "
+                       "are shed gracefully (integer >= 1, default 16)",
+        "dtype_bytes": "bytes per decode-cache element (2 = bf16 default, "
+                       "4 = f32); scales `kv_cache_peak_bytes` and the "
+                       "decode-state bandwidth term",
+    }
+
+    def __post_init__(self):
+        from repro_torch.launch.traffic import TrafficSpec
+
+        if self.traffic is None:
+            self.traffic = TrafficSpec()
+
+    @classmethod
+    def from_raw(cls, raw: Any, where: str = "serving"
+                 ) -> Optional["ServingSpec"]:
+        from repro_torch.launch.traffic import TrafficError, TrafficSpec
+
+        if raw is None:
+            return None
+        raw = _require_mapping(raw, where)
+        _check_keys(raw, set(cls.KEYS), where)
+        try:
+            traffic = TrafficSpec.from_raw(raw.get("traffic"),
+                                           f"{where}.traffic")
+        except TrafficError as e:
+            raise ExperimentError(str(e)) from None
+        max_batch = int(raw.get("max_batch", 8))
+        if max_batch < 1:
+            raise ExperimentError(
+                f"{where}: max_batch must be >= 1, got {max_batch}")
+        queue_limit = int(raw.get("queue_limit", 16))
+        if queue_limit < 1:
+            raise ExperimentError(
+                f"{where}: queue_limit must be >= 1, got {queue_limit}")
+        dtype_bytes = int(raw.get("dtype_bytes", 2))
+        if dtype_bytes not in (1, 2, 4, 8):
+            raise ExperimentError(
+                f"{where}: dtype_bytes must be one of (1, 2, 4, 8), "
+                f"got {dtype_bytes}")
+        return cls(traffic=traffic, max_batch=max_batch,
+                   queue_limit=queue_limit, dtype_bytes=dtype_bytes)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "traffic": self.traffic.to_dict(),
+            "max_batch": self.max_batch,
+            "queue_limit": self.queue_limit,
+            "dtype_bytes": self.dtype_bytes,
+        }
+
+
 TOP_LEVEL_KEYS = (
     "name", "search_space", "sampler", "executor", "schedule", "criteria",
     "fidelity", "kernel_tuning", "target", "cache", "persistence", "budget",
@@ -842,6 +923,7 @@ class ExperimentSpec:
     fidelity: Optional[FidelitySpec] = None
     kernel_tuning: Optional[KernelTuningSpec] = None
     faults: Optional[FaultsSpec] = None
+    serving: Optional[ServingSpec] = None
     scalarize: bool = True
     report_dir: str = "results"
 
@@ -899,7 +981,7 @@ class ExperimentSpec:
                 )
 
         target = str(raw.get("target", "host_cpu"))
-        TARGETS.get(target)
+        _check_target(target)
 
         scalarize = bool(raw.get("scalarize", True))
         if not scalarize:
@@ -928,6 +1010,7 @@ class ExperimentSpec:
             fidelity=fidelity,
             kernel_tuning=KernelTuningSpec.from_raw(raw.get("kernel_tuning")),
             faults=FaultsSpec.from_raw(raw.get("faults")),
+            serving=ServingSpec.from_raw(raw.get("serving")),
             scalarize=scalarize,
             report_dir=str(raw.get("report_dir", "results")),
         )
@@ -974,6 +1057,8 @@ class ExperimentSpec:
             d["kernel_tuning"] = self.kernel_tuning.to_dict()
         if self.faults is not None:
             d["faults"] = self.faults.to_dict()
+        if self.serving is not None:
+            d["serving"] = self.serving.to_dict()
         return d
 
     # -- derived views ---------------------------------------------------------

@@ -124,7 +124,7 @@ class SpecObjective:
                 # for (Explorer checks it): the proxies run there too
                 return OptimizationCriteria(
                     c.build_estimator(target=target, cache=cache, tuner=tuner,
-                                      device=target.device),
+                                      device=target.device, serving=spec.serving),
                     kind=c.kind, direction=c.direction,
                     weight=c.weight, limit=c.limit,
                 )

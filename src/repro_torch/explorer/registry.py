@@ -129,10 +129,11 @@ def ensure_builtins() -> None:
     if _builtins_loaded:
         return
     _builtins_loaded = True
-    # the port's registering modules: the serving estimators and the
-    # remote executor are not ported yet (ROADMAP.md Queue 1)
+    # the port's registering modules: the remote executor is not ported
+    # yet (ROADMAP.md Queue 1 item 12)
     import repro_torch.evaluation.estimators  # noqa: F401
     import repro_torch.evaluation.proxies  # noqa: F401
+    import repro_torch.evaluation.serving  # noqa: F401
     import repro_torch.hwgen.targets  # noqa: F401
     import repro_torch.search.executors  # noqa: F401
     import repro_torch.search.pruners  # noqa: F401

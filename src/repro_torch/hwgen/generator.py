@@ -16,7 +16,9 @@ Two usage modes, mirroring the paper:
      candidate and feeds the measurement back into the study.
 
 ``HardwareManager.benchmark`` times eager forwards: with CUDA events on
-the card, with the host clock on the CPU.
+the card, with the host clock on the CPU.  A ``roofline`` target
+(``edge_npu``) is never run: its artifact stays on the host, and its
+benchmark is the roofline bound of the candidate's counted forward.
 
 :func:`program_cost` is the port's counterpart of the compiled artifact's
 ``flops``, ``bytes_accessed`` and ``collective_bytes`` (what XLA's cost
@@ -40,6 +42,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import faults
 from repro_torch.device import resolve_device
+from repro_torch.hwgen.roofline import roofline_terms
 from repro_torch.hwgen.targets import TargetSpec, get_target
 from repro_torch.ioutils import lock_file, unlock_file
 from repro_torch.kernels import ops as kops
@@ -61,10 +64,6 @@ class Artifact:
     # the kernel schedules every run of ``fn`` is resolved under (None:
     # each kernel's call site and default decide)
     schedules: Optional[Mapping[str, Any]] = None
-
-
-class GeneratorError(RuntimeError):
-    pass
 
 
 def _on_meta(value):
@@ -260,16 +259,22 @@ class TorchGenerator:
         candidate, whatever the card held before and in whatever order
         candidates come.  ``fn`` ends on the host even if it was given
         on the device.  ``schedules`` (kernel -> schedule) are active for
-        this forward and for every later run of the artifact."""
+        this forward and for every later run of the artifact.  For a
+        ``roofline`` target nothing is placed or run (and
+        :func:`generate_call_count` does not move): the artifact is the
+        candidate on the host."""
         global _generate_count
         faults.fault_point("compile", key=self.target.name)
+        example_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                             for a in example_args)
+        memory: Dict[str, int] = {}
+        if self.target.measurement == "roofline":
+            return Artifact(target=self.target, fn=fn, example_args=example_args,
+                            memory=memory, schedules=schedules)
         with _generate_count_lock:
             _generate_count += 1
         device = resolve_device(self.target.device)
         cuda = device.type == "cuda"
-        example_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
-                             for a in example_args)
-        memory: Dict[str, int] = {}
         with measurement_gate(device):
             if cuda:
                 torch.cuda.synchronize(device)
@@ -298,13 +303,19 @@ class HardwareManager:
     def benchmark(self, artifact: Artifact) -> Dict[str, float]:
         """Mean seconds of one eager forward over ``iters`` forwards after
         ``warmup``: CUDA events around them on the card (the device's
-        time), the host clock around them on the CPU."""
-        if artifact.target.measurement != "wallclock":
-            raise GeneratorError(
-                f"target {artifact.target.name} measures by "
-                f"{artifact.target.measurement!r}; the port times candidates "
-                f"on their device only (rank a roofline target with "
-                f"metric: modelled)")
+        time), the host clock around them on the CPU.  On a ``roofline``
+        target, the roofline bound of one forward of the artifact's
+        candidate (a ``BuiltModel``), counted by :func:`program_cost` on
+        the ``meta`` device against the target's chip: nothing is placed
+        or run, and ``measured`` is 0."""
+        if artifact.target.measurement == "roofline":
+            cost = program_cost(artifact.fn, artifact.example_args, artifact.schedules)
+            r = roofline_terms(hlo_flops=cost.flops, hlo_bytes=cost.bytes_accessed,
+                               collective_bytes=cost.collective_bytes, n_chips=1,
+                               chip=artifact.target.chip)
+            return {"latency_s": r.bound_s, "compute_s": r.compute_s,
+                    "memory_s": r.memory_s, "collective_s": r.collective_s,
+                    "measured": 0.0}
         device = resolve_device(artifact.target.device)
         fn = artifact.fn
         with measurement_gate(device), _placed(fn, artifact.example_args, device) as args, \

@@ -1,6 +1,10 @@
 """Hardware target specifications (the port's analogue of the paper's
-Raspberry Pi / Pico / FPGA backend descriptors): one H100 card, and the
-host's CPU.
+Raspberry Pi / Pico / FPGA backend descriptors): one H100 card, the
+host's CPU, and an edge NPU that is modelled, never run.
+
+The JAX package's TPU targets (``tpu_v5e``, ``tpu_v5e_pod``,
+``tpu_v5e_2pod``) have no counterpart: the port carries no TPU rates, and
+a spec that names one is refused at parse time (:data:`TPU_TARGETS`).
 
 A TargetSpec bundles chip constants (for the roofline cost model) with a
 mesh recipe and backend capabilities (for the reflection API, paper §VI).
@@ -37,6 +41,23 @@ HOST_CPU = ChipSpec(
     ici_bandwidth=1e9,
     hbm_bytes=32 * 1024 ** 3,
 )
+
+# Edge-class accelerator (the paper's Raspberry-Pi/Pico deployment tier),
+# the JAX package's constants: a single-chip NPU with modest compute but
+# proportionally even less memory bandwidth, so its roofline crosses over
+# at a much higher arithmetic intensity and candidates rank differently
+# than on the datacenter part.  Nothing runs on it: it is measured by the
+# roofline of the candidate's counted forward.
+EDGE_NPU = ChipSpec(
+    name="edge_npu",
+    peak_flops_bf16=4e12,
+    hbm_bandwidth=34e9,
+    ici_bandwidth=0.25e9,
+    hbm_bytes=8 * 1024 ** 3,
+)
+
+# the JAX package's TPU targets, which the port refuses by name
+TPU_TARGETS = ("tpu_v5e", "tpu_v5e_pod", "tpu_v5e_2pod")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +132,15 @@ TARGETS: Dict[str, TargetSpec] = {
         mesh_shape=(1, 1), mesh_axes=("data", "model"),
         supported_ops=_COMMON_OPS, supports_pallas=False,
         measurement="wallclock", device="cpu",
+    ),
+    # the edge tier: host_cpu's mesh and device, so its mesh_scope is
+    # host_cpu's and a sweep reuses host_cpu's counts and artifacts for it,
+    # but roofline-measured against the EDGE_NPU constants
+    "edge_npu": TargetSpec(
+        name="edge_npu", chip=EDGE_NPU,
+        mesh_shape=(1, 1), mesh_axes=("data", "model"),
+        supported_ops=_COMMON_OPS, supports_pallas=False,
+        measurement="roofline", device="cpu",
     ),
 }
 

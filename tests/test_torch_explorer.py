@@ -1,9 +1,10 @@
 """The port's Explorer facade against the JAX package's on the CPU: the
 quickstart experiment's trials and best trial on every executor backend,
-every example experiment's parsed spec (or the named refusal of a section
-the port has not ported), the pruners' decisions, kernel tuning in search
-mode, the CLI, and the disk tier's toolchain salt; plus what is the
-port's own (the device the facade runs on, a warm kernel-tuning run)."""
+every example experiment's parsed spec or sweep (or the named refusal of
+a section the port has not ported), the pruners' decisions, kernel tuning
+in search mode, the CLI, and the disk tier's toolchain salt; plus what is
+the port's own (the device the facade runs on, a warm kernel-tuning run,
+``chip_smoke.py``'s copies of the example documents)."""
 import json
 from pathlib import Path
 
@@ -67,23 +68,32 @@ def test_quickstart_matches_jax_on_every_backend(tmp_path, backend, workers, tri
 
 @pytest.mark.parametrize("path", sorted(EXPERIMENTS.glob("*.yaml")), ids=lambda p: p.name)
 def test_example_experiments_parse_as_in_jax_or_name_their_unported_section(path):
+    """Every example parses as in the JAX package: an experiment to the same
+    spec, a sweep to the same sweep spec (whose ``tpu_v5e`` cells the port,
+    which has no TPU target, refuses at expansion); or names the ROADMAP
+    item of the section it uses that the port lacks (``remote``)."""
     raw = yaml.safe_load(path.read_text())
+    JSpec, _ = _jax_explorer()
+    if "base" in raw:
+        from repro.explorer.sweep import SweepSpec as JSweepSpec
+        from repro_torch.explorer.sweep import SweepError, SweepSpec
+
+        sweep = SweepSpec.from_yaml(str(path))
+        assert sweep.to_dict() == JSweepSpec.from_yaml(str(path)).to_dict()
+        with pytest.raises(SweepError, match="target=tpu_v5e.*no TPU targets"):
+            sweep.expand()
+        return
     try:
         spec = ExperimentSpec.from_yaml(str(path))
     except NotPortedError as e:
-        assert "ROADMAP.md Queue 1 item" in str(e)
+        assert "ROADMAP.md Queue 1 item 12" in str(e)
         assert isinstance(e, NotImplementedError)
-        if "base" in raw:
-            assert "sweep" in str(e)
         return
-    JSpec, _ = _jax_explorer()
     assert spec.to_dict() == JSpec.from_yaml(str(path)).to_dict()
 
 
 @pytest.mark.parametrize("section, value, item", [
-    ("serving", {"max_batch": 4}, "item 10"),
     ("executor", {"backend": "remote", "workers": ["127.0.0.1:7471"]}, "item 12"),
-    ("axes", {"targets": ["host_cpu"]}, "item 6"),
 ])
 def test_unported_sections_raise_a_named_not_implemented_error(section, value, item):
     raw = yaml.safe_load(QUICKSTART.read_text())
@@ -223,7 +233,7 @@ def test_cached_kernel_tuning_warm_run_tunes_and_measures_nothing(tmp_path):
     assert warm.kernel_tuning["schedules"] == cold.kernel_tuning["schedules"]
 
 
-def test_cli_reaches_the_same_best_trial_as_jax(tmp_path, capsys):
+def test_cli_reaches_the_same_best_trial_as_jax(tmp_path, capsys, monkeypatch):
     pytest.importorskip("jax")
     from repro.explorer.__main__ import main as jmain
     from repro_torch.explorer.__main__ import main as tmain
@@ -236,8 +246,13 @@ def test_cli_reaches_the_same_best_trial_as_jax(tmp_path, capsys):
     assert got["best"] == want["best"] and got["n_trials"] == want["n_trials"] == 25
     assert got["toolchain"]["framework"] == "torch" and got["device"] == "cpu"
     assert out.count("best trial #8") == 2
-    with pytest.raises(NotPortedError, match="item 6"):
-        tmain(["sweep", str(EXPERIMENTS / "sweep_small.yaml")])
+    monkeypatch.chdir(tmp_path)  # sweep_small.yaml's cache: results/cache
+    assert tmain(["sweep", str(EXPERIMENTS / "sweep_small.yaml"), "--axis",
+                  "targets=host_cpu,edge_npu", "--trials", "2", "--device", "cpu",
+                  "--report-dir", str(tmp_path / "s")]) == 0
+    out = capsys.readouterr().out
+    assert "sweep 'sweep-small': 4 cells (0 resumed)" in out and "wins[latency_s]" in out
+    assert (tmp_path / "s" / "sweep-small.sweep.json").is_file()
 
 
 def test_list_components_names_the_ported_components(capsys):
@@ -246,8 +261,9 @@ def test_list_components_names_the_ported_components(capsys):
     assert main(["--list-components"]) == 0
     out = capsys.readouterr().out
     for name in ("serial", "thread", "process", "median", "successive_halving",
-                 "latency_s", "peak_bytes", "h100", "host_cpu", "tpe", "synflow",
-                 "grad_norm"):
+                 "latency_s", "peak_bytes", "h100", "host_cpu", "edge_npu", "tpe", "synflow",
+                 "grad_norm", "prefill_latency_s", "decode_latency_s",
+                 "kv_cache_peak_bytes", "throughput_tok_s", "p99_latency_s"):
         assert name in out
     assert "remote" not in out
 
@@ -272,3 +288,29 @@ def test_jax_and_torch_values_under_one_key_are_not_read_as_each_other(tmp_path)
     assert salt["framework"] == "torch" and salt["torch"] == torch.__version__
     assert set(salt) == {"framework", "torch", "cuda", "triton"}
     assert [v for _, v in TDisk(store).entries()] == [0.5]  # the port's salt only
+
+
+def test_chip_smoke_documents_are_the_examples():
+    """``chip_smoke.py`` passes dicts (the card's machine has no PyYAML):
+    the port's sweep_small.yaml, hw_parallel.yaml and serving.yaml, each
+    with its space inlined and, for the two experiments, target ``h100``;
+    nothing else may drift from the YAML files."""
+    import importlib.util
+
+    from repro_torch.explorer.sweep import SweepSpec
+
+    root = EXPERIMENTS.parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    port = root / "src" / "repro_torch" / "experiments"
+    assert (SweepSpec.from_dict(smoke.SWEEP_SMALL).to_dict()
+            == SweepSpec.from_yaml(str(port / "sweep_small.yaml")).to_dict())
+    for name, doc in (("hw_parallel.yaml", smoke.HW_PARALLEL),
+                      ("serving.yaml", smoke.SERVING_EXPERIMENT)):
+        raw = yaml.safe_load((EXPERIMENTS / name).read_text())
+        raw["target"] = "h100"
+        want = ExperimentSpec.from_dict(raw, base_dir=str(EXPERIMENTS)).to_dict()
+        assert ExperimentSpec.from_dict(doc).to_dict() == want, name
+    assert (smoke.CONV_POOL_SPACE
+            == yaml.safe_load((EXPERIMENTS / "spaces" / "conv_pool.yaml").read_text()))
