@@ -122,7 +122,25 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    device time by kind; then ``init_cache`` with the encoder output, a
    prefill of the first 384 tokens and 4 decode steps, their logits held to
    the forward's at the same positions within 1e-3 of their max;
-14. a JSON line per kernel, the card's name and power limit, and the
+14. training: ``python -m repro_torch.launch.train --arch qwen3-1.7b`` in
+   process at full width (fp32, AdamW with the CLI's cosine schedule, batch
+   4 x 512 tokens, 8 steps; ``train``): every loss finite, the last below
+   the first, no kernel launched (training runs the plain math, as the
+   reference's does), the plain attention once a layer a step; its step
+   times, tokens/s, allocator peak and device time by kind over one step.
+   ``train_check``: the same widths cut to 2 layers, one step in fp32 and
+   in float64 from the same weights and batch: each gradient tensor and
+   the parameters after AdamW held to the float64 step, and a microbatch-4
+   step to the single one.  ``train_resume``: the CLI at ``--smoke``,
+   with and without compression: 12 steps checkpointing every 5 then a
+   rerun to 20 (resumed from step 10), and a run preempted by SIGTERM
+   after step 10 and resumed, which must end on the uninterrupted run's
+   loss;
+15. val_accuracy: the paper's Listing 3 (``examples/nas_conv1d.py``'s
+   space, data and criteria) through the port, training and latency on
+   the card, 6 trials with TPE and successive halving; the best trial
+   trained again on the CPU from the same weights must agree;
+16. a JSON line per kernel, the card's name and power limit, and the
    ``{"ok": true, ...}`` line last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -131,6 +149,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import statistics
 import sys
@@ -369,6 +388,44 @@ WHISPER_SEQ = 448
 WHISPER_PREFILL = 384
 WHISPER_DECODE_STEPS = 4
 
+# training (the train CLI at full width; fp32 against float64 at depth 2;
+# resume; the paper's Listing 3 with val_accuracy)
+TRAIN_ARGS = ["--arch", "qwen3-1.7b", "--steps", "8", "--seq", "512",
+              "--global-batch", "4", "--log-every", "1"]
+TRAIN_RANGES = ("train.value_and_grad", "train.optimizer_update")
+TRAIN_CHECK_DEPTH = 2  # of 28: a float64 copy of every layer would not fit beside fp32
+TRAIN_GRAD_REL = 1e-3  # each fp32 gradient tensor vs float64, of its max |float64 gradient|
+TRAIN_OPT_REL = 1e-5  # fp32 AdamW arithmetic vs float64, of the tensor's max |parameter|
+TRAIN_MB_ATOL = 1e-4  # microbatch 4 vs 1, as tests/test_train_infra.py holds them
+TRAIN_RESUME_ARGS = ["--arch", "qwen3-1.7b", "--smoke", "--seq", "32",
+                     "--global-batch", "2", "--log-every", "100"]
+# resumed vs uninterrupted final loss: where the card's backward is not
+# deterministic (the embedding's gradient may sum with atomics); with
+# compression the error-feedback residual is not checkpointed
+RESUME_REL = 1e-5
+RESUME_COMPRESSION_REL = 1e-2
+# examples/nas_conv1d.py's SPACE_YAML as a dict (the card's machine has no
+# PyYAML; tests/test_torch_train_infra.py holds the two equal)
+LISTING3_SPACE = {
+    "input": [4, 1250],
+    "output": 6,
+    "sequence": [
+        {"block": "features", "op_candidates": "conv-block",
+         "type_repeat": {"type": "vary_all", "depth": [1, 2, 3, 4, 5, 6]}},
+        {"block": "head", "op_candidates": "linear", "linear": {"width": [32, 64, 128]}},
+    ],
+    "default_op_params": {"conv1d": {"kernel_size": [3, 5], "out_channels": [8, 16]}},
+    "composites": {"conv-block": {"sequence": [
+        {"block": "conv", "op_candidates": "conv1d"},
+        {"block": "pool", "op_candidates": ["maxpool", "identity"]},
+    ]}},
+    "preprocessing": {"normalize": {"kind": ["zscore", "minmax"]},
+                      "downsample": {"factor": [1, 2]}},
+}
+LISTING3_TRIALS = 6
+LISTING3_STEPS = 40
+VAL_LOSS_REL = 1e-3  # the best trial's last training loss, card vs CPU (40 fp32 SGD steps)
+
 
 def profile_window(torch, label, step, warmup=2, steps=3) -> None:
     """Print the host wall time of ``step`` (which ends in a device
@@ -560,6 +617,16 @@ def mlstm_phase(torch, ops, ref, gen) -> dict:
     return rows
 
 
+def _ranged(name, fn):
+    """``fn`` inside a ``torch.profiler`` range named ``name``."""
+    from torch.profiler import record_function
+
+    def wrapper(*a, **kw):
+        with record_function(name):
+            return fn(*a, **kw)
+    return wrapper
+
+
 def _counted(calls, fn):
     def wrapper(*a, **kw):
         calls.append(fn.__name__)
@@ -567,7 +634,7 @@ def _counted(calls, fn):
     return wrapper
 
 
-def profile_by_kind(torch, label, step, ranges=()) -> dict:
+def profile_by_kind(torch, label, step, ranges=(), inference=True) -> dict:
     """One run of ``step`` (which ends in a device sync) under
     ``torch.profiler``: its host wall time, device time by kind of kernel
     (GEMMs, the mLSTM scan, the SSD scan, flash attention, the rest:
@@ -575,11 +642,15 @@ def profile_by_kind(torch, label, step, ranges=()) -> dict:
     named in ``ranges`` the host time inside it, the device time of the
     kernels launched in it and its span on the device, and the device's
     busy share of the wall time.  The host's operators are recorded only
-    when ``ranges`` are asked for.  Returns the printed row."""
+    when ``ranges`` are asked for.  ``step`` runs under ``inference_mode``
+    unless ``inference`` is False (a train step).  Returns the printed row."""
+    import contextlib
+
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] * bool(ranges) + [ProfilerActivity.CUDA]
-    with torch.inference_mode(), profile(activities=activities) as prof:
+    mode = torch.inference_mode() if inference else contextlib.nullcontext()
+    with mode, profile(activities=activities) as prof:
         t0 = time.perf_counter()
         step()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -726,16 +797,10 @@ def xlstm_forward_phase(torch, ops, ref, serve) -> dict:
     del logits, xla["plain"], xla["float64"]
 
     # where the time goes: the sLSTM blocks' time loops and the mLSTM blocks
-    def ranged(name, fn):
-        def wrapper(*a, **kw):
-            with torch.profiler.record_function(name):
-                return fn(*a, **kw)
-        return wrapper
-
     with mock.patch.object(xlstm_mod, "slstm_block_apply",
-                           ranged("slstm_block", xlstm_mod.slstm_block_apply)), \
+                           _ranged("slstm_block", xlstm_mod.slstm_block_apply)), \
             mock.patch.object(xlstm_mod, "mlstm_block_apply",
-                              ranged("mlstm_block", xlstm_mod.mlstm_block_apply)):
+                              _ranged("mlstm_block", xlstm_mod.mlstm_block_apply)):
         prof = profile_by_kind(torch, f"xlstm forward B=1 L={XLSTM_SEQ}",
                                lambda: float(model(tokens)[0, -1, 0]),
                                ranges=("slstm_block", "mlstm_block"))
@@ -2306,6 +2371,399 @@ def serving_phase(torch, ops) -> dict:
     return out
 
 
+def _launched_since(ops, before) -> dict:
+    """Kernel launches since the ``before`` snapshot of ``ops.LAUNCHES``."""
+    return {k: n - before.get(k, 0) for k, n in ops.LAUNCHES.items() if n != before.get(k, 0)}
+
+
+def train_phase(torch, ops) -> dict:
+    """``python -m repro_torch.launch.train --arch qwen3-1.7b`` in process,
+    as published (28 layers, d_model 2048, vocab 151,936, tied embeddings):
+    fp32, AdamW with the CLI's cosine schedule, ``TRAIN_ARGS``.  Raises
+    unless every loss is finite, the last below the first, no kernel
+    launched and the plain attention ran once a layer a step.  Prints the
+    step times (host clock ending in a device sync), tokens/s, the
+    allocator's peak and the device time by kind over one more step, with
+    its forward-and-backward and its optimizer update as ranges."""
+    from repro_torch.launch import train
+    from repro_torch.nn import attention as attn
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+
+    args = train.build_parser().parse_args(TRAIN_ARGS)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    before, plain = dict(ops.LAUNCHES), []
+    t0 = time.perf_counter()
+    with mock.patch.object(attn, "grouped_attention",
+                           _counted(plain, attn.grouped_attention)):
+        summary, state = train.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = _launched_since(ops, before)
+    spec, losses, step_s = state["model"].spec, summary["losses"], summary["step_s"]
+    steady = statistics.median(step_s[1:])
+    row = {
+        "arch": spec.name, "n_params": sum(p.numel() for p in state["params"].values()),
+        "layers": spec.n_layers, "d_model": spec.d_model, "vocab": spec.vocab,
+        "tie_embeddings": spec.tie_embeddings, "dtype": "float32", "optimizer": "adamw",
+        "steps": args.steps, "global_batch": args.global_batch, "seq": args.seq,
+        "losses": losses, "step_ms": [s * 1e3 for s in step_s],
+        "first_step_ms": step_s[0] * 1e3, "median_step_ms": steady * 1e3,
+        "median_step_ms_of": "steps 2-8, host clock ending in a device sync",
+        "tok_per_s": args.global_batch * args.seq / steady,
+        "max_memory_allocated": peak, "held_before": held, "wall_s": wall,
+        "kernel_launches": launched,
+        "plain_attention_calls": len(plain), "straggler_flags": summary["straggler_flags"]}
+    print("train " + json.dumps(row))
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall or is not finite: {losses}")
+    if launched:
+        raise AssertionError(f"train: kernels launched in training: {launched}")
+    if len(plain) != spec.n_layers * args.steps:
+        raise AssertionError(f"train: the plain attention ran {len(plain)} times, "
+                             f"expected {spec.n_layers * args.steps}")
+    batch = train._to_device(state["data"].batch_at(args.steps), state["device"])
+
+    def one_step():
+        state["step_fn"](state["params"], state["opt_state"], batch)
+        torch.cuda.synchronize()
+
+    # the step's two parts as profiler ranges: the loss with its gradients
+    # (forward and backward), and the optimizer's update (clip and AdamW)
+    with mock.patch.object(tstep, "value_and_grad",
+                           _ranged(TRAIN_RANGES[0], tstep.value_and_grad)), \
+            mock.patch.object(topt.Optimizer, "update",
+                              _ranged(TRAIN_RANGES[1], topt.Optimizer.update)):
+        row["profile"] = profile_by_kind(torch, "train step qwen3-1.7b", one_step,
+                                         ranges=TRAIN_RANGES, inference=False)
+    del state
+    torch.cuda.empty_cache()
+    return row
+
+
+def _adamw64_first_step(torch, p, g, lr, cfg) -> dict:
+    """The reference's AdamW first step (moments from zero, the global-norm
+    clip, weight decay on every parameter) in float64, written out here:
+    the yardstick of the port's fp32 step."""
+    norm = torch.sqrt(sum(x.double().square().sum() for x in g.values()))
+    scale = torch.clamp(cfg.grad_clip_norm / norm.clamp_min(1e-9), max=1.0)
+    out = {}
+    for k, w in p.items():
+        gc = g[k].double() * scale
+        mu, nu = (1 - cfg.b1) * gc, (1 - cfg.b2) * gc.square()
+        delta = (mu / (1 - cfg.b1)) / (torch.sqrt(nu / (1 - cfg.b2)) + cfg.eps) \
+            + cfg.weight_decay * w.double()
+        out[k] = w.double() - lr * delta
+    return out, scale
+
+
+def train_check_phase(torch, ops) -> dict:
+    """qwen3-1.7b at its published widths cut to ``TRAIN_CHECK_DEPTH``
+    layers (a float64 copy of all 28 would not fit beside the fp32 run),
+    one batch of ``TRAIN_ARGS``'s shape: the loss and every gradient of the
+    fp32 step against the same step in float64 from the same weights,
+    within ``TRAIN_GRAD_REL`` of each tensor's max |float64 gradient|; the
+    parameters after the fp32 AdamW step against the float64 step's,
+    within ``TRAIN_OPT_REL`` of the tensor's max |parameter| plus what the
+    held gradient error can move an AdamW first update (lr times
+    min(2, 2 TRAIN_GRAD_REL max|g| / (|g| + eps)) an element); the fp32
+    AdamW arithmetic alone (float64 AdamW on the fp32 gradients) within
+    ``TRAIN_OPT_REL``; and a microbatch-4 SGD step against the single
+    step, as ``tests/test_train_infra.py::test_grad_accumulation_equivalence``
+    holds them."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.train import _to_device
+    from repro_torch.models.lm import LM
+    from repro_torch.train.optimizer import Optimizer, OptimizerConfig, cosine_schedule
+    from repro_torch.train.step import make_loss_fn, make_train_step, param_dict, value_and_grad
+
+    full = get_arch("qwen3-1.7b").spec()
+    spec = dataclasses.replace(full, layers=full.layers[:TRAIN_CHECK_DEPTH])
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    seq = int(TRAIN_ARGS[TRAIN_ARGS.index("--seq") + 1])
+    batch_size = int(TRAIN_ARGS[TRAIN_ARGS.index("--global-batch") + 1])
+    before = dict(ops.LAUNCHES)
+    torch.cuda.empty_cache()
+    model = LM(spec).init(torch.Generator(device="cuda").manual_seed(0))
+    batch = _to_device(SyntheticLMData(spec.vocab, seq, batch_size).batch_at(0),
+                       model.embed.device)
+    loss_fn = make_loss_fn(model)
+    base = {k: v.clone() for k, v in param_dict(model).items()}
+    p64 = {k: v.double() for k, v in base.items()}
+    t0 = time.perf_counter()
+    l32, g32 = value_and_grad(loss_fn, param_dict(model), batch)
+    torch.cuda.synchronize()
+    fp32_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l64, g64 = value_and_grad(loss_fn, p64, batch)
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    grad_over = {k: ((g32[k].double() - g64[k]).abs().max()
+                     / (TRAIN_GRAD_REL * g64[k].abs().max())).item() for k in g64}
+    worst_grad = max(grad_over, key=grad_over.get)
+
+    cfg = OptimizerConfig(name="adamw", learning_rate=cosine_schedule(1e-3, 1, steps))
+    opt = Optimizer(cfg)
+    p32 = {k: v.clone() for k, v in base.items()}
+    _, state, metrics = opt.update(g32, opt.init(p32), p32)
+    lr = float(metrics["lr"])
+    want, scale = _adamw64_first_step(torch, p64, g64, lr, cfg)
+    arith, _ = _adamw64_first_step(torch, p64, {k: v.double() for k, v in g32.items()}, lr, cfg)
+    step_over, arith_over, flips = {}, {}, 0
+    for k, w in want.items():
+        gc = (g64[k] * scale).abs()
+        moved = lr * torch.clamp(2 * TRAIN_GRAD_REL * gc.max() / (gc + cfg.eps), max=2.0)
+        bound = TRAIN_OPT_REL * w.abs().max() + moved
+        step_over[k] = ((p32[k].double() - w).abs() / bound).max().item()
+        arith_over[k] = ((p32[k].double() - arith[k]).abs().max()
+                         / (TRAIN_OPT_REL * arith[k].abs().max())).item()
+        flips += int(((p32[k].double() - p64[k]).sign() != (w - p64[k]).sign()).sum())
+    worst_step = max(step_over, key=step_over.get)
+    worst_arith = max(arith_over, key=arith_over.get)
+    del g32, g64, want, arith, p64
+
+    sgd = Optimizer(OptimizerConfig(name="sgd", learning_rate=0.1, grad_clip_norm=None,
+                                    weight_decay=0.0))
+    mb = {}
+    for n in (1, 4):
+        p = {k: v.clone() for k, v in base.items()}
+        mb[n] = make_train_step(model, sgd, microbatches=n)(p, sgd.init(p), batch)
+    mb_diff = max((mb[1][0][k] - mb[4][0][k]).abs().max().item() for k in base)
+    mb_loss_rel = abs(float(mb[1][2]["loss"]) - float(mb[4][2]["loss"])) / float(mb[1][2]["loss"])
+    launched = _launched_since(ops, before)
+    row = {
+        "arch": spec.name, "layers": f"{len(spec.layers)} of {full.n_layers} (cut: depth)",
+        "d_model": spec.d_model, "vocab": spec.vocab, "batch": [batch_size, seq],
+        "loss_fp32": float(l32), "loss_float64": float(l64),
+        "loss_rel_err": abs(float(l32) - float(l64)) / abs(float(l64)),
+        "grad_tol": f"{TRAIN_GRAD_REL} of each tensor's max |float64 gradient|",
+        "grad_max_err_over_tol": grad_over[worst_grad], "grad_worst": worst_grad,
+        "grad_median_err_over_tol": statistics.median(grad_over.values()),
+        "step_tol": (f"{TRAIN_OPT_REL} max|float64 param| + lr min(2, 2 {TRAIN_GRAD_REL} "
+                     f"max|g| / (|g| + eps)) per element"),
+        "step_max_err_over_tol": step_over[worst_step], "step_worst": worst_step,
+        "update_sign_flips": flips, "update_elements": sum(v.numel() for v in base.values()),
+        "adamw_arith_tol": f"{TRAIN_OPT_REL} of max |param| (float64 AdamW on the fp32 gradients)",
+        "adamw_arith_max_err_over_tol": arith_over[worst_arith],
+        "lr": lr, "clip_scale": scale.item(),
+        "microbatch4_max_abs_param_diff": mb_diff, "microbatch4_tol": TRAIN_MB_ATOL,
+        "microbatch4_loss_rel": mb_loss_rel,
+        "fp32_grad_s": fp32_s, "float64_grad_s": f64_s, "kernel_launches": launched}
+    print("train_check " + json.dumps(row))
+    del model, base, mb, state, p32
+    torch.cuda.empty_cache()
+    if max(grad_over.values()) > 1 or max(step_over.values()) > 1 or max(arith_over.values()) > 1:
+        raise AssertionError(f"train_check: fp32 misses the float64 step: {row}")
+    if mb_diff > TRAIN_MB_ATOL or mb_loss_rel > 1e-5 or launched:
+        raise AssertionError(f"train_check: microbatches or launches: {row}")
+    return row
+
+
+def _sigterm_after(n):
+    """A ``PreemptionHandler`` class whose instance sends this process
+    SIGTERM when it is polled the ``n``-th time (after step ``n``): the
+    trainer's own handler then sets the flag, as a scheduler's SIGTERM
+    would."""
+    import signal
+
+    from repro_torch.distributed.fault import PreemptionHandler
+
+    class Handler(PreemptionHandler):
+        polls = 0
+
+        @property
+        def preempted(self):
+            Handler.polls += 1
+            if Handler.polls == n:
+                os.kill(os.getpid(), signal.SIGTERM)
+                for _ in range(1000):  # the handler runs in the main thread
+                    if self._requested:
+                        break
+                    time.sleep(0.001)
+            return super().preempted
+
+    return Handler
+
+
+def train_resume_phase(torch, ops) -> dict:
+    """The train CLI at ``--smoke`` on the card, with and without
+    ``--compression``: 12 steps checkpointing every 5, then a rerun to 20,
+    which must print "resumed from step 10"; an uninterrupted 20-step run;
+    and a 20-step run preempted by SIGTERM after step 10 (the flush saves
+    step 10), then rerun.  The reference's cosine schedule spans
+    ``--steps``, so the 12-then-20 sequence trains its first 10 steps on
+    another schedule than the 20-step run and ends elsewhere (both
+    printed); the preempted-and-resumed run shares the schedule and must
+    end on the uninterrupted run's loss, bit for bit where the card's
+    backward is deterministic, else within ``RESUME_REL``.  With
+    compression the error-feedback residual is not part of a checkpoint
+    (as in the reference), so there it must come within
+    ``RESUME_COMPRESSION_REL``."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import train
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            summary, _ = train.run(train.build_parser().parse_args(argv))
+        return summary, out.getvalue()
+
+    before, rows = dict(ops.LAUNCHES), {}
+    for compression in (False, True):
+        base = TRAIN_RESUME_ARGS + ["--compression"] * compression
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = ["--ckpt-dir", os.path.join(tmp, "a"), "--ckpt-every", "5"]
+            run(base + ["--steps", "12"] + ck)
+            again, text = run(base + ["--steps", "20"] + ck)
+            whole, _ = run(base + ["--steps", "20"])
+            ck = ["--ckpt-dir", os.path.join(tmp, "b"), "--ckpt-every", "50"]
+            with mock.patch.object(train, "PreemptionHandler", _sigterm_after(10)):
+                first, flushed = run(base + ["--steps", "20"] + ck)
+            resumed, resumed_text = run(base + ["--steps", "20"] + ck)
+        rel = abs(resumed["final_loss"] - whole["final_loss"]) / abs(whole["final_loss"])
+        row = {
+            "compression": compression,
+            "resumed_from_step_10": "[train] resumed from step 10" in text,
+            "resumed_12_then_20_final_loss": again["final_loss"],
+            "uninterrupted_20_final_loss": whole["final_loss"],
+            "preempted_after": len(first["losses"]),
+            "preemption_flushed": "preemption: flushing checkpoint" in flushed,
+            "preempted_resumed_from": resumed["start_step"],
+            "preempted_then_resumed_final_loss": resumed["final_loss"],
+            "first_10_losses_equal": first["losses"] == whole["losses"][:10],
+            "bit_for_bit": resumed["losses"] == whole["losses"][10:],
+            "final_loss_rel_diff": rel,
+            "tol": RESUME_COMPRESSION_REL if compression else RESUME_REL}
+        rows["compression" if compression else "plain"] = row
+        print("train_resume " + json.dumps(row))
+        if not (row["resumed_from_step_10"] and row["preemption_flushed"]
+                and row["preempted_after"] == 10 and resumed["start_step"] == 10
+                and "resumed from step 10" in resumed_text
+                and all(math.isfinite(x) for x in (again["final_loss"], resumed["final_loss"]))):
+            raise AssertionError(f"train_resume: {row}")
+        if rel > row["tol"]:
+            raise AssertionError(f"train_resume: the resumed run's final loss misses the "
+                                 f"uninterrupted run's: {row}")
+    launched = _launched_since(ops, before)
+    if launched:
+        raise AssertionError(f"train_resume: kernels launched: {launched}")
+    return rows
+
+
+def val_accuracy_phase(torch, ops) -> dict:
+    """The paper's Listing 3 (``examples/nas_conv1d.py``) through the port
+    on the card: ``LISTING3_SPACE`` and its data, the param budget (hard,
+    2e6), ``val_accuracy`` (40 steps, objective) and ``latency_s`` at target
+    h100 (batch 8, soft 0.050 s, weight 0.5), TPE (seed 0, 5 startup
+    trials) with successive halving, ``LISTING3_TRIALS`` trials; training
+    and latency on the card.  Then the best trial's estimator again on the
+    CPU from the same initial weights: its accuracy within one validation
+    sample of the card's, its last loss within ``VAL_LOSS_REL``."""
+    from repro_torch.core.builder import ModelBuilder
+    from repro_torch.core.space import parse_search_space
+    from repro_torch.core.translate import sample_architecture
+    from repro_torch.data.pipeline import SyntheticClassificationData
+    from repro_torch.evaluation.api import CriteriaRunner, OptimizationCriteria
+    from repro_torch.evaluation.estimators import (
+        CompiledLatencyEstimator, ParamCountEstimator, TrainedAccuracyEstimator)
+    from repro_torch.hwgen.targets import get_target
+    from repro_torch.search.pruners import SuccessiveHalvingPruner
+    from repro_torch.search.samplers import TPESampler
+    from repro_torch.search.study import Study
+
+    runs = {}  # signature -> the card's initial weights (on the host) and last loss
+
+    class Recording(TrainedAccuracyEstimator):
+        def _weights(self, candidate):
+            weights = super()._weights(candidate)
+            runs.setdefault(candidate.arch.signature(), {})["weights"] = {
+                n: {k: v.to("cpu", copy=True) for k, v in leaves.items()}
+                for n, leaves in weights.items()}
+            return weights
+
+        def fit(self, candidate, data, trial=None):
+            params, loss = super().fit(candidate, data, trial)
+            runs[candidate.arch.signature()]["loss"] = loss
+            return params, loss
+
+    space = parse_search_space(LISTING3_SPACE)
+    allowed = get_target("h100").supported_ops
+    builder = ModelBuilder(space.input_shape, space.output_dim)
+    data = SyntheticClassificationData(n=480, length=1250, channels=4, classes=6).split()
+    runner = CriteriaRunner([
+        OptimizationCriteria(ParamCountEstimator(), kind="hard_constraint", limit=2e6),
+        OptimizationCriteria(Recording(steps=LISTING3_STEPS), kind="objective",
+                             direction="maximize", weight=1.0),
+        OptimizationCriteria(CompiledLatencyEstimator("h100", batch=8),
+                             kind="soft_constraint", limit=0.050, weight=0.5),
+    ])
+    models = {}
+
+    def objective(trial):
+        arch = sample_architecture(space, trial, allowed_ops=allowed)
+        model = builder.build(arch)
+        models[trial.number] = model
+        trial.set_user_attr("signature", arch.signature())
+        return runner.evaluate(model, context={"data": data, "trial": trial}, trial=trial)
+
+    study = Study(name="nas-conv1d-h100", sampler=TPESampler(seed=0, n_startup=5),
+                  pruner=SuccessiveHalvingPruner(min_resource=20, reduction_factor=2))
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    study.optimize(objective, LISTING3_TRIALS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trials = [{"trial": t.number, "state": t.state.value,
+               "val_accuracy": t.user_attrs.get("val_accuracy"),
+               "latency_s": t.user_attrs.get("latency_s"),
+               "n_params": t.user_attrs.get("n_params"),
+               "intermediate": {str(k): v for k, v in t.intermediate.items()},
+               "signature": t.user_attrs.get("signature")} for t in study.trials]
+    for row in trials:
+        print("val_accuracy_trial " + json.dumps(row))
+    best = study.best_trial
+    model, sig = models[best.number], best.user_attrs["signature"]
+    card_acc, card_loss = best.user_attrs["val_accuracy"], runs[sig]["loss"]
+
+    class SameWeights(TrainedAccuracyEstimator):
+        def _weights(self, candidate):
+            return {n: {k: v.clone() for k, v in leaves.items()}
+                    for n, leaves in runs[sig]["weights"].items()}
+
+    cpu = SameWeights(steps=LISTING3_STEPS, device="cpu")
+    params, cpu_loss = cpu.fit(model, data)
+    cpu_acc = cpu.accuracy(model, params, data["x_val"], data["y_val"])
+    launched = _launched_since(ops, before)
+    n_val = len(data["y_val"])
+    row = {
+        "trials": len(study.trials), "wall_s": wall,
+        "states": [t["state"] for t in trials],
+        "best": {"trial": best.number, "value": best.values[0], "val_accuracy": card_acc,
+                 "latency_s": best.user_attrs.get("latency_s"), "signature": sig},
+        "best_on_cpu": {"val_accuracy": cpu_acc, "last_loss": cpu_loss},
+        "best_last_loss_card": card_loss,
+        "accuracy_diff": abs(card_acc - cpu_acc), "accuracy_tol": 1.0 / n_val,
+        "loss_rel_diff": abs(card_loss - cpu_loss) / abs(cpu_loss),
+        "loss_tol": VAL_LOSS_REL, "kernel_launches": launched}
+    print("val_accuracy " + json.dumps(row))
+    if len(study.trials) != LISTING3_TRIALS or not any(t["state"] == "complete" for t in trials):
+        raise AssertionError(f"val_accuracy: trials {trials}")
+    if row["accuracy_diff"] > 1.0 / n_val + 1e-9 or row["loss_rel_diff"] > VAL_LOSS_REL:
+        raise AssertionError(f"val_accuracy: the CPU rerun of the best trial disagrees: {row}")
+    if launched:
+        raise AssertionError(f"val_accuracy: kernels launched: {launched}")
+    return row
+
+
 # the phases that drive a whole model, by name
 MODEL_PHASES = {
     "xlstm_forward": xlstm_forward_phase,
@@ -2321,8 +2779,15 @@ MODEL_PHASES = {
                                          argv=PALIGEMMA_SERVE_ARGS),
     "whisper_forward": whisper_forward_phase,
 }
+# the training phases, by name
+TRAIN_PHASES = {
+    "train": train_phase,
+    "train_check": train_check_phase,
+    "train_resume": train_resume_phase,
+    "val_accuracy": val_accuracy_phase,
+}
 SUBSET_PHASES = ("flash", "ssm", "nas", "modelled", "explore", "cascade", "sweep",
-                 "serving", "mlstm", *MODEL_PHASES)
+                 "serving", "mlstm", *MODEL_PHASES, *TRAIN_PHASES)
 
 
 def main(argv=None) -> int:
@@ -2408,6 +2873,8 @@ def main(argv=None) -> int:
                 mlstm_phase(torch, ops, ref, gen)
             elif name in MODEL_PHASES:
                 MODEL_PHASES[name](torch, ops, ref, serve)
+            elif name in TRAIN_PHASES:
+                TRAIN_PHASES[name](torch, ops)
         return 0
 
     # -- 3. kernel against plain version ----------------------------------
@@ -2532,7 +2999,19 @@ def main(argv=None) -> int:
     # -- 13. whisper-medium: encoder, decoder, the cached path ----------------
     wfwd = whisper_forward_phase(torch, ops, ref, serve)
 
-    # -- 14. result --------------------------------------------------------
+    # -- 14. training: qwen3-1.7b at full width, fp32 vs float64, resume ----
+    torch.cuda.empty_cache()
+    trained = train_phase(torch, ops)
+    checked = train_check_phase(torch, ops)
+    resumed = train_resume_phase(torch, ops)
+
+    # -- 15. the paper's Listing 3 with val_accuracy on the card ---------------
+    listing3 = val_accuracy_phase(torch, ops)
+    trained_paths = {"train": trained["kernel_launches"],
+                     "train_check": checked["kernel_launches"],
+                     "val_accuracy": listing3["kernel_launches"]}
+
+    # -- 16. result --------------------------------------------------------
     served = kernel_rows[(REPORTED_CASE, "float32")]
     scan = ssm_rows[(SSM_REPORTED_CASE, "float32", "float32")]
     mscan = mlstm_rows[(MLSTM_REPORTED_CASE, "float32")]
@@ -2557,7 +3036,9 @@ def main(argv=None) -> int:
                              "paligemma_serve": pserve["flash_attention_launches"],
                              "whisper_forward": wfwd["launches"].get("flash_attention", 0),
                              "whisper_prefill":
-                                 wfwd["cached"]["prefill_launches"].get("flash_attention", 0)},
+                                 wfwd["cached"]["prefill_launches"].get("flash_attention", 0),
+                             **{path: n.get("flash_attention", 0)
+                                for path, n in trained_paths.items()}},
         "max_abs_err": served["max_abs_err"], "ms": served["ms"],
         "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
         "bound_by": served["bound_by"], "library_ms": served["library_ms"],
@@ -2577,7 +3058,9 @@ def main(argv=None) -> int:
                              **{f"sweep_{cell}": n.get("ssm_scan", 0)
                                 for cell, n in sweep.items()},
                              "zamba2_forward": zfwd["launches"].get("ssm_scan", 0),
-                             "zamba2_serve": zserve["ssm_scan_launches"]},
+                             "zamba2_serve": zserve["ssm_scan_launches"],
+                             **{path: n.get("ssm_scan", 0)
+                                for path, n in trained_paths.items()}},
         "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],
         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
         "bound_by": scan["bound_by"], "library_ms": None,
@@ -2593,7 +3076,9 @@ def main(argv=None) -> int:
                              "xlstm_forward_bf16": xfwd16["mlstm_scan_launches"],
                              "xlstm_serve": xserve["mlstm_scan_launches"],
                              **{f"explore_tune_{dtype}": r["launches"]
-                                for dtype, r in explore["mlstm"].items()}},
+                                for dtype, r in explore["mlstm"].items()},
+                             **{path: n.get("mlstm_scan", 0)
+                                for path, n in trained_paths.items()}},
         "max_abs_err": mscan["max_abs_err"], "ms": mscan["ms"],
         "plain_ms": mscan["plain_ms"], "bound_ms": mscan["bound_ms"],
         "bound_by": mscan["bound_by"], "library_ms": None,

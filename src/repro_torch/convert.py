@@ -10,7 +10,10 @@ axis under ``params[seg]["sub_<i>"]["norm" | "inner"]`` (the decoder's
 unstacked under ``params["shared"]``; the port keeps one module per
 layer (``<seg>.<layer>.subs.<i>.norm`` / ``.inner``, and
 ``shared.subs.<i>...``).  The other leaves (``embed``, ``pos_embed``,
-``head``, ``final_norm``, ``enc_final_norm``) keep their names.
+``head``, ``final_norm``, ``enc_final_norm``) keep their names.  A tree
+shaped like an ``LM``'s parameters (a gradient, an optimizer moment)
+converts with the same mapping (:func:`lm_tree_from_jax`,
+:func:`opt_state_from_jax`).
 Matrices keep their ``(in, out)`` layout on both sides.  The inputs here
 are nested dicts of numpy arrays (the JAX tree after ``split``, converted
 by the caller), so this module needs nothing of JAX.
@@ -65,9 +68,9 @@ def _port_keys(model: LM, path: Tuple[str, ...], arr: np.ndarray):
             for i in range(seg.count)]
 
 
-def _load_checked(model, state: Dict[str, np.ndarray], device, what: str):
-    """Load numpy ``state`` into ``model`` on ``device``; raises on any
-    missing or unexpected key and any wrong shape."""
+def _checked(model, state: Dict[str, np.ndarray], what: str) -> Dict[str, np.ndarray]:
+    """``state`` after checking it against ``model``'s state dict; raises
+    on any missing or unexpected key and any wrong shape."""
     expected = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     missing = sorted(set(expected) - set(state))
     unexpected = sorted(set(state) - set(expected))
@@ -77,7 +80,17 @@ def _load_checked(model, state: Dict[str, np.ndarray], device, what: str):
     if missing or unexpected or wrong:
         raise ValueError(f"JAX params do not fit {what}: missing {missing}, "
                          f"unexpected {unexpected}, wrong shapes {wrong}")
-    tensors = {k: torch.from_numpy(np.array(v)).to(device) for k, v in state.items()}
+    return state
+
+
+def _tensors(state: Mapping[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v)).to(device) for k, v in state.items()}
+
+
+def _load_checked(model, state: Dict[str, np.ndarray], device, what: str):
+    """Load numpy ``state`` into ``model`` on ``device``; raises on any
+    missing or unexpected key and any wrong shape."""
+    tensors = _tensors(_checked(model, state, what), device)
     model.load_state_dict(tensors, strict=True, assign=True)
     return model
 
@@ -101,6 +114,14 @@ def candidate_from_jax(model: BuiltModel, params_np: Mapping[str, Any],
     return _load_checked(model, state, device, f"candidate {model.arch.signature()}")
 
 
+def _lm_state(model: LM, tree_np: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    state: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(tree_np):
+        for key, leaf in _port_keys(model, path, arr):
+            state[key] = leaf
+    return state
+
+
 def lm_from_jax(spec: ModelSpec, params_np: Mapping[str, Any],
                 device="cuda") -> LM:
     """The port's :class:`LM` with the JAX package's weights.
@@ -110,11 +131,59 @@ def lm_from_jax(spec: ModelSpec, params_np: Mapping[str, Any],
     """
     device = resolve_device(device)
     model = LM(spec)
-    state: Dict[str, np.ndarray] = {}
-    for path, arr in _flatten(params_np):
-        for key, leaf in _port_keys(model, path, arr):
-            state[key] = leaf
-    return _load_checked(model, state, device, spec.name)
+    return _load_checked(model, _lm_state(model, params_np), device, spec.name)
+
+
+def lm_tree_from_jax(spec: ModelSpec, tree_np: Mapping[str, Any],
+                     device="cuda") -> Dict[str, torch.Tensor]:
+    """A tree shaped like the JAX ``LM``'s parameters (a gradient, an
+    optimizer moment) as the port's ``{state-dict name: tensor}``, the
+    mapping the port's train step and optimizer take.  Raises as
+    :func:`lm_from_jax` does."""
+    device = resolve_device(device)
+    model = LM(spec)
+    return _tensors(_checked(model, _lm_state(model, tree_np), spec.name), device)
+
+
+_FACTORS = {"row", "col", "full"}
+
+
+def opt_state_from_jax(spec: ModelSpec, state_np: Mapping[str, Any],
+                       device="cuda") -> Dict[str, Any]:
+    """The JAX ``Optimizer`` state of an ``LM``'s parameters (``step``,
+    AdamW's ``mu``/``nu``, SGD's ``mu``, Adafactor's ``v``) as the port's,
+    keyed like the port's parameters.  Adafactor's moments convert where
+    the layouts factor alike: a parameter the port holds with two or more
+    dimensions has ``{"row", "col"}``, one with one dimension ``{"full"}``;
+    a stacked norm scale, which the JAX package factors across its layers
+    axis, raises."""
+    device = resolve_device(device)
+    model = LM(spec)
+    out: Dict[str, Any] = {"step": torch.tensor(int(np.asarray(state_np["step"])),
+                                                dtype=torch.int32, device=device)}
+    for name in ("mu", "nu"):
+        if name in state_np:
+            out[name] = lm_tree_from_jax(spec, state_np[name], device)
+    if "v" in state_np:
+        shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        v: Dict[str, Dict[str, np.ndarray]] = {}
+        for path, arr in _flatten(state_np["v"]):
+            if path[-1] not in _FACTORS:
+                raise ValueError(f"v/{'/'.join(path)}: not an Adafactor moment")
+            for key, leaf in _port_keys(model, path[:-1], arr):
+                v.setdefault(key, {})[path[-1]] = leaf
+        for key, shape in shapes.items():
+            want = ({"row": shape[:-1], "col": shape[:-2] + shape[-1:]} if len(shape) >= 2
+                    else {"full": shape})
+            got = {f: tuple(a.shape) for f, a in v.get(key, {}).items()}
+            if got != want:
+                raise ValueError(f"Adafactor moments of {key} {got} do not factor the "
+                                 f"port's parameter of shape {shape} ({want})")
+        if set(v) != set(shapes):
+            raise ValueError(f"Adafactor moments for unknown parameters "
+                             f"{sorted(set(v) - set(shapes))}")
+        out["v"] = {key: _tensors(factors, device) for key, factors in v.items()}
+    return out
 
 
 # sub-block kind -> the leaves of its decode cache (the JAX package's)

@@ -15,15 +15,19 @@
 The names are the JAX package's, so one experiment names the same
 estimators in both.  A kernel-schedule tuner (``tuner=``) or schedules in
 the trial's context retarget the candidate's kernels, and the effective
-schedules' signature joins the cache keys, as in the reference.  The
-trained-accuracy estimator comes with training (ROADMAP.md Queue 1 item
-11).
+schedules' signature joins the cache keys, as in the reference.
+
+  * TrainedAccuracyEstimator (``val_accuracy``) — trains the candidate
+    briefly on the data in the context (SGD with momentum) and returns
+    its validation accuracy, reporting it to the trial for pruning
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 import torch
 
@@ -274,3 +278,133 @@ class CompiledMemoryEstimator(_CompiledEstimator):
 
         return self.cache.get_or_compute(self._program_key(self.name, candidate, plan[1]),
                                          compute)
+
+
+def refuse_kernel_candidate(estimator: str, candidate: BuiltModel, batch: int) -> None:
+    """Raise ``NotImplementedError`` if a forward of ``candidate`` at
+    ``batch`` reaches a kernel, found by a forward on the ``meta`` device
+    (nothing is drawn, placed or run): ``estimator`` needs its gradient,
+    and the CUDA kernels are forward-only, as the reference's Pallas
+    kernels have no gradient."""
+    l, c = candidate.input_shape[-1], candidate.input_shape[0]
+    x = torch.empty((batch, l, c), dtype=torch.float32, device="meta")
+    kernels = sorted({entry["kernel"] for entry in
+                      discover_kernel_calls(candidate, (x,)).values()})
+    if kernels:
+        raise NotImplementedError(
+            f"{estimator} needs the gradient through the {', '.join(kernels)} "
+            f"kernel(s) this candidate reaches ({candidate.arch.signature()}); the "
+            f"CUDA kernels are forward-only, as the reference's Pallas kernels have "
+            f"no gradient, so the reference cannot differentiate such a candidate "
+            f"either: train on impl 'xla'")
+
+
+Weights = Dict[str, Dict[str, torch.Tensor]]
+
+
+@ESTIMATORS.register("val_accuracy")
+class TrainedAccuracyEstimator(Estimator):
+    """Short-budget training + validation accuracy (maximize).
+
+    context/data: {"x_train", "y_train", "x_val", "y_val"} (numpy).
+    Reports intermediate accuracy to the trial for pruning when provided.
+    The reference's loop: SGD with momentum on the mean cross-entropy,
+    batches drawn by ``np.random.default_rng(0)``, ``trial.report(i + 1,
+    -acc)`` every ``report_every`` steps.
+
+    Where the port differs from the reference:
+
+    * It trains on the card unless the caller asks for the CPU
+      (``device=``), holding
+      :func:`~repro_torch.hwgen.generator.measurement_gate` while it runs,
+      so no sibling worker times a candidate beside it.
+    * The weights are drawn from a ``torch.Generator`` seeded 0 by one
+      overridable method, :meth:`_weights` (the reference's
+      ``candidate.init(PRNGKey(0))``; a test feeds both the same
+      converted weights).
+    * A candidate that reaches a kernel is refused before any step: the
+      CUDA kernels are forward-only, and the reference cannot
+      differentiate its Pallas kernels either.
+    """
+
+    name = "val_accuracy"
+
+    def __init__(self, steps: int = 60, batch: int = 32, lr: float = 1e-3,
+                 momentum: float = 0.9, report_every: int = 20, device="cuda"):
+        self.steps = steps
+        self.batch = batch
+        self.lr = lr
+        self.momentum = momentum
+        self.report_every = report_every
+        self.device = resolve_device(device)
+
+    def _weights(self, candidate: BuiltModel) -> Weights:
+        """Each layer's weights, ``{"layer_<i>": {leaf: tensor}}`` on this
+        estimator's device, drawn from a generator seeded 0 on that device."""
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        return {f"layer_{i}": {k: v.to(self.device) for k, v in layer.init(gen).items()}
+                for i, layer in enumerate(candidate.layers)}
+
+    @staticmethod
+    def _apply(candidate: BuiltModel, params: Weights, x: torch.Tensor) -> torch.Tensor:
+        """The candidate's forward (pre-processing included) on ``params``."""
+        if candidate.preprocess is not None:
+            x = candidate.preprocess(x)
+        for i, layer in enumerate(candidate.layers):
+            x = layer.apply(params[f"layer_{i}"], x)
+        return x
+
+    def accuracy(self, candidate: BuiltModel, params: Weights, x, y) -> float:
+        with torch.no_grad():
+            x = torch.as_tensor(x, device=self.device)
+            y = torch.as_tensor(y, device=self.device)
+            pred = torch.argmax(self._apply(candidate, params, x), dim=-1)
+            return float((pred == y).to(torch.float32).mean())
+
+    def fit(self, candidate: BuiltModel, data, trial=None) -> Tuple[Weights, float]:
+        """Train ``candidate`` for ``steps`` steps on ``data``.  Returns the
+        trained weights and the last step's loss; raises ``TrialPruned``
+        when the trial says so at a report."""
+        from repro_torch.search.study import TrialPruned
+
+        refuse_kernel_candidate(self.name, candidate, self.batch)
+        x_train = torch.as_tensor(data["x_train"], device=self.device)
+        y_train = torch.as_tensor(data["y_train"], device=self.device).long()
+        params = self._weights(candidate)
+        momentum = {name: {k: torch.zeros_like(v) for k, v in leaves.items()}
+                    for name, leaves in params.items()}
+        rng = np.random.default_rng(0)
+        n = x_train.shape[0]
+        loss = torch.tensor(float("nan"))
+        for i in range(self.steps):
+            idx = torch.as_tensor(rng.integers(0, n, self.batch), device=self.device)
+            leaves = {name: {k: v.detach().requires_grad_(True) for k, v in p.items()}
+                      for name, p in params.items()}
+            with torch.enable_grad():
+                logits = self._apply(candidate, leaves, x_train[idx])
+                yb = y_train[idx]
+                loss = (torch.logsumexp(logits, dim=-1)
+                        - torch.gather(logits, -1, yb[:, None])[:, 0]).mean()
+                flat = [v for p in leaves.values() for v in p.values()]
+                grads = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+            with torch.no_grad():
+                for name, p in params.items():
+                    for k, w in p.items():
+                        g = next(grads)
+                        m = momentum[name][k]
+                        m.copy_(self.momentum * m + (torch.zeros_like(w) if g is None else g))
+                        w.copy_(w - self.lr * m)
+            if trial is not None and (i + 1) % self.report_every == 0:
+                acc = self.accuracy(candidate, params, data["x_val"], data["y_val"])
+                trial.report(i + 1, -acc)  # studies minimize by default
+                if trial.should_prune():
+                    raise TrialPruned()
+        return params, float(loss.detach())
+
+    def estimate(self, candidate: BuiltModel, context=None) -> float:
+        data = (context or {}).get("data")
+        if data is None:
+            raise ValueError("TrainedAccuracyEstimator needs context['data']")
+        with measurement_gate(self.device):
+            params, _ = self.fit(candidate, data, (context or {}).get("trial"))
+            return self.accuracy(candidate, params, data["x_val"], data["y_val"])

@@ -36,8 +36,8 @@ Where the port differs from the reference:
   weights), and the inputs likewise by :meth:`ZeroCostProxy._input` and
   :meth:`GradNormEstimator._labels`.
 * ``grad_norm`` refuses a candidate that reaches a kernel: the CUDA
-  kernels are forward-only (ROADMAP.md Queue 1 item 11), and the
-  reference cannot differentiate such candidates either.
+  kernels are forward-only, as the reference's Pallas kernels have no
+  gradient, so the reference cannot differentiate such candidates either.
 
 Scores are deterministic and memoized in the shared
 :class:`EvaluationCache` keyed by the candidate's full architecture
@@ -57,8 +57,8 @@ from repro_torch.device import resolve_device
 from repro_torch.envvars import read_env
 from repro_torch.evaluation.api import Estimator
 from repro_torch.evaluation.cache import EvaluationCache
+from repro_torch.evaluation.estimators import refuse_kernel_candidate
 from repro_torch.explorer.registry import ESTIMATORS
-from repro_torch.hwgen.autotune import discover_kernel_calls
 from repro_torch.hwgen.generator import measurement_gate
 
 # Small on purpose: a proxy exists to cost milliseconds next to a
@@ -178,25 +178,11 @@ class GradNormEstimator(ZeroCostProxy):
         return torch.randint(0, max(1, candidate.output_dim), (self.batch,),
                              generator=gen, device=self.device)
 
-    def _refuse_kernels(self, candidate: BuiltModel) -> None:
-        """Raise if the candidate reaches a kernel, found by a forward on
-        the ``meta`` device before anything runs: on the CPU the plain
-        versions would differentiate, but on the card the forward-only
-        kernels would not, so the score would depend on the device."""
-        l, c = candidate.input_shape[-1], candidate.input_shape[0]
-        x = torch.empty((self.batch, l, c), dtype=torch.float32, device="meta")
-        kernels = sorted({entry["kernel"] for entry in
-                          discover_kernel_calls(candidate, (x,)).values()})
-        if kernels:
-            raise NotImplementedError(
-                f"grad_norm needs the gradient through the {', '.join(kernels)} "
-                f"kernel(s) this candidate reaches ({candidate.arch.signature()}); the "
-                f"port's kernels are forward-only until backward kernels land with "
-                f"training (ROADMAP.md Queue 1 item 11), and the reference cannot "
-                f"differentiate its Pallas kernels either")
-
     def _score(self, candidate: BuiltModel) -> float:
-        self._refuse_kernels(candidate)
+        # refused before anything runs: on the CPU the plain versions would
+        # differentiate, but on the card the forward-only kernels would not,
+        # so the score would depend on the device
+        refuse_kernel_candidate(self.name, candidate, self.batch)
         with measurement_gate(self.device):
             x = self._input(candidate, "normal")
             y = self._labels(candidate)

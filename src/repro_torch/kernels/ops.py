@@ -82,10 +82,11 @@ def _refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
     a word.  So a call that autograd would differentiate is refused."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{kernel}: the CUDA kernel is forward-only and an input requires a "
-            f"gradient; backward kernels come with training (ROADMAP.md Queue 1 "
-            f"item 11). Run it under torch.no_grad() or inference_mode, or on "
-            f"the CPU, where the plain version is differentiable")
+            f"{kernel}: the CUDA kernel is forward-only (the reference's Pallas "
+            f"kernel has no gradient either) and an input requires a gradient; "
+            f"train on impl=\"xla\", as the reference does. Run the kernel under "
+            f"torch.no_grad() or inference_mode, or on the CPU, where the plain "
+            f"version is differentiable")
 
 
 def _flash_pairs(s: int, t: int, causal: bool, window: Optional[int]) -> int:

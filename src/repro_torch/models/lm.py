@@ -13,6 +13,10 @@ segment runs.
 ``LM(spec)`` lays out a skeleton on the meta device; :meth:`LM.init`
 draws the weights on a generator's device, and
 :func:`repro_torch.convert.lm_from_jax` loads the JAX package's weights.
+The weights are frozen (``requires_grad=False``): evaluation and serving
+build no autograd graph.  Training differentiates with respect to a
+mapping of them instead (:func:`repro_torch.train.step.param_dict`, run
+through ``torch.func.functional_call``).
 
 The decode cache is a list with one dict per layer invocation, in the
 order the layers run (so each run of the shared layer has its own),
@@ -302,9 +306,17 @@ class LM(nn.Module):
             return h
         return h + self.pos_embed[start:start + h.shape[1]][None].to(h.dtype)
 
+    def head_weight(self) -> Tuple[torch.Tensor, bool]:
+        """(weight, transposed): logits = h @ w, or h @ w.T when transposed
+        (tied embeddings)."""
+        if self.spec.tie_embeddings:
+            return self.embed, True
+        return self.head, False
+
     def _head(self, h: torch.Tensor) -> torch.Tensor:
         h = NORM_APPLY[self.spec.norm](self.final_norm, h)
-        logits = h @ (self.embed.T if self.spec.tie_embeddings else self.head)
+        w, transposed = self.head_weight()
+        logits = h @ (w.T if transposed else w)
         if self.spec.logit_softcap:
             c = self.spec.logit_softcap
             logits = torch.tanh(logits / c) * c
@@ -319,6 +331,14 @@ class LM(nn.Module):
             h = layer(h, positions)
         return NORM_APPLY[self.spec.norm](self.enc_final_norm, h)
 
+    def _layers_out(self, tokens, positions, prefix_embeds, enc_out) -> torch.Tensor:
+        h = self._add_positions(self._embed(tokens, prefix_embeds))
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        for layer in self.layers():
+            h = layer(h, positions, enc_out)
+        return h
+
     def forward(self, tokens: torch.Tensor, positions=None, *, prefix_embeds=None,
                 enc_out=None) -> torch.Tensor:
         """Full-sequence forward (the JAX package's ``LM.apply``).
@@ -326,12 +346,15 @@ class LM(nn.Module):
         (B, P, d_model) overwrite the first P embeddings (a VLM's patch
         embeddings); ``enc_out`` (B, T, d_model), from :meth:`encode`, is
         what the cross-attention sub-blocks attend to."""
-        h = self._add_positions(self._embed(tokens, prefix_embeds))
-        if positions is None:
-            positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-        for layer in self.layers():
-            h = layer(h, positions, enc_out)
-        return self._head(h)
+        return self._head(self._layers_out(tokens, positions, prefix_embeds, enc_out))
+
+    def hidden(self, tokens: torch.Tensor, positions=None, *, prefix_embeds=None,
+               enc_out=None) -> torch.Tensor:
+        """Full-sequence forward -> the final normed hidden states (B, S,
+        d_model), for :func:`repro_torch.train.loss.chunked_cross_entropy`
+        with :meth:`head_weight`."""
+        h = self._layers_out(tokens, positions, prefix_embeds, enc_out)
+        return NORM_APPLY[self.spec.norm](self.final_norm, h)
 
     # -- decode -------------------------------------------------------------
 

@@ -112,13 +112,17 @@ def _slot_assignment(expert_ids: torch.Tensor, n_experts: int, capacity: int):
     return slot_token, token_slot.reshape(b, s, k)
 
 
-def moe_apply(params, cfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d_model) -> (B, S, d_model)."""
+def moe_apply(params, cfg: MoEConfig, x: torch.Tensor, return_aux: bool = False):
+    """x: (B, S, d_model) -> (B, S, d_model); with ``return_aux``, also the
+    load-balancing auxiliaries (Switch-style): ``load_balance_loss`` (E
+    times the sum over experts of the mean router probability and the
+    share of tokens routing to the expert) and ``dropped_fraction`` (the
+    share of (token, choice) pairs past an expert's capacity)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = cfg.capacity(s)
     logits = acc(x) @ params["w_router"].to(acc_dtype(x))
-    expert_ids, gates, _ = route_topk(logits, k)
+    expert_ids, gates, probs = route_topk(logits, k)
     slot_token, token_slot = _slot_assignment(expert_ids, e, cap)
 
     # dispatch: gather tokens into (B, E, C, d)
@@ -144,4 +148,11 @@ def moe_apply(params, cfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
     y = (y.reshape(b, s, k, d) * gates[..., None].to(y.dtype)).sum(dim=2)
     if cfg.dense_residual:
         y = y + mlp_apply(params["dense"], cfg.dense_cfg, x)
+    if return_aux:
+        me = probs.mean(dim=(0, 1))  # mean router probability per expert
+        chosen = torch.nn.functional.one_hot(expert_ids, e).sum(dim=2) > 0
+        ce = chosen.to(torch.float32).mean(dim=(0, 1))
+        aux = {"load_balance_loss": e * (me * ce).sum(),
+               "dropped_fraction": (token_slot < 0).to(torch.float32).mean()}
+        return y.to(x.dtype), aux
     return y.to(x.dtype)

@@ -21,6 +21,7 @@ from repro_torch.evaluation.estimators import FlopsEstimator, ParamCountEstimato
 from repro_torch.evaluation.proxies import SynFlowEstimator  # noqa: E402
 from repro_torch.explorer.experiment import ExperimentError, ExperimentSpec  # noqa: E402
 from repro_torch.explorer.explorer import Explorer  # noqa: E402
+from repro_torch.hwgen import generator as tgen  # noqa: E402
 from repro_torch.search.study import HardConstraintViolated  # noqa: E402
 
 CASCADE_EXPERIMENT = {
@@ -40,6 +41,16 @@ CASCADE_EXPERIMENT = {
     },
     "budget": {"n_trials": 16},
 }
+
+
+@pytest.fixture(autouse=True)
+def _fresh_generate_count(monkeypatch):
+    """Each test starts from a process generate count of 0, as a fresh
+    process does.  The funnel's ``compiled`` sums the process's running
+    :func:`~repro_torch.hwgen.generator.generate_call_count`, so without
+    this the ``compiled == 0`` checks would read what earlier tests in the
+    same worker generated."""
+    monkeypatch.setattr(tgen, "_generate_count", 0)
 
 
 class FixedEstimator(Estimator):

@@ -108,3 +108,27 @@ def test_explorer_runs_a_dict_spec_without_pyyaml():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "3"
+
+
+def test_trainer_runs_without_pyyaml():
+    """The training slice's modules (CLI, step, optimizer, checkpointer,
+    data, compression, faults, ``val_accuracy``) import, and the CLI trains
+    two steps at ``--smoke``, with ``yaml`` blocked, as ``chip_smoke.py``'s
+    training phases run on the card's machine."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.modules['yaml'] = None\n"
+        "import repro_torch.evaluation, repro_torch.checkpoint.checkpointer\n"
+        "from repro_torch.launch import train\n"
+        "summary, _ = train.run(train.build_parser().parse_args(['--smoke', '--steps', '2', "
+        "'--seq', '16', '--global-batch', '2', '--compression', '--device', 'cpu']))\n"
+        "assert 'yaml' not in [m for m, v in sys.modules.items() if v is not None]\n"
+        "print(len(summary['losses']))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "2"

@@ -215,9 +215,10 @@ def _kernel_candidate(weights):
 
 @pytest.mark.parametrize("weights", ["meta", "cpu"])
 def test_grad_norm_refuses_a_kernel_candidate_before_any_forward(weights, monkeypatch):
-    """The CUDA kernels are forward-only, so grad_norm names the item that
-    brings their backward, whatever device it runs on: found by a forward
-    on ``meta``, before the weights are drawn or any forward runs."""
+    """The CUDA kernels are forward-only, as the reference's Pallas kernels
+    are, so grad_norm refuses a candidate that reaches one, whatever device
+    it runs on: found by a forward on ``meta``, before the weights are
+    drawn or any forward runs."""
     from repro_torch.kernels import ref
 
     model = _kernel_candidate(weights)
@@ -227,7 +228,7 @@ def test_grad_norm_refuses_a_kernel_candidate_before_any_forward(weights, monkey
 
     monkeypatch.setattr(ref, "ssm_scan_ref", never)
     monkeypatch.setattr(GradNormEstimator, "_weights", never)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11") as e:
+    with pytest.raises(NotImplementedError, match="forward-only") as e:
         GradNormEstimator(device="cpu").estimate(model)
     assert "ssm_scan" in str(e.value)
 
