@@ -68,13 +68,27 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    nothing, a resumed second run doing nothing; each kernel, in the
    fastest candidate that reaches it on its tuned schedule, held to its
    plain versions as in 6.  Then ``hw_parallel.yaml`` at target h100,
-   serial and with 2 spawned workers: the same best trial;
+   serial and with 2 spawned workers: the same best trial, every
+   candidate's ``peak_bytes`` within 1% of the serial run's, and the
+   workers' fp32 flags (TF32 for matmuls and cuDNN, the matmul precision)
+   the parent's;
 6f. serving: ``serving.yaml``'s traffic-shaped criteria at target h100
    over its conv_pool space (8 trials) and over the nas phase's space (6
    trials): every ``prefill_latency_s`` the roofline bound of the counted
    forward at ``max_batch``, every ``decode_latency_s`` the reference's
    formula, a decode state for every candidate of the nas space; nothing
    launched, allocated on the card or generated;
+6g. report_boot: the paper's deploy-best mode.  The explore phase's spec
+   over zamba2-2.7b's hybrid of the nas phase's layers (one or two Mamba2
+   blocks, then its attention block) with ``serving.yaml``'s traffic, 6
+   trials, with the artifact store and without it (its cost to the
+   search; each stored program's export seconds and bytes); then
+   ``python -m repro_torch.launch.serve --from-report`` in a fresh
+   process: booted from the store it must generate nothing, serve all 24
+   requests and launch flash and ``ssm_scan`` on every batch; with
+   ``REPRO_ARTIFACTS=0`` it generates once; the loaded program's output
+   against the eager candidate's (printed; expected equal bit for bit)
+   and against the plain versions (1e-3 of its max);
 7. the mLSTM scan against its plain version (fp32 and bf16, timed as in
    3), at the xlstm-1.3b forward's shape and smaller ones; the forward's
    shape and batch 4 at 512 also with the kernel's device time from
@@ -2278,6 +2292,41 @@ def sweep_phase(torch, ops, ref, nas=None) -> dict:
             raise AssertionError(f"sweep hw_parallel on h100: states {serial['states']} | "
                                  f"{process['states']}, best {serial['best']} | "
                                  f"{process['best']}")
+        # a spawned worker's fp32 flags, from the process backend's pool and
+        # from a pool with torch's defaults (what a worker had before the
+        # backend passed the parent's flags on)
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        from repro_torch.evaluation.artifact_store import ArtifactStore
+        from repro_torch.search.executors import ProcessExecutor, numerics_flags
+
+        with ProcessExecutor()._make_pool(1) as passed, ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as defaults:
+            flags = {"parent": numerics_flags(),
+                     "worker": passed.submit(numerics_flags).result(),
+                     "worker_with_torch_defaults": defaults.submit(numerics_flags).result()}
+        peaks = {t: (serial["peak_bytes"][t], process["peak_bytes"][t])
+                 for t in serial["peak_bytes"]}
+        apart = {t: p for t, p in peaks.items()
+                 if p[0] is None or p[1] is None or abs(p[1] - p[0]) > NAS_PEAK_REL * p[0]}
+        # each generate's memory record as the store keeps it (the peak, and
+        # what the card held before and after), by signature and run
+        records = {}
+        for backend in runs:
+            store = ArtifactStore(f"{tmp}/hw_{backend}")
+            for key in store.keys():
+                rec = store.record(json.loads(key)["key"])
+                records.setdefault(json.loads(key)["key"][3], {})[backend] = {
+                    **rec["meta"]["memory"], "measured_by": rec["meta"]["measured_by"]}
+        signatures = {t.number: t.user_attrs.get("signature") for t in explorer.study.trials}
+        print("sweep_hw_parallel_peaks " + json.dumps({
+            "flags": flags, "peak_bytes_serial_process": peaks, "apart": apart,
+            "apart_records": {t: records.get(signatures[t]) for t in apart}}))
+        if flags["worker"] != flags["parent"] or apart:
+            raise AssertionError(f"sweep hw_parallel on h100: the workers' flags {flags} "
+                                 f"are not the parent's, or the peaks of trials {apart} "
+                                 f"differ from the serial run's by more than {NAS_PEAK_REL}")
     return launches
 
 
@@ -2369,6 +2418,190 @@ def serving_phase(torch, ops) -> dict:
     if any(moved.values()):
         raise AssertionError(f"serving: the modelled estimators touched the card: {moved}")
     return out
+
+
+# the report_boot phase: explore_spec over zamba2-2.7b's hybrid of NAS_SPACE's
+# layers (one or two Mamba2 blocks, then its attention block; the head's
+# width searched), so every candidate, and the winner the boot serves,
+# reaches both kernels (NAS_SPACE's own winner is a lone ssm layer), with
+# serving.yaml's serving section
+REPORT_BOOT_SPACE = {
+    "input": NAS_SPACE["input"],
+    "output": NAS_SPACE["output"],
+    "sequence": [
+        {"block": "mamba2", "op_candidates": "ssm",
+         "type_repeat": {"type": "repeat_op", "depth": [1, 2]},
+         "ssm": NAS_SPACE["sequence"][0]["ssm"]},
+        {"block": "attention", "op_candidates": "attention",
+         "attention": NAS_SPACE["sequence"][0]["attention"]},
+        *NAS_SPACE["sequence"][1:],
+    ],
+}
+REPORT_BOOT_CHILD = """
+import json, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+t0 = time.perf_counter()
+torch.empty(1, device="cuda")
+print("CUDA_INIT_S " + json.dumps(time.perf_counter() - t0))
+from repro_torch.launch import serve
+rc = serve.main(sys.argv[1:])
+sys.stdout.flush()
+sys.exit(rc)
+"""
+
+
+def _boot_child(torch, report_path, env_extra, expect) -> dict:
+    """``serve.main(["--from-report", report_path, "--expect-compiles",
+    expect])`` in a fresh Python process (so the store, not this process's
+    memory, carries the program); its summary line, exit code and wall
+    seconds."""
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), **env_extra)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", REPORT_BOOT_CHILD, "--from-report", report_path,
+         "--expect-compiles", str(expect)],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300)
+    wall_s = time.perf_counter() - t0
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    init = [line for line in proc.stdout.splitlines() if line.startswith("CUDA_INIT_S ")]
+    if not lines or not init:
+        raise AssertionError(f"report_boot: the boot printed no summary (exit "
+                             f"{proc.returncode}): {proc.stderr[-3000:]}")
+    return {"rc": proc.returncode, "wall_s": wall_s,
+            "cuda_init_s": json.loads(init[-1].split(" ", 1)[1]), **json.loads(lines[-1])}
+
+
+def report_boot_phase(torch, ops, ref) -> dict:
+    """The paper's deploy-best mode on the card: an exploration measures
+    its candidates and leaves each one's program in the artifact store,
+    and a server boots the winner from it without generating.
+
+    ``explore_spec("serial", 1, ...)`` over ``REPORT_BOOT_SPACE`` at
+    target ``h100`` with ``serving.yaml``'s serving section, ``NAS_TRIALS``
+    trials, three times on fresh cache dirs: with ``REPRO_ARTIFACTS=0``
+    (the first run, which also pays the phase's warm-up), with the store,
+    and without it again (what the store costs a search: the second
+    run's wall time less the third's).  Prints the store's puts and entries, and each program's
+    export seconds and blob bytes.  Then, in a fresh child process,
+    ``serve.main(["--from-report", R, "--expect-compiles", "0"])``: it
+    must exit 0 with ``compiles`` 0, serve every request of the traffic
+    and launch ``flash_attention`` and ``ssm_scan``; the same boot with
+    ``REPRO_ARTIFACTS=0`` must generate once (``compiles`` 1).  Last, the
+    loaded program on one seeded batch against the eager candidate on the
+    same seed-0 weights and schedules (printed, expected equal bit for
+    bit) and against the candidate on its plain versions, within
+    ``NAS_REL_TOL`` of the output's max.  Raises on any miss; returns the
+    warm boot's summary."""
+    import tempfile
+
+    from repro_torch.evaluation.artifact_store import ArtifactStore
+    from repro_torch.evaluation.serving import _ServingEstimator
+    from repro_torch.explorer.explorer import Explorer
+    from repro_torch.hwgen.generator import generate_call_count
+    from repro_torch.kernels import schedule as ksched
+    from repro_torch.launch.serve import rebuild_best
+
+    kernels = ("ssm_scan", "flash_attention")
+    with tempfile.TemporaryDirectory(prefix="report-boot-") as tmp:
+        walls = {}
+        for label, flag in (("warm_up_without_store", "0"), ("with_store", "1"),
+                            ("without_store", "0")):
+            raw = dict(explore_spec("serial", 1, f"{tmp}/cache_{label}"),
+                       name=f"report-boot-{label}", search_space=REPORT_BOOT_SPACE,
+                       serving=SERVING_EXPERIMENT["serving"], report_dir=f"{tmp}/{label}")
+            with mock.patch.dict(os.environ, {"REPRO_ARTIFACTS": flag}):
+                ops.LAUNCHES.clear()
+                t0 = time.perf_counter()
+                explorer = Explorer.from_dict(raw)
+                report = explorer.run(save_report=True)
+                torch.cuda.synchronize()
+                walls[label] = time.perf_counter() - t0
+            if report.states.get("complete") != NAS_TRIALS or not all(
+                    report.kernel_launches.get(k) for k in kernels):
+                raise AssertionError(f"report_boot {label}: states {report.states}, "
+                                     f"launches {report.kernel_launches}")
+            if label == "with_store":
+                stored = report
+        report = stored
+        store = ArtifactStore(f"{tmp}/cache_with_store")
+        records = [store.record(json.loads(k)["key"]) for k in store.keys()]
+        programs = [{"blob": r["blob"][:12], "export_s": r["meta"]["export_s"],
+                     "blob_bytes": r["meta"]["blob_bytes"],
+                     "measured_by": r["meta"]["measured_by"]} for r in records]
+        explore_row = {
+            "wall_s": walls, "store_cost_s": walls["with_store"] - walls["without_store"],
+            "best": report.best, "artifacts": report.artifacts, "puts": len(records),
+            "entries": len(store), "programs": programs,
+            "export_s_total": sum(p["export_s"] for p in programs),
+            "launches": report.kernel_launches}
+        print("report_boot_explore " + json.dumps(explore_row))
+        if not records or report.artifacts["entries"] != len(records):
+            raise AssertionError(f"report_boot: the store holds {len(records)} programs, "
+                                 f"the report says {report.artifacts}")
+
+        # -- the boot, in a fresh process: warm from the store, then cold --
+        warm = _boot_child(torch, report.artifact, {}, 0)
+        cold = _boot_child(torch, report.artifact, {"REPRO_ARTIFACTS": "0"}, 1)
+        n_requests = SERVING_EXPERIMENT["serving"]["traffic"]["n_requests"]
+        for label, row in (("warm", warm), ("cold", cold)):
+            print(f"report_boot_{label} " + json.dumps(row))
+        print("report_boot_summary " + json.dumps({
+            "boot_s": {"warm": warm["boot_s"], "cold": cold["boot_s"]},
+            "boot_parts": {"warm": warm["boot_parts"], "cold": cold["boot_parts"]},
+            "cuda_init_s": {"warm": warm["cuda_init_s"], "cold": cold["cuda_init_s"]},
+            "compiles": {"warm": warm["compiles"], "cold": cold["compiles"]},
+            "exec_s": {"warm": warm["exec_s"], "cold": cold["exec_s"]},
+            "child_wall_s": {"warm": warm["wall_s"], "cold": cold["wall_s"]},
+            "launches": {"warm": warm["launches"], "cold": cold["launches"]}}))
+        if (warm["rc"] != 0 or warm["compiles"] != 0 or warm["served"] != n_requests
+                or warm["shed"] != 0 or not all(warm["launches"].get(k) for k in kernels)
+                or warm["signature"] != report.best["signature"]):
+            raise AssertionError(f"report_boot: the warm boot {warm}")
+        if cold["rc"] != 0 or cold["compiles"] != 1 or cold["served"] != n_requests:
+            raise AssertionError(f"report_boot: the cold boot {cold}")
+
+        # -- the loaded program against the eager candidate -----------------
+        with open(report.artifact) as f:
+            candidate, spec = rebuild_best(json.load(f))
+        est = _ServingEstimator(target=spec.target, serving=spec.serving,
+                                cache=spec.cache.dir)
+        schedules = (report.kernel_tuning or {}).get("schedules")
+        plan = est._schedule_plan(candidate, {"schedules": schedules} if schedules else None)
+        generated = generate_call_count()
+        artifact = est._artifact(candidate, plan)
+        if artifact.program is None or generate_call_count() != generated:
+            raise AssertionError("report_boot: the store did not give the program back")
+        model = artifact.fn.to("cuda")
+        c, l = candidate.input_shape
+        x = torch.randn(spec.serving.max_batch, l, c, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+
+        def plain_ssm(x_, dt, a, b, c_, *, chunk):
+            return ref.ssm_scan_ref(x_, dt, a, b, c_, chunk=chunk)
+
+        with torch.inference_mode(), ksched.use_schedules(artifact.schedules):
+            loaded_out = artifact(x)
+            eager_out = model(x)
+            with mock.patch.object(ops, "ssm_scan", plain_ssm), \
+                    mock.patch.object(ops, "flash_attention", _flash_plain):
+                plain_out = model(x)
+            torch.cuda.synchronize()
+        model.to("cpu")
+        tol = NAS_REL_TOL * plain_out.abs().max().item()
+        check = {"signature": candidate.arch.signature(), "shape": list(loaded_out.shape),
+                 "equal_to_eager": bool(torch.equal(loaded_out, eager_out)),
+                 "max_abs_diff_eager": (loaded_out - eager_out).abs().max().item(),
+                 "max_abs_err_plain": (loaded_out - plain_out).abs().max().item(),
+                 "tol": tol, "finite": bool(torch.isfinite(loaded_out).all())}
+        print("report_boot_check " + json.dumps(check))
+        if not check["finite"] or check["max_abs_err_plain"] > tol \
+                or check["max_abs_diff_eager"] > tol:
+            raise AssertionError(f"report_boot: the loaded program {check}")
+    return {"explore": explore_row, "warm": warm, "cold": cold, "check": check}
 
 
 def _launched_since(ops, before) -> dict:
@@ -2787,7 +3020,7 @@ TRAIN_PHASES = {
     "val_accuracy": val_accuracy_phase,
 }
 SUBSET_PHASES = ("flash", "ssm", "nas", "modelled", "explore", "cascade", "sweep",
-                 "serving", "mlstm", *MODEL_PHASES, *TRAIN_PHASES)
+                 "serving", "report_boot", "mlstm", *MODEL_PHASES, *TRAIN_PHASES)
 
 
 def main(argv=None) -> int:
@@ -2869,6 +3102,8 @@ def main(argv=None) -> int:
                 sweep_phase(torch, ops, ref, nas)
             elif name == "serving":
                 serving_phase(torch, ops)
+            elif name == "report_boot":
+                report_boot_phase(torch, ops, ref)
             elif name == "mlstm":
                 mlstm_phase(torch, ops, ref, gen)
             elif name in MODEL_PHASES:
@@ -2975,6 +3210,10 @@ def main(argv=None) -> int:
     # -- 6f. the traffic-shaped serving estimators: modelled, nothing runs ----
     serving_phase(torch, ops)
 
+    # -- 6g. deploy-best: an exploration's winner booted from the store ------
+    torch.cuda.empty_cache()
+    booted = report_boot_phase(torch, ops, ref)
+
     # -- 7. the mLSTM scan against its plain version -----------------------
     mlstm_rows = mlstm_phase(torch, ops, ref, gen)
 
@@ -3037,6 +3276,10 @@ def main(argv=None) -> int:
                              "whisper_forward": wfwd["launches"].get("flash_attention", 0),
                              "whisper_prefill":
                                  wfwd["cached"]["prefill_launches"].get("flash_attention", 0),
+                             "report_boot_explore":
+                                 booted["explore"]["launches"].get("flash_attention", 0),
+                             "report_boot_served":
+                                 booted["warm"]["launches"].get("flash_attention", 0),
                              **{path: n.get("flash_attention", 0)
                                 for path, n in trained_paths.items()}},
         "max_abs_err": served["max_abs_err"], "ms": served["ms"],
@@ -3059,6 +3302,9 @@ def main(argv=None) -> int:
                                 for cell, n in sweep.items()},
                              "zamba2_forward": zfwd["launches"].get("ssm_scan", 0),
                              "zamba2_serve": zserve["ssm_scan_launches"],
+                             "report_boot_explore":
+                                 booted["explore"]["launches"].get("ssm_scan", 0),
+                             "report_boot_served": booted["warm"]["launches"].get("ssm_scan", 0),
                              **{path: n.get("ssm_scan", 0)
                                 for path, n in trained_paths.items()}},
         "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],

@@ -325,15 +325,18 @@ register_env(EnvVar(
     parse=_flag,
     expected="a flag (`0`/`false` disables, anything else enables)",
     description=(
-        "Whether disk-cached explorations also persist *compiled "
-        "executables* into the content-addressed artifact store "
+        "Whether disk-cached explorations also persist each candidate's "
+        "*program* (a weight-free `torch.export` program of `(params, x)`) "
+        "into the content-addressed artifact store "
         "(`<cache.dir>/artifacts/`), which is what lets `python -m "
-        "repro.launch.serve --from-report` boot with zero XLA compiles.  "
-        "`0`/`false` keeps executables memory-only (the pre-store "
-        "behaviour): scalar values still persist, serving recompiles."),
+        "repro_torch.launch.serve --from-report` boot without generating "
+        "the winner (`compiles`, which counts generates, stays 0).  "
+        "`0`/`false` keeps artifacts memory-only (the pre-store "
+        "behaviour): scalar values still persist, serving generates."),
     default="enabled",
     malformed="not applicable — every non-blank value parses as a flag",
-    consulted_by="`repro/evaluation/artifact_store.py`",
+    consulted_by="`repro_torch/evaluation/artifact_store.py`, "
+                 "`repro_torch/launch/serve.py`",
 ))
 
 register_env(EnvVar(

@@ -5,6 +5,7 @@ from repro_torch.evaluation.api import (
     constraint_violation,
     weighted_sum,
 )
+from repro_torch.evaluation.artifact_store import ArtifactStore
 from repro_torch.evaluation.cache import CacheStats, EvaluationCache
 from repro_torch.evaluation.cascade import (
     CascadeRunner,

@@ -84,7 +84,11 @@ class _CompiledEstimator(Estimator):
     and memory for one candidate cost one generate.  ``cache`` may also be
     a store-directory path (or ``True`` for the default ``results/cache/``),
     which wraps a fresh cache around the disk tier so values survive
-    restarts.
+    restarts.  A disk-tiered cache also gets the artifact store
+    (:class:`~repro_torch.evaluation.artifact_store.ArtifactStore`): each
+    generated candidate's program persists next to the values, and a
+    later process (``serve --from-report``, a warm restart) loads it
+    instead of generating (``REPRO_ARTIFACTS=0`` opts out).
     """
 
     def __init__(self, target: TargetSpec | str, batch: int = 1,
@@ -98,6 +102,12 @@ class _CompiledEstimator(Estimator):
             cache = EvaluationCache(disk=cache)
         self.cache = cache
         self.tuner = tuner
+        self.artifacts = None
+        if cache.disk is not None and self.generator.target.measurement != "roofline":
+            from repro_torch.evaluation.artifact_store import ArtifactStore, store_enabled
+
+            if store_enabled():
+                self.artifacts = ArtifactStore(cache.disk.path)
 
     def _program_key(self, name: str, candidate: BuiltModel, sig=None):
         """Key for values the program determines, scoped by the target's
@@ -187,8 +197,11 @@ class _CompiledEstimator(Estimator):
         batch: the generator places both on the device for each run and
         counts them in the candidate's peak.  Drawing them is device work, so
         it holds the measurement gate: a sibling process's timing must not
-        run beside it."""
+        run beside it.  With a store attached, a stored program is loaded
+        and bound to those weights instead of generating (read-through),
+        and a generated one is stored (write-through)."""
         schedules, sig = plan if plan is not None else (None, None)
+        key = self._program_key("artifact", candidate, sig)
 
         def produce():
             device = resolve_device(self.generator.target.device)
@@ -197,10 +210,17 @@ class _CompiledEstimator(Estimator):
                 gen = torch.Generator(device=device).manual_seed(0)
                 model = candidate.init(gen, device).to("cpu")
             x = torch.zeros((self.batch, l, c), dtype=torch.float32)
-            return self.generator.generate(model, (x,), schedules=schedules)
+            if self.artifacts is not None:
+                loaded = self.artifacts.get(key, target=self.generator.target,
+                                            fn=model, example_args=(x,))
+                if loaded is not None:
+                    return loaded
+            generated = self.generator.generate(model, (x,), schedules=schedules)
+            if self.artifacts is not None:
+                self.artifacts.put(key, generated)
+            return generated
 
-        artifact = self.cache.get_or_compute(
-            self._program_key("artifact", candidate, sig), produce)
+        artifact = self.cache.get_or_compute(key, produce)
         if artifact.target is not self.generator.target:
             # generated for a sibling target of the same mesh scope: the
             # program is the same, but its measurement is this target's
@@ -274,6 +294,9 @@ class CompiledMemoryEstimator(_CompiledEstimator):
             if self.generator.target.device != "cuda":
                 return float(self._count(candidate, plan).peak_bytes)
             artifact = self._artifact(candidate, plan)
+            if "peak_bytes_per_device" not in artifact.memory:
+                # loaded from a store entry that no process ran
+                artifact.memory.update(self.generator.run_once(artifact))
             return float(artifact.memory["peak_bytes_per_device"])
 
         return self.cache.get_or_compute(self._program_key(self.name, candidate, plan[1]),

@@ -30,17 +30,28 @@ are the forward counted on the ``meta`` device
 ``latency_s`` at ``metric: modelled`` uses, so one count serves both and
 nothing is placed or run.  The decode step and the simulation are the
 reference's arithmetic, step for step.
+
+The reference's compile also leaves each candidate's executable in the
+artifact store.  Here, with a store attached (a disk cache), the
+estimators export the candidate's program at ``(max_batch, L, C)``
+(:func:`~repro_torch.hwgen.generator.export_candidate`, a trace on fake
+tensors: nothing is placed or launched) and put it under the
+``artifact`` key the boot reads, so ``serve --from-report`` boots a
+serving-only exploration's winner without generating.
 """
 from __future__ import annotations
 
 import json
 from typing import Any, Dict, Optional
 
+import torch
+
 from repro_torch.core.builder import BuiltModel
 from repro_torch.evaluation.cache import EvaluationCache
 from repro_torch.evaluation.estimators import _CompiledEstimator
 from repro_torch.explorer.registry import ESTIMATORS
 from repro_torch.hwgen.autotune import ScheduleTuner
+from repro_torch.hwgen.generator import Artifact
 from repro_torch.hwgen.roofline import roofline_terms
 from repro_torch.hwgen.targets import TargetSpec
 from repro_torch.launch.traffic import ServingCosts, ServingSim
@@ -80,8 +91,25 @@ class _ServingEstimator(_CompiledEstimator):
     def _forward_terms(self, candidate: BuiltModel, plan):
         """Chip-independent (flops, bytes, collective) of the full-batch
         forward, counted on ``meta``; the entry ``latency_s`` at
-        ``metric: modelled`` reads at the same batch."""
-        return self._roofline_terms(candidate, plan)
+        ``metric: modelled`` reads at the same batch.  With a store
+        attached, the forward's program is stored too."""
+        terms = self._roofline_terms(candidate, plan)
+        self._store_program(candidate, plan)
+        return terms
+
+    def _store_program(self, candidate: BuiltModel, plan) -> None:
+        """Put the candidate's exported program under its ``artifact``
+        key, unless the store has it: no weights are drawn, nothing is
+        placed or run, and no generate is counted."""
+        if self.artifacts is None:
+            return
+        key = self._program_key("artifact", candidate, plan[1])
+        if key in self.artifacts:
+            return
+        l, c = candidate.input_shape[-1], candidate.input_shape[0]
+        x = torch.empty((self.batch, l, c), dtype=torch.float32, device="meta")
+        self.artifacts.put(key, Artifact(target=self.generator.target, fn=candidate,
+                                         example_args=(x,), schedules=plan[0]))
 
     def _prefill_bound_s(self, candidate: BuiltModel, plan) -> float:
         """Roofline bound of one (max_batch, L, C) prompt forward."""

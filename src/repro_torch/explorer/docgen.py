@@ -145,3 +145,25 @@ def fidelity_markdown() -> str:
         note="Exactly one of the three keys; stage scores scalarize "
              "through the experiment aggregator, lower = better.")
     return "\n".join(parts).rstrip() + "\n"
+
+
+def serving_markdown() -> str:
+    """The experiment reference's ``serving`` and ``serving.traffic``
+    tables, as the reference renders them."""
+    from repro_torch.explorer.experiment import ServingSpec
+    from repro_torch.launch.traffic import TrafficSpec
+
+    parts = _spec_table(
+        "serving", ServingSpec,
+        note="The serving section the traffic-shaped estimators "
+             "(`prefill_latency_s`, `decode_latency_s`, "
+             "`kv_cache_peak_bytes`, `throughput_tok_s`, `p99_latency_s`) "
+             "evaluate candidates under, and the configuration "
+             "`python -m repro_torch.launch.serve --from-report` boots with.  "
+             "Omitting the section leaves the defaults.")
+    parts += _spec_table(
+        "serving.traffic", TrafficSpec,
+        note="A declared, seeded traffic mix: the same seed replays the "
+             "same arrivals, lengths and prompt tokens on every backend, so "
+             "fixed-seed sweeps rank serving criteria deterministically.")
+    return "\n".join(parts).rstrip() + "\n"

@@ -800,7 +800,9 @@ class ServingSpec:
     load it sees.  Injected into estimators that accept a ``serving``
     kwarg (the :mod:`repro_torch.evaluation.serving` family), so sweeps
     rank candidates by p99 latency / throughput *under the declared
-    traffic mix* rather than single-request kernel time."""
+    traffic mix* rather than single-request kernel time.  Recorded in the
+    report for ``python -m repro_torch.launch.serve --from-report``, which
+    serves the winner under the same traffic."""
 
     traffic: "Any" = None  # TrafficSpec; default built in __post_init__
     max_batch: int = 8

@@ -29,8 +29,7 @@ CUDA, ``host_cpu`` on the CPU).  :class:`Explorer` takes the device the
 caller asked for (CUDA unless told otherwise, as every entry point of the
 port) and refuses a target that runs elsewhere, so nothing quietly runs
 on the CPU in place of the card; the zero-cost proxies of a ``fidelity``
-section run there too.  Not ported yet: the report's ``artifacts``
-summary (the executable store, ROADMAP.md Queue 1 item 8).
+section run there too.
 """
 from __future__ import annotations
 
@@ -374,6 +373,10 @@ class ExplorationReport:
     # actually produced this report must travel with it or cross-target
     # comparisons stop being interpretable
     target: Optional[Dict[str, Any]] = None
+    # content-addressed program store summary (directory + entry count)
+    # when the experiment had a disk cache: everything a server needs to
+    # warm-boot --from-report without generating
+    artifacts: Optional[Dict[str, Any]] = None
     # the complete experiment spec, so the report self-describes and a
     # sweep can detect that a persisted cell still matches its spec
     spec: Optional[Dict[str, Any]] = None
@@ -650,6 +653,17 @@ class Explorer:
             return None
         return tuner.records() or None
 
+    def _artifacts_report(self) -> Optional[Dict[str, Any]]:
+        """Program-store summary: where the programs live and how many the
+        exploration persisted (what serve --from-report loads).  None
+        without a disk cache tier."""
+        from repro_torch.evaluation.artifact_store import ArtifactStore, store_enabled
+
+        if self.spec.cache.dir is None or not store_enabled():
+            return None
+        store = ArtifactStore(self.spec.cache.dir)
+        return {"dir": store.path, "entries": len(store)}
+
     def _build_report(self, wall_clock: float) -> ExplorationReport:
         from repro_torch.evaluation.disk_cache import toolchain_versions
 
@@ -680,6 +694,7 @@ class Explorer:
             cache=_aggregate_cache_stats(study.trials),
             fidelity=self._fidelity_report(),
             kernel_tuning=self._kernel_tuning_report(),
+            artifacts=self._artifacts_report(),
             wall_clock_s=wall_clock,
             toolchain=toolchain_versions(),
             target=TARGETS.get(spec.target).to_dict(),

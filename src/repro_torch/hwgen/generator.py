@@ -15,6 +15,16 @@ Two usage modes, mirroring the paper:
   2. hardware-in-the-loop: a cost estimator generates + benchmarks every
      candidate and feeds the measurement back into the study.
 
+:func:`export_candidate` turns a candidate into a program of ``(params,
+x)`` with no weights in it (``torch.export``, traced on fake tensors of
+the target's device under the plan's schedules, the kernels recorded as
+their registered ops with their tiles): what the artifact store
+(:mod:`repro_torch.evaluation.artifact_store`) keeps, as the reference's
+keeps an executable that draws its parameters at each use.  An artifact
+loaded from the store carries that program, and every run of it calls the
+program on the artifact's seed-0 weights instead of the candidate's own
+forward; the kernels it launches are the same.
+
 ``HardwareManager.benchmark`` times eager forwards: with CUDA events on
 the card, with the host clock on the CPU.  A ``roofline`` target
 (``edge_npu``) is never run: its artifact stays on the host, and its
@@ -31,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import tempfile
 import threading
@@ -64,6 +75,15 @@ class Artifact:
     # the kernel schedules every run of ``fn`` is resolved under (None:
     # each kernel's call site and default decide)
     schedules: Optional[Mapping[str, Any]] = None
+    # a program of (params, x) loaded from the artifact store; when set,
+    # a run calls it on ``fn``'s weights in place of ``fn``'s forward
+    program: Optional[Callable] = None
+
+    def __call__(self, *args):
+        """One forward: ``fn``'s own, or the loaded program on its weights."""
+        if self.program is None:
+            return self.fn(*args)
+        return self.program(dict(self.fn.named_parameters()), *args)
 
 
 def _on_meta(value):
@@ -84,6 +104,49 @@ def meta_forward(fn: Callable, example_args: Tuple):
                      list(fn.named_parameters()) + list(fn.named_buffers())}
             return torch.func.functional_call(fn, state, args)
         return fn(*args)
+
+
+class _Program(torch.nn.Module):
+    """A candidate's forward as a function of ``(params, x)``: the
+    candidate is held outside the module tree, so none of its tensors
+    becomes the program's."""
+
+    def __init__(self, candidate: torch.nn.Module):
+        super().__init__()
+        self.__dict__["candidate"] = candidate
+
+    def forward(self, params, x):
+        return torch.func.functional_call(self.candidate, params, (x,))
+
+
+def export_candidate(candidate, example_args: Tuple, target: TargetSpec,
+                     schedules: Optional[Mapping[str, Any]] = None):
+    """``candidate`` (a ``BuiltModel``) as a ``torch.export``
+    ``ExportedProgram`` of ``(params, x)``, ``params`` its
+    ``{state-dict name: tensor}`` mapping: an instance of its layers with
+    weights on ``meta`` run through ``torch.func.functional_call``, traced
+    on fake tensors of ``example_args``' shapes on ``target``'s device,
+    with ``schedules`` active.  The kernels' tiles and chunks are baked in
+    as constants, and the program holds no weights.  Nothing is placed,
+    run or launched (no card is needed to trace for one), and
+    :func:`generate_call_count` does not move."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core.builder import BuiltModel
+
+    shell = BuiltModel(candidate.layers, candidate.input_shape, candidate.output_dim,
+                       candidate.arch, candidate.preprocess)
+    device = torch.device(target.device)
+    leaves = [(name, p.shape, p.dtype) for name, p in shell.named_parameters()]
+    with FakeTensorMode():
+        params = {name: torch.empty(shape, dtype=dtype, device=device)
+                  for name, shape, dtype in leaves}
+        args = tuple(torch.empty(a.shape, dtype=a.dtype, device=device) for a in example_args)
+        with torch.no_grad(), ksched.use_schedules(schedules):
+            program = torch.export.export(_Program(shell), (params, *args), strict=False)
+    # fake tensors: nothing to keep, and reading them back would unpickle
+    program.example_inputs = None
+    return program
 
 
 def _nbytes(t) -> int:
@@ -217,6 +280,19 @@ def measurement_gate(device: Optional[torch.device] = None) -> Iterator[None]:
                 unlock_file(f, how)
 
 
+@functools.lru_cache(maxsize=None)
+def _start_blas(device: torch.device) -> None:
+    """Make cuBLAS's handles and their workspaces (32 MiB on an H100, kept
+    for the life of the process) before this process's first measurement.
+    Made during a candidate's forward, the workspace is held after it, and
+    the peak rule (less what is held after) would take it off a peak it
+    had no part in: a spawned worker's first conv candidate read 0.37x the
+    peak the same candidate reads in a process that started cuBLAS before."""
+    a = torch.ones((8, 8), device=device)
+    torch.nn.functional.linear(a, a, a[0])
+    torch.cuda.synchronize(device)
+
+
 @contextlib.contextmanager
 def _placed(fn: Callable, example_args: Tuple, device: torch.device):
     """Yield copies of ``example_args``' tensors on ``device``, with ``fn``
@@ -273,23 +349,39 @@ class TorchGenerator:
                             memory=memory, schedules=schedules)
         with _generate_count_lock:
             _generate_count += 1
+        artifact = Artifact(target=self.target, fn=fn, example_args=example_args,
+                            memory=memory, schedules=schedules)
+        memory.update(self.run_once(artifact))
+        return artifact
+
+    def run_once(self, artifact: Artifact) -> Dict[str, int]:
+        """Place ``artifact`` on the target's device, run it once and take
+        it off again; returns its memory record (``peak_bytes_per_device``
+        on CUDA, the rule of :meth:`generate`; empty on the CPU).  For an
+        artifact from the store whose record lacks a peak (a serving
+        exploration stores programs it never ran); not a generate."""
         device = resolve_device(self.target.device)
         cuda = device.type == "cuda"
+        memory: Dict[str, int] = {}
         with measurement_gate(device):
             if cuda:
+                _start_blas(device)
                 torch.cuda.synchronize(device)
                 torch.cuda.reset_peak_memory_stats(device)
-            with _placed(fn, example_args, device) as args:
-                with torch.inference_mode(), ksched.use_schedules(schedules):
-                    fn(*args)
+                held_before = torch.cuda.memory_allocated(device)
+            with _placed(artifact.fn, artifact.example_args, device) as args:
+                with torch.inference_mode(), ksched.use_schedules(artifact.schedules):
+                    artifact(*args)
                 del args
             if cuda:
                 torch.cuda.synchronize(device)
+                held_after = torch.cuda.memory_allocated(device)
                 memory["peak_bytes_per_device"] = int(
-                    torch.cuda.max_memory_allocated(device)
-                    - torch.cuda.memory_allocated(device))
-        return Artifact(target=self.target, fn=fn, example_args=example_args,
-                        memory=memory, schedules=schedules)
+                    torch.cuda.max_memory_allocated(device) - held_after)
+                # what the card held before and after: the peak rule's terms
+                memory["held_before_bytes"] = int(held_before)
+                memory["held_after_bytes"] = int(held_after)
+        return memory
 
 
 class HardwareManager:
@@ -317,23 +409,23 @@ class HardwareManager:
                     "memory_s": r.memory_s, "collective_s": r.collective_s,
                     "measured": 0.0}
         device = resolve_device(artifact.target.device)
-        fn = artifact.fn
-        with measurement_gate(device), _placed(fn, artifact.example_args, device) as args, \
+        with measurement_gate(device), _placed(artifact.fn, artifact.example_args,
+                                               device) as args, \
                 torch.inference_mode(), ksched.use_schedules(artifact.schedules):
             for _ in range(self.warmup):
-                fn(*args)
+                artifact(*args)
             if device.type == "cuda":
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
                 for _ in range(self.iters):
-                    fn(*args)
+                    artifact(*args)
                 end.record()
                 end.synchronize()
                 dt = start.elapsed_time(end) / 1e3 / self.iters
             else:
                 t0 = time.perf_counter()
                 for _ in range(self.iters):
-                    fn(*args)
+                    artifact(*args)
                 dt = (time.perf_counter() - t0) / self.iters
         return {"latency_s": dt, "measured": 1.0}

@@ -15,20 +15,30 @@ with its requested and effective schedules and the tiles it launches.
 The CUDA flash kernel is built for a set of tile pairs at each head dim
 (:func:`flash_takes`); :func:`flash_launch_tiles` maps the effective blocks
 onto the largest built pair at or below them.  Then the wrapper checks
-device, dtype, shape and layout, and:
+shapes, dtypes and devices, and calls its registered op
+(``torch.ops.repro_torch.flash_attention``, ``::ssm_scan``,
+``::mlstm_scan``) with the schedule's tiles or chunk as ints.  The op
+makes the device choice:
 
-* on CPU tensors, runs the kernel's plain PyTorch version from
+* on CPU tensors, it runs the kernel's plain PyTorch version from
   :mod:`repro_torch.kernels.ref` (that is how the CPU tests reach it);
-* on CUDA tensors, launches the kernel on the current stream, or raises.
-  There is no fallback: a failed build or launch is an error;
-* on ``meta`` tensors (the autotuner's discovery pass), returns empty
-  outputs of the right shapes: nothing is computed or launched.
+* on CUDA tensors, it checks dtype and layout and launches the kernel on
+  the current stream, or raises.  There is no fallback: a failed build or
+  launch is an error;
+* on ``meta`` and fake tensors (the autotuner's discovery pass, the
+  counted forward, ``torch.export``), its fake implementation returns
+  empty outputs of the right shapes: nothing is computed or launched.
 
-``LAUNCHES[name]`` counts the kernel launches each wrapper made, so a
-run can show that its main path went through the kernels.  The kernels
-are forward-only: on CUDA a wrapper refuses inputs that would need a
+Because the launch sits behind a registered op, ``torch.export`` records
+the op, tiles included, in the program it traces, and a program loaded
+in another process launches the same kernel; that process must import
+this module first, which registers the ops.  ``LAUNCHES[name]`` counts
+the kernel launches each op made, so a run, or a loaded program, can
+show that its main path went through the kernels.  The kernels are
+forward-only: on CUDA a wrapper refuses inputs that would need a
 gradient through it (:func:`_refuse_grad`), rather than return outputs
-that silently cut it.  :func:`kernel_work` gives the operations and bytes
+that silently cut it; on the CPU the op's gradient is the plain
+version's.  :func:`kernel_work` gives the operations and bytes
 of one call, from its recorded shapes: the bound ``chip_smoke.py`` holds
 each kernel to and the kernels' share of ``metric: modelled``.
 """
@@ -87,6 +97,31 @@ def _refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
             f"train on impl=\"xla\", as the reference does. Run the kernel under "
             f"torch.no_grad() or inference_mode, or on the CPU, where the plain "
             f"version is differentiable")
+
+
+def _plain_backward(op, name: str, plain, n_grad: int) -> None:
+    """Register ``op``'s autograd formula: the gradient of its plain
+    version, recomputed from the saved inputs (the first ``n_grad`` are
+    tensors).  Only the CPU reaches it (on CUDA the wrappers refuse a
+    gradient first)."""
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:n_grad])
+        ctx.rest = inputs[n_grad:]
+
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        if any(t.device.type != "cpu" for t in saved):
+            raise NotImplementedError(f"{name}: the CUDA kernel is forward-only")
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in saved]
+            outs = plain(*leaves, *ctx.rest)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+            got = torch.autograd.grad([o for o, _ in pairs], leaves,
+                                      [g for _, g in pairs], allow_unused=True)
+        return (*got, *([None] * len(ctx.rest)))
+
+    op.register_autograd(backward, setup_context=setup_context)
 
 
 def _flash_pairs(s: int, t: int, causal: bool, window: Optional[int]) -> int:
@@ -256,21 +291,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               "dtype": _dtype_name(q.dtype)},
         launched=None if tiles is None else {"block_q": tiles[0], "block_kv": tiles[1]})
     scale = float(scale) if scale is not None else d ** -0.5
+    if q.device.type == "cuda":
+        _refuse_grad("flash_attention", q, k, v)
+    block_q, block_kv = tiles if tiles is not None else (0, 0)
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal), window, scale,
+                                                 block_q, block_kv)
 
-    if q.device.type == "meta":
-        return torch.empty((b, s, h, d), dtype=q.dtype, device="meta")
+
+def _flash_plain(q, k, v, causal, window, scale, block_q, block_kv):
+    out = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  causal=causal, window=window, scale=scale)
+    return out.transpose(1, 2).contiguous()
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              window: Optional[int], scale: float, block_q: int,
+              block_kv: int) -> torch.Tensor:
+    """The flash kernel's launch with (``block_q``, ``block_kv``) tiles
+    (0, 0: none is built for this head dim and dtype), or on the CPU its
+    plain version.  :func:`flash_attention` is the checked entry point."""
     if q.device.type == "cpu":
-        out = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                      v.transpose(1, 2), causal=causal,
-                                      window=window, scale=scale)
-        return out.transpose(1, 2)
+        return _flash_plain(q, k, v, causal, window, scale, block_q, block_kv)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-
-    _refuse_grad("flash_attention", q, k, v)
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, not {q.dtype}")
-    if d % 4 or d > _FLASH_MAX_D or tiles is None:
+    if d % 4 or d > _FLASH_MAX_D or block_q == 0:
         raise ValueError(f"the CUDA kernel takes a head dim that is a multiple "
                          f"of 4 and at most {_FLASH_MAX_D}, not {d}")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -293,13 +342,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
-            int(bool(causal)), 0 if window is None else int(window), scale,
-            tiles[0], tiles[1], stream)
+            int(causal), 0 if window is None else int(window), scale,
+            block_q, block_kv, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err} "
-                           f"(tiles {tiles} at D={d}, {q.dtype})")
+                           f"(tiles {(block_q, block_kv)} at D={d}, {q.dtype})")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, window, scale, block_q, block_kv):
+    return q.new_empty(q.shape)
+
+
+_plain_backward(_flash_op, "flash_attention", _flash_plain, 3)
 
 
 def bind_ssm(lib: ctypes.CDLL):
@@ -373,15 +430,27 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"x, b, c dtypes differ: {x.dtype}, {b_grouped.dtype}, "
                          f"{c_grouped.dtype}")
 
-    if x.device.type == "meta":
-        return (torch.empty((bsz, l, h, p), dtype=x.dtype, device="meta"),
-                torch.empty((bsz, h, n, p), dtype=torch.float32, device="meta"))
+    if x.device.type == "cuda":
+        _refuse_grad("ssm_scan", *tensors)
+    return torch.ops.repro_torch.ssm_scan(x, dt, a, b_grouped, c_grouped, chunk)
+
+
+def _ssm_plain(x, dt, a, b_grouped, c_grouped, chunk):
+    y, state = ref.ssm_scan_ref(x, dt, a, b_grouped, c_grouped, chunk=chunk)
+    return y.contiguous(), state.contiguous()
+
+
+@torch.library.custom_op("repro_torch::ssm_scan", mutates_args=())
+def _ssm_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_grouped: torch.Tensor,
+            c_grouped: torch.Tensor, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan kernel's launch at ``chunk``, or on the CPU its plain
+    version.  :func:`ssm_scan` is the checked entry point."""
     if x.device.type == "cpu":
-        return ref.ssm_scan_ref(x, dt, a, b_grouped, c_grouped, chunk=chunk)
+        return _ssm_plain(x, dt, a, b_grouped, c_grouped, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu, not {x.device}")
-
-    _refuse_grad("ssm_scan", *tensors)
+    bsz, l, h, p = x.shape
+    g, n = b_grouped.shape[2], b_grouped.shape[3]
     if x.dtype not in _DTYPES:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, not {x.dtype}")
     for name, t in (("x", x), ("b", b_grouped), ("c", c_grouped)):
@@ -415,6 +484,16 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")
     LAUNCHES["ssm_scan"] += 1
     return y, state
+
+
+@_ssm_op.register_fake
+def _ssm_fake(x, dt, a, b_grouped, c_grouped, chunk):
+    bsz, l, h, p = x.shape
+    n = b_grouped.shape[3]
+    return x.new_empty((bsz, l, h, p)), x.new_empty((bsz, h, n, p), dtype=torch.float32)
+
+
+_plain_backward(_ssm_op, "ssm_scan", _ssm_plain, 5)
 
 
 _MLSTM_MAX_P = 1024
@@ -469,14 +548,25 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
 
-    if q.device.type == "meta":
-        return torch.empty((bsz, l, h, p), dtype=q.dtype, device="meta"), None
+    if q.device.type == "cuda":
+        _refuse_grad("mlstm_scan", *tensors)
+    return torch.ops.repro_torch.mlstm_scan(q, k, v, i_log, f_log, chunk), None
+
+
+def _mlstm_plain(q, k, v, i_log, f_log, chunk):
+    return ref.mlstm_scan_ref(q, k, v, i_log, f_log, chunk=chunk).contiguous()
+
+
+@torch.library.custom_op("repro_torch::mlstm_scan", mutates_args=())
+def _mlstm_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_log: torch.Tensor,
+              f_log: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The mLSTM scan kernel's launch at ``chunk``, or on the CPU its plain
+    version.  :func:`mlstm_scan` is the checked entry point."""
     if q.device.type == "cpu":
-        return ref.mlstm_scan_ref(q, k, v, i_log, f_log, chunk=chunk), None
+        return _mlstm_plain(q, k, v, i_log, f_log, chunk)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_scan runs on cuda or cpu, not {q.device}")
-
-    _refuse_grad("mlstm_scan", *tensors)
+    bsz, l, h, p = q.shape
     if q.dtype not in _DTYPES:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, not {q.dtype}")
     if p % 4 or p > _MLSTM_MAX_P:
@@ -491,7 +581,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     i_log, f_log = i_log.float(), f_log.float()
     out = torch.empty((bsz, l, h, p), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
-        return out, None
+        return out
     fn, floats = _mlstm_fns()
     scratch = torch.empty((floats(bsz, l, h, p, chunk),), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -511,4 +601,12 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"block's shared memory with v streamed, which at P=1024 is a chunk "
             f"above 2048; every chunk a schedule allows, up to 1024, fits)")
     LAUNCHES["mlstm_scan"] += 1
-    return out, None
+    return out
+
+
+@_mlstm_op.register_fake
+def _mlstm_fake(q, k, v, i_log, f_log, chunk):
+    return q.new_empty(q.shape)
+
+
+_plain_backward(_mlstm_op, "mlstm_scan", _mlstm_plain, 5)

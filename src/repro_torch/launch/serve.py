@@ -1,9 +1,25 @@
-"""Serving driver: the continuous-batching engine over a language model.
+"""Serving driver: continuous-batching engine + artifact-store warm boot.
 
-One traffic-shaped request loop (bounded admission queue, continuous
-batching up to a concurrency limit, graceful shedding when the queue is
-full), driven by a deterministic seeded
-:class:`~repro_torch.launch.traffic.TrafficSpec`::
+Two modes share one traffic-shaped request loop (bounded admission
+queue, continuous batching up to a concurrency limit, graceful shedding
+when the queue is full), driven by a deterministic seeded
+:class:`~repro_torch.launch.traffic.TrafficSpec`.
+
+Report mode serves the winning candidate of an exploration::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --from-report results/serving.report.json --expect-compiles 0
+
+It rebuilds the best architecture from the report's recorded trial
+params and loads its program from the artifact store the exploration
+filled (:mod:`repro_torch.evaluation.artifact_store`): a warm boot
+generates nothing (``compiles`` in the JSON summary counts generates;
+``--expect-compiles 0`` enforces it).  It runs on the report target's
+device: the seed-0 weights are placed there once, and each joining
+batch's input is copied there and run through the loaded program, which
+launches the kernels the exploration measured.
+
+LM mode serves a language model::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --requests 8 --max-batch 4 --queue-limit 8
@@ -245,6 +261,137 @@ def _serve_lm(args):
 
 
 # ---------------------------------------------------------------------------
+# report mode: warm-boot the exploration winner from the artifact store
+# ---------------------------------------------------------------------------
+
+def rebuild_best(report: Dict[str, Any]):
+    """(candidate, spec): the report's best architecture, rebuilt from its
+    recorded trial params through a trial whose params are preset."""
+    from repro_torch.core.builder import ModelBuilder
+    from repro_torch.core.space import parse_search_space
+    from repro_torch.core.translate import sample_architecture
+    from repro_torch.explorer.experiment import ExperimentSpec
+    from repro_torch.search.trial import Trial
+
+    if not report.get("best"):
+        raise SystemExit("report has no best trial to serve")
+    spec = ExperimentSpec.from_dict(report["spec"])
+    space = parse_search_space(dict(spec.search_space))
+    trial = Trial(number=report["best"].get("number", 0), study=None)
+    trial.params = dict(report["best"]["params"])
+    arch = sample_architecture(space, trial)
+    recorded = report["best"].get("signature")
+    if recorded is not None and arch.signature() != recorded:
+        raise SystemExit(
+            f"rebuilt architecture signature {arch.signature()!r} does not "
+            f"match the report's {recorded!r}; the search space or builder "
+            f"changed since the exploration")
+    builder = ModelBuilder(space.input_shape, space.output_dim)
+    return builder.build(arch), spec
+
+
+def _serve_report(args) -> Dict[str, Any]:
+    """Boot the report's winner (from the store, or by generating it) and
+    serve the report's traffic through it, one forward per joining batch."""
+    from repro_torch.evaluation.serving import _ServingEstimator
+    from repro_torch.explorer.experiment import ServingSpec
+    from repro_torch.hwgen.generator import generate_call_count
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import schedule as ksched
+    from repro_torch.launch.traffic import ServingCosts, ServingSim
+
+    with open(args.from_report) as f:
+        report = json.load(f)
+    candidate, spec = rebuild_best(report)
+    serving = spec.serving if spec.serving is not None else ServingSpec()
+    if args.requests:
+        serving.traffic.n_requests = args.requests
+    if spec.cache.dir is None:
+        print("warning: report's experiment had no cache dir; the boot "
+              "will generate instead of loading", file=sys.stderr)
+
+    est = _ServingEstimator(target=spec.target, serving=serving, cache=spec.cache.dir)
+    device = resolve_device(est.generator.target.device)
+    before = generate_call_count()
+    t0 = time.perf_counter()
+    # the winner's kernel schedules, as the exploration tuned or searched
+    # them: the program key names them, so a tuned exploration's program
+    # is the one found
+    schedules = (report.get("kernel_tuning") or {}).get("schedules")
+    plan = est._schedule_plan(candidate, {"schedules": schedules} if schedules else None)
+    t_plan = time.perf_counter()
+    artifact = est._artifact(candidate, plan)
+    t_artifact = time.perf_counter()
+    artifact.fn.to(device)  # the seed-0 weights, placed once
+    boot_s = time.perf_counter() - t0
+    boot_parts = {"plan_s": t_plan - t0, "artifact_s": t_artifact - t_plan,
+                  "place_s": boot_s - (t_artifact - t0)}
+    compiles = generate_call_count() - before
+
+    # the admission/shedding/batching model the estimators ranked this
+    # candidate by, with the booted program run once per joining batch
+    requests = serving.traffic.requests()
+    queue = RequestQueue(serving.queue_limit)
+    pending = sorted(requests, key=lambda r: (r.arrival_s, r.id))
+    seq_len = max(1, int(candidate.input_shape[-1]))
+    costs = ServingCosts(
+        prefill_s_per_token=est._prefill_bound_s(candidate, plan)
+        / (serving.max_batch * seq_len),
+        decode_step_s=est._decode_step_s(candidate))
+    now, served, batches = 0.0, 0, 0
+    l, c = int(candidate.input_shape[-1]), int(candidate.input_shape[0])
+    launches = dict(ops.LAUNCHES)
+    t1 = time.perf_counter()
+    with torch.inference_mode(), ksched.use_schedules(artifact.schedules):
+        while pending or len(queue):
+            _admit(queue, pending, now)
+            if not len(queue):
+                now = max(now, pending[0].arrival_s)
+                _admit(queue, pending, now)
+            group = []
+            while len(queue) and len(group) < serving.max_batch:
+                group.append(queue.take())
+            if not group:
+                continue
+            xb = np.zeros((serving.max_batch, l, c), np.float32)
+            for i, req in enumerate(group):
+                rng = np.random.default_rng(req.token_seed)
+                xb[i] = rng.standard_normal((l, c)).astype(np.float32)
+            artifact(torch.from_numpy(xb).to(device))
+            served += len(group)
+            batches += 1
+            now += sum(r.prompt_len for r in group) * costs.prefill_s_per_token \
+                + costs.decode_step_s
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    exec_s = time.perf_counter() - t1
+
+    sim = ServingSim(max_batch=serving.max_batch,
+                     queue_limit=serving.queue_limit).run(requests, costs)
+    return {
+        "mode": "report",
+        "experiment": report.get("experiment"),
+        "signature": candidate.arch.signature(),
+        "target": spec.target,
+        "device": str(device),
+        "compiles": compiles,
+        "artifact_store": est.artifacts.stats() if est.artifacts else None,
+        "boot_s": boot_s,
+        "boot_parts": boot_parts,
+        "served": served,
+        "shed": len(queue.shed),
+        "batches": batches,
+        "exec_s": exec_s,
+        "launches": {k: v - launches.get(k, 0) for k, v in ops.LAUNCHES.items()
+                     if v != launches.get(k, 0)},
+        "traffic": serving.traffic.to_dict(),
+        "modelled": {k: sim[k] for k in
+                     ("p50_latency_s", "p99_latency_s", "throughput_tok_s",
+                      "peak_concurrency")},
+    }
+
+
+# ---------------------------------------------------------------------------
 # CLI
 # ---------------------------------------------------------------------------
 
@@ -276,11 +423,15 @@ def _traffic_from_args(args) -> TrafficSpec:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--arch", default=None,
-                   help="serve a named LM architecture (default: the "
-                        "qwen3-1.7b smoke config)")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--arch", default=None,
+                      help="serve a named LM architecture (default: the "
+                           "qwen3-1.7b smoke config)")
+    mode.add_argument("--from-report", default=None,
+                      help="serve an exploration report's best candidate, "
+                           "loading its program from the artifact store")
     p.add_argument("--smoke", action="store_true",
-                   help="reduced same-family config")
+                   help="reduced same-family config (LM mode)")
     p.add_argument("--requests", type=int, default=0,
                    help="number of requests (0 = traffic default)")
     p.add_argument("--arrival", default="burst",
@@ -296,13 +447,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tick-ms", type=float, default=10.0,
                    help="simulated admission clock per engine iteration")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="where to serve (default cuda; there is no fallback)")
+                   help="where to serve in LM mode (default cuda; there is no "
+                        "fallback); report mode serves on the report target's "
+                        "device")
+    p.add_argument("--expect-compiles", type=int, default=None,
+                   help="exit nonzero if the boot generated more candidates "
+                        "than this (report mode)")
     return p
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     args = build_parser().parse_args(argv)
-    if args.arch is None:
+    if args.arch is None and args.from_report is None:
         args.arch = "qwen3-1.7b"
         args.smoke = True
     return args
@@ -311,10 +467,18 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> int:
     args = parse_args(argv)
     try:
-        summary, _ = _serve_lm(args)
+        if args.from_report:
+            summary = _serve_report(args)
+        else:
+            summary, _ = _serve_lm(args)
     except NoCudaCardError as e:
         raise SystemExit(f"serve: {e}") from None
     print(json.dumps(summary))
+    if args.expect_compiles is not None and args.from_report:
+        if summary["compiles"] > args.expect_compiles:
+            print(f"FAIL: boot generated {summary['compiles']} candidate(s), "
+                  f"expected <= {args.expect_compiles}", file=sys.stderr)
+            return 1
     return 0
 
 

@@ -513,6 +513,27 @@ class ThreadExecutor(BaseExecutor):
             lambda f, trial=trial: self._complete(trial, lambda: _future_outcome(f)))
 
 
+def numerics_flags() -> Dict[str, Any]:
+    """This process's settings that decide how fp32 matrix products and
+    convolutions round on CUDA: TF32 for matmuls and for cuDNN, and the
+    float32 matmul precision."""
+    import torch
+
+    return {"matmul_allow_tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+            "cudnn_allow_tf32": bool(torch.backends.cudnn.allow_tf32),
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+
+
+def apply_numerics_flags(flags: Dict[str, Any]) -> None:
+    """Set :func:`numerics_flags` in this process (a spawned worker's
+    initializer).  The precision first: it also sets the matmul flag."""
+    import torch
+
+    torch.set_float32_matmul_precision(flags["float32_matmul_precision"])
+    torch.backends.cuda.matmul.allow_tf32 = flags["matmul_allow_tf32"]
+    torch.backends.cudnn.allow_tf32 = flags["cudnn_allow_tf32"]
+
+
 @EXECUTORS.register("process")
 class ProcessExecutor(BaseExecutor):
     """Evaluate trials in spawned worker processes (a forked child of a
@@ -558,8 +579,15 @@ class ProcessExecutor(BaseExecutor):
             self._start_dir = tempfile.mkdtemp(prefix="repro-trial-blame-")
 
     def _make_pool(self, n_workers: int) -> ProcessPoolExecutor:
+        """A pool of spawned workers that start with this process's fp32
+        numerics flags (:func:`numerics_flags`): a spawned interpreter
+        starts from torch's defaults, which let cuDNN convolutions take TF32,
+        so a worker would run other algorithms, with other workspaces and
+        values, than the process that spawned it."""
         ctx = multiprocessing.get_context(self.mp_context)
-        return ProcessPoolExecutor(max_workers=n_workers, mp_context=ctx)
+        return ProcessPoolExecutor(max_workers=n_workers, mp_context=ctx,
+                                   initializer=apply_numerics_flags,
+                                   initargs=(numerics_flags(),))
 
     def _restart_pool(self, broken: ProcessPoolExecutor) -> None:
         """Replace a broken pool exactly once: the first in-flight future
