@@ -89,6 +89,19 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    ``REPRO_ARTIFACTS=0`` it generates once; the loaded program's output
    against the eager candidate's (printed; expected equal bit for bit)
    and against the plain versions (1e-3 of its max);
+6h. remote: the remote worker pool.  ``warmup()`` in a spawned process
+   (its split: import, CUDA context, kernel libraries, cuBLAS, the first
+   meta forward's imports), then 2 daemons (``python -m
+   repro_torch.worker``) and their own splits; the explore phase's spec
+   through ``executor: remote`` and serially: every trial in a daemon,
+   flash and ``ssm_scan`` launched there, the serial best trial, each
+   latency within 5% and peak within 1%; again with SIGTERM to one daemon
+   while it measures: resubmitted at once on its ``shutdown`` frame, every
+   trial completed, the same best trial, the measurement gate free after;
+   the sweep phase's kernel sweep fanned to the surviving daemon: both
+   cells computed there and persisted here, the local sweep's best trials
+   (or a trial it measured within 5% of one),
+   a resumed re-run doing nothing; no degradation warning anywhere;
 7. the mLSTM scan against its plain version (fp32 and bf16, timed as in
    3), at the xlstm-1.3b forward's shape and smaller ones; the forward's
    shape and batch 4 at 512 also with the kernel's device time from
@@ -2168,7 +2181,8 @@ def sweep_phase(torch, ops, ref, nas=None) -> dict:
     and with 2 spawned workers, through ``Explorer``: every trial must
     complete and both runs must find the same best trial.
 
-    Returns the kernel sweep's launches by cell."""
+    Returns the kernel sweep's launches by cell and, by cell, its best
+    trial and each trial's signature and ``latency_s``."""
     import tempfile
 
     from repro_torch.core.space import parse_search_space
@@ -2224,6 +2238,7 @@ def sweep_phase(torch, ops, ref, nas=None) -> dict:
             "report_dir": f"{tmp}/kernels"})
         report, watch = _watched_sweep(torch, ops, ref, spec)
         rows = _cell_rows(report, watch)
+        kernel_cells = _kernel_cells(rows)
         for row in rows:
             print("sweep_kernels " + json.dumps(row))
         random_cell, grid_cell = rows
@@ -2327,7 +2342,7 @@ def sweep_phase(torch, ops, ref, nas=None) -> dict:
             raise AssertionError(f"sweep hw_parallel on h100: the workers' flags {flags} "
                                  f"are not the parent's, or the peaks of trials {apart} "
                                  f"differ from the serial run's by more than {NAS_PEAK_REL}")
-    return launches
+    return {"launches": launches, "kernel_cells": kernel_cells}
 
 
 def serving_phase(torch, ops) -> dict:
@@ -2602,6 +2617,471 @@ def report_boot_phase(torch, ops, ref) -> dict:
                 or check["max_abs_diff_eager"] > tol:
             raise AssertionError(f"report_boot: the loaded program {check}")
     return {"explore": explore_row, "warm": warm, "cold": cold, "check": check}
+
+
+REMOTE_DAEMONS = 2
+REMOTE_LATENCY_REL = 0.05  # the cascade's limit: a trial's latency_s, daemon vs serial
+REMOTE_START_S = 300.0  # a daemon's start: interpreter, torch, CUDA, the libraries
+REMOTE_EXIT_S = 60.0  # a daemon's exit after SIGTERM
+# the remote layer's degradations: each turns the run into a local one, or
+# loses a daemon, so none may pass unseen
+REMOTE_WARNINGS = ("remote worker", "degrading", "sweep worker", "sweep cell",
+                   "quarantin", "failed after")
+
+
+def _start_daemon(cache_dir) -> dict:
+    """``python -m repro_torch.worker --port 0 --cache-dir <cache_dir>`` as
+    a child process; its output is drained by a thread into ``lines``."""
+    import subprocess
+    import threading
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + (os.pathsep + env["PYTHONPATH"]
+                                    if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.worker", "--port", "0",
+         "--cache-dir", str(cache_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
+    daemon = {"proc": proc, "pid": proc.pid, "t0": t0, "lines": []}
+    threading.Thread(target=lambda: daemon["lines"].extend(
+        iter(proc.stdout.readline, "")), daemon=True).start()
+    return daemon
+
+
+def _await_daemon(daemon) -> None:
+    """Wait for the daemon's ``listening on`` line; parse it and its
+    ``warmed up:`` line's parts into the daemon's record."""
+    deadline = daemon["t0"] + REMOTE_START_S
+    while time.perf_counter() < deadline:
+        listening = [line for line in list(daemon["lines"]) if line.startswith("listening on ")]
+        if listening:
+            daemon["addr"] = listening[0].split()[-1]
+            daemon["start_to_listening_s"] = time.perf_counter() - daemon["t0"]
+            warm = next(line for line in daemon["lines"] if line.startswith("warmed up: "))
+            daemon["parts"] = {k: None if v == "-" else float(v) for k, v in (
+                field.split("=") for field in warm.split() if "=" in field)}
+            return
+        if daemon["proc"].poll() is not None:
+            break
+        time.sleep(0.05)
+    raise AssertionError(f"remote: daemon {daemon['pid']} did not listen within "
+                         f"{REMOTE_START_S} s (exit {daemon['proc'].poll()}): "
+                         f"{''.join(daemon['lines'])[-4000:]}")
+
+
+def _stop_daemon(daemon, sig=None) -> dict:
+    """SIGTERM (or ``sig``) the daemon and wait for it; SIGKILL it after
+    ``REMOTE_EXIT_S``.  Returns how it ended."""
+    import signal
+
+    proc = daemon["proc"]
+    if proc.poll() is None:
+        t0 = time.perf_counter()
+        proc.send_signal(sig or signal.SIGTERM)
+        try:
+            proc.wait(timeout=REMOTE_EXIT_S)
+            return {"exit_code": proc.returncode, "exit_s": time.perf_counter() - t0}
+        except Exception:
+            proc.kill()
+            proc.wait(timeout=REMOTE_EXIT_S)
+            return {"exit_code": proc.returncode, "killed_after_s": REMOTE_EXIT_S}
+    return {"exit_code": proc.returncode}
+
+
+def _gate_free(path) -> bool:
+    import fcntl
+
+    with open(path, "a+b") as f:
+        try:
+            fcntl.flock(f.fileno(), fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            return False
+        fcntl.flock(f.fileno(), fcntl.LOCK_UN)
+        return True
+
+
+def _remote_trials(explorer) -> list:
+    return [{"number": t.number, "state": t.state.value,
+             "signature": t.user_attrs.get("signature"),
+             "latency_s": t.user_attrs.get("latency_s"),
+             "peak_bytes": t.user_attrs.get("peak_bytes"),
+             "kernel_schedules": t.user_attrs.get("kernel_schedules"),
+             "pid": (t.user_attrs.get("worker") or {}).get("pid"),
+             "launches": (t.user_attrs.get("worker") or {}).get("launches") or {}}
+            for t in explorer.study.trials]
+
+
+def _launch_delta(trials, seen) -> dict:
+    """Kernel launches over a run, from the trials' cumulative per-process
+    counts, less what each process had launched before the run (``seen``,
+    updated)."""
+    total = {}
+    for pid in {t["pid"] for t in trials}:
+        now = {}
+        for t in trials:
+            if t["pid"] == pid:
+                for k, n in t["launches"].items():
+                    now[k] = max(now.get(k, 0), n)
+        before = seen.get(pid, {})
+        for k, n in now.items():
+            total[k] = total.get(k, 0) + n - before.get(k, 0)
+        seen[pid] = {**before, **now}
+    return total
+
+
+def _remote_warnings(caught) -> list:
+    return [str(w.message) for w in caught
+            if any(p in str(w.message) for p in REMOTE_WARNINGS)]
+
+
+def _explore_run(torch, spec) -> tuple:
+    """``Explorer.from_dict(spec).run()``, with the remote layer's warnings
+    recorded; returns the explorer, its report, the wall and the warnings."""
+    import warnings
+
+    from repro_torch.explorer.explorer import Explorer
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        explorer = Explorer.from_dict(spec)
+        report = explorer.run(save_report=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    return explorer, report, wall_s, _remote_warnings(caught)
+
+
+def _against_serial(label, trials, serial, pids, failures) -> dict:
+    """A run's trials against the serial run's: all complete, each in a
+    daemon (``pids``), each latency within ``REMOTE_LATENCY_REL`` and peak
+    within ``NAS_PEAK_REL``; the same signatures.  What fails is added to
+    ``failures``."""
+    by_number = {t["number"]: t for t in serial}
+    latency = {t["number"]: t["latency_s"] / by_number[t["number"]]["latency_s"]
+               for t in trials}
+    peak = {t["number"]: t["peak_bytes"] / by_number[t["number"]]["peak_bytes"]
+            for t in trials}
+    summary = {
+        "states": sorted({t["state"] for t in trials}),
+        "not_in_a_daemon": [t["number"] for t in trials if t["pid"] not in pids],
+        "signatures_equal": [t["signature"] for t in trials] == [t["signature"] for t in serial],
+        "latency_over_serial": [min(latency.values()), max(latency.values())],
+        "peak_over_serial": [min(peak.values()), max(peak.values())],
+        "latency_apart": {n: r for n, r in latency.items() if abs(r - 1) > REMOTE_LATENCY_REL},
+        "peak_apart": {n: r for n, r in peak.items() if abs(r - 1) > NAS_PEAK_REL},
+    }
+    if (summary["states"] != ["complete"] or summary["not_in_a_daemon"]
+            or not summary["signatures_equal"] or summary["latency_apart"]
+            or summary["peak_apart"] or len(trials) != NAS_TRIALS):
+        failures.append(f"remote {label}: {summary}")
+    return summary
+
+
+def _kernel_sweep_spec(report_dir) -> dict:
+    """The sweep phase's kernel sweep (``explore_spec`` by samplers random 0
+    and grid 0) without a disk cache, so every cell measures its candidates
+    wherever it runs."""
+    base = explore_spec("serial", 1, report_dir)
+    base.pop("cache")
+    return {"name": "sweep-kernels", "base": base,
+            "axes": {"samplers": SWEEP_SMALL["axes"]["samplers"]},
+            "report_dir": str(report_dir)}
+
+
+def _sweep_bests(report) -> dict:
+    return {c["name"]: [(c["best"] or {}).get("number"), (c["best"] or {}).get("signature")]
+            for c in report.cells}
+
+
+def _kernel_cells(rows) -> dict:
+    """By cell of a watched sweep: its best trial [number, signature] and
+    each trial's [signature, latency_s]."""
+    return {row["cell"]: {"best": [row["best"]["number"], row["best"]["signature"]],
+                          "trials": {t["number"]: [t["signature"], t["latency_s"]]
+                                     for t in row["trials"]}}
+            for row in rows}
+
+
+def _local_kernel_sweep(torch, report_dir) -> dict:
+    """The kernel sweep without a disk cache, run here; ``_kernel_cells``
+    of it."""
+    from repro_torch.explorer import sweep as sweep_mod
+    from repro_torch.explorer.explorer import Explorer
+
+    trials, run = {}, Explorer.run
+
+    def watched_run(self, *args, **kwargs):
+        try:
+            return run(self, *args, **kwargs)
+        finally:
+            trials[self.spec.name] = [{
+                "number": t.number, "signature": t.user_attrs.get("signature"),
+                "latency_s": t.user_attrs.get("latency_s")} for t in self.study.trials]
+
+    with mock.patch.object(Explorer, "run", watched_run):
+        report = sweep_mod.run_sweep(sweep_mod.SweepSpec.from_dict(
+            _kernel_sweep_spec(report_dir)))
+    torch.cuda.synchronize()
+    return _kernel_cells([{"cell": c["name"], "best": c["best"], "trials": trials[c["name"]]}
+                          for c in report.cells])
+
+
+def _same_best(bests, local) -> dict:
+    """Each cell's best trial against the local sweep's: the same trial,
+    or a near tie (the local run measured the two within
+    ``REMOTE_LATENCY_REL`` of each other); the signature the local sweep
+    gave that trial number."""
+    out = {}
+    for name, (number, signature) in bests.items():
+        cell = local[name]
+        mine, theirs = cell["trials"][number], cell["trials"][cell["best"][0]]
+        out[name] = {"best": number, "local_best": cell["best"][0],
+                     "signature_is_the_local_trials": signature == mine[0],
+                     "local_latency_over_local_best": mine[1] / theirs[1]}
+        out[name]["ok"] = (out[name]["signature_is_the_local_trials"]
+                           and mine[1] <= theirs[1] * (1 + REMOTE_LATENCY_REL))
+    return out
+
+
+def remote_phase(torch, ops, local_sweep=None) -> dict:
+    """The remote worker pool on the card.  ``warmup()`` once in a process
+    of the ``spawn`` context (its split is printed as
+    ``remote_warmup_spawn``); then ``REMOTE_DAEMONS`` daemons
+    (``python -m repro_torch.worker --port 0 --cache-dir <tmp>``) started
+    together, their ``warmed up:`` parts printed as ``remote_warmup``.
+
+    (a) ``explore_spec`` through ``executor: remote`` at the daemons, then
+    serially on another fresh cache: every trial in a daemon, flash and
+    ``ssm_scan`` launched there (differences of the daemons' cumulative
+    counts), the serial run's best trial, each ``latency_s`` within
+    ``REMOTE_LATENCY_REL`` and each ``peak_bytes`` within ``NAS_PEAK_REL``
+    of the serial run's.  (b) The same spec again without a disk cache
+    (the daemons' store would answer every value): SIGTERM to one daemon
+    once it has finished a trial and holds the measurement gate for its
+    next; the ``shutdown`` frame must make the client resubmit at once
+    (the loss is "announced shutdown", not a heartbeat timeout), every
+    trial completes with the serial best trial, the daemon exits, and the
+    gate is free after it.  (c) ``run_sweep`` of the kernel sweep with
+    ``workers=[the survivor]``: both cells computed over the wire and
+    persisted by this process, each cell's best trial the local sweep's
+    or, where the local sweep measured the two within
+    ``REMOTE_LATENCY_REL``, a near tie of it, with the signature the local
+    sweep gave that trial (``local_sweep``: the sweep phase's
+    ``kernel_cells``, else run here), and a resumed second run does
+    nothing.  Any of the remote layer's
+    degradation warnings fails the phase."""
+    import multiprocessing
+    import tempfile
+    import threading
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.explorer import sweep as sweep_mod
+    from repro_torch.explorer.explorer import Explorer
+    from repro_torch.hwgen.generator import measurement_gate_path
+    from repro_torch.search.remote.executor import RemoteExecutor
+    from repro_torch.search.remote.worker import warmup
+
+    t_phase = t0 = time.perf_counter()
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        spawned = pool.submit(warmup, "cuda").result()
+    spawned["submit_to_result_s"] = time.perf_counter() - t0
+    print("remote_warmup_spawn " + json.dumps(spawned))
+
+    gate = measurement_gate_path(torch.device("cuda", 0))
+    daemons, failures = [], []  # the phase runs to its end, then raises
+    with tempfile.TemporaryDirectory(prefix="remote-") as tmp:
+        try:
+            free_before = torch.cuda.mem_get_info()[0]
+            daemons = [_start_daemon(f"{tmp}/daemon_store") for _ in range(REMOTE_DAEMONS)]
+            for daemon in daemons:
+                _await_daemon(daemon)
+            addrs = [d["addr"] for d in daemons]
+            pids = {d["pid"] for d in daemons}
+            print("remote_warmup " + json.dumps({
+                "daemons": [{k: d[k] for k in ("pid", "addr", "start_to_listening_s", "parts")}
+                            for d in daemons],
+                "card_free_bytes_before": free_before,
+                "card_free_bytes_with_daemons": torch.cuda.mem_get_info()[0]}))
+
+            # -- (a) the explore spec on the daemons, then serially ----------
+            seen = {}
+            spec = explore_spec("remote", REMOTE_DAEMONS, f"{tmp}/cache_remote")
+            spec["executor"]["workers"] = addrs
+            explorer, report, wall_remote, warned = _explore_run(torch, spec)
+            remote = _remote_trials(explorer)
+            launched = _launch_delta(remote, seen)
+            serial_explorer, serial_report, wall_serial, _ = _explore_run(
+                torch, explore_spec("serial", 1, f"{tmp}/cache_serial"))
+            serial = _remote_trials(serial_explorer)
+            explore = {
+                "wall_s": {"remote": wall_remote, "serial": wall_serial},
+                "best": {"remote": report.best, "serial": serial_report.best},
+                "launches_in_daemons": launched, "warnings": warned,
+                "trials": remote, "serial_trials": serial,
+                **_against_serial("explore", remote, serial, pids, failures)}
+            print("remote_explore " + json.dumps(explore))
+            if (warned or any(launched.get(k, 0) <= 0 for k in ("flash_attention", "ssm_scan"))
+                    or report.best["number"] != serial_report.best["number"]):
+                failures.append(f"remote explore: warnings {warned}, launches in the "
+                                f"daemons {launched}, best {report.best['number']} "
+                                f"against the serial {serial_report.best['number']}")
+
+            # -- (b) SIGTERM to a daemon mid-run ------------------------------
+            victim, survivor = daemons
+            kill = {"done": {}, "lost": []}
+            collect, on_lost = RemoteExecutor._collect, RemoteExecutor._on_worker_lost
+
+            def kill_when_measuring(client):
+                # SIGTERM once the victim runs its next trial while the gate
+                # is held: by the victim for sure when the survivor is idle;
+                # failing that within 0.5 s, held by either; within 1.5 s,
+                # the victim merely busy (how it was is recorded)
+                armed, state = time.perf_counter(), None
+                while time.perf_counter() < armed + 30.0:
+                    with client._lock:
+                        busy = {w.addr: w.busy.key.number if w.busy else None
+                                for w in client._workers}
+                    in_flight = busy.get(victim["addr"])
+                    held = in_flight is not None and not _gate_free(gate)
+                    waited = time.perf_counter() - armed
+                    if held and busy.get(survivor["addr"]) is None:
+                        state = "gate held, survivor idle: the victim measuring"
+                    elif held and waited > 0.5:
+                        state = "gate held, survivor busy too"
+                    elif in_flight is not None and waited > 1.5:
+                        state = "victim busy, gate free"
+                    if state:
+                        break
+                    time.sleep(0.002)
+                kill.update(in_flight=in_flight, killed_while=state,
+                            t_kill=time.perf_counter())
+                os.kill(victim["pid"], 15)
+
+            def watched_collect(self, study, trial, value, error, worker_addr):
+                out = collect(self, study, trial, value, error, worker_addr)
+                kill["done"][trial.number] = (time.perf_counter(), worker_addr)
+                if worker_addr == victim["addr"] and "armed" not in kill:
+                    kill["armed"] = trial.number
+                    threading.Thread(target=kill_when_measuring, args=(self._client,),
+                                     daemon=True).start()
+                return out
+
+            def watched_lost(self, worker_addr, reason):
+                kill["lost"].append([worker_addr, reason, time.perf_counter()])
+                return on_lost(self, worker_addr, reason)
+
+            spec = explore_spec("remote", REMOTE_DAEMONS, f"{tmp}/cache_kill")
+            spec.pop("cache")
+            spec["executor"]["workers"] = addrs
+            with mock.patch.object(RemoteExecutor, "_collect", watched_collect), \
+                    mock.patch.object(RemoteExecutor, "_on_worker_lost", watched_lost):
+                explorer, report, wall_kill, warned = _explore_run(torch, spec)
+            killed = _remote_trials(explorer)
+            ended = _stop_daemon(victim)
+            t_kill = kill.get("t_kill")
+            lost = [[a, r, t - t_kill] for a, r, t in kill["lost"]] if t_kill else kill["lost"]
+            resubmitted = kill["done"].get(kill.get("in_flight"))
+            row = {
+                "wall_s": wall_kill, "victim_pid": victim["pid"],
+                "victims_first_trial": kill.get("armed"), "in_flight": kill.get("in_flight"),
+                "killed_while": kill.get("killed_while"),
+                "lost": lost, "warnings": warned,
+                "in_flight_done_after_s": None if resubmitted is None or t_kill is None
+                else resubmitted[0] - t_kill,
+                "in_flight_done_by": None if resubmitted is None else resubmitted[1],
+                "victim_ended": ended, "gate_free_after": _gate_free(gate),
+                "best": report.best, "launches_in_daemons": _launch_delta(killed, seen),
+                "trials": killed, **_against_serial("kill", killed, serial, pids, failures)}
+            print("remote_kill " + json.dumps(row))
+            unexpected = [w for w in warned
+                          if not (victim["addr"] in w and "announced shutdown" in w)]
+            if (t_kill is None or row["in_flight"] is None
+                    or [a for a, r, _ in lost] != [victim["addr"]]
+                    or lost[0][1] != "worker announced shutdown" or unexpected
+                    or row["in_flight_done_by"] != survivor["addr"]
+                    or "killed_after_s" in ended or not row["gate_free_after"]
+                    or report.best["number"] != serial_report.best["number"]):
+                failures.append(f"remote kill: {json.dumps(row)[:3000]}")
+
+            # -- (c) the kernel sweep's cells over the wire ---------------------
+            if local_sweep is None:
+                local_sweep = _local_kernel_sweep(torch, f"{tmp}/sweep_local")
+            persisted, local_runs, dispatched = [], [], []
+            persist, run, dispatch = (sweep_mod._persist_cell_report, Explorer.run,
+                                      sweep_mod._dispatch_cells)
+
+            cell_launches = {}
+
+            def watched_persist(cell, report_dict):
+                persisted.append(cell.name)
+                cell_launches[cell.name] = report_dict.get("kernel_launches") or {}
+                return persist(cell, report_dict)
+
+            def watched_run(self, *args, **kwargs):
+                local_runs.append(self.spec.name)
+                return run(self, *args, **kwargs)
+
+            def watched_dispatch(addrs_, cells):
+                dispatched.append([c.name for c in cells])
+                return dispatch(addrs_, cells)
+
+            import warnings
+
+            rows = {}
+            spec = sweep_mod.SweepSpec.from_dict(_kernel_sweep_spec(f"{tmp}/sweep_remote"))
+            for attempt in ("first", "resumed"):
+                for record in (persisted, local_runs, dispatched):
+                    record.clear()
+                with mock.patch.object(sweep_mod, "_persist_cell_report", watched_persist), \
+                        mock.patch.object(Explorer, "run", watched_run), \
+                        mock.patch.object(sweep_mod, "_dispatch_cells", watched_dispatch), \
+                        warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    t0 = time.perf_counter()
+                    swept = sweep_mod.run_sweep(spec, workers=[survivor["addr"]])
+                    wall = time.perf_counter() - t0
+                # the survivor's cumulative counts, as each cell's report
+                # carries them, less what it had launched before the sweep
+                cumulative = {}
+                for counts in cell_launches.values():
+                    for k, n in counts.items():
+                        cumulative[k] = max(cumulative.get(k, 0), n)
+                before = seen.get(survivor["pid"], {})
+                seen[survivor["pid"]] = {**before, **cumulative}
+                rows[attempt] = {
+                    "wall_s": wall, "n_resumed": swept.n_resumed,
+                    "dispatched": list(dispatched), "persisted": list(persisted),
+                    "run_here": list(local_runs), "warnings": _remote_warnings(caught),
+                    "bests": _same_best(_sweep_bests(swept), local_sweep),
+                    "launches_in_daemon": {k: n - before.get(k, 0)
+                                           for k, n in cumulative.items()}}
+                cell_launches.clear()
+                print(f"remote_sweep_{attempt} " + json.dumps(rows[attempt]))
+            first, again = rows["first"], rows["resumed"]
+            if (first["n_resumed"] != 0 or sorted(first["persisted"]) != sorted(local_sweep)
+                    or first["run_here"] or first["warnings"]
+                    or not all(c["ok"] for c in first["bests"].values())
+                    or again["n_resumed"] != 2
+                    or any(first["launches_in_daemon"].get(k, 0) <= 0
+                           for k in ("flash_attention", "ssm_scan"))
+                    or again["dispatched"] or again["persisted"] or again["run_here"]
+                    or again["bests"] != first["bests"]):
+                failures.append(f"remote sweep: {rows}")
+            survivor_ended = _stop_daemon(survivor)
+        finally:
+            for daemon in daemons:
+                if daemon["proc"].poll() is None:
+                    daemon["proc"].kill()
+                    daemon["proc"].wait(timeout=REMOTE_EXIT_S)
+    summary = {"phase_s": time.perf_counter() - t_phase, "survivor_ended": survivor_ended,
+               "wall_s": {"explore_remote": wall_remote, "explore_serial": wall_serial,
+                          "kill": wall_kill, "sweep": first["wall_s"]}}
+    print("remote_summary " + json.dumps(summary))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"explore": launched, "kill": row["launches_in_daemons"],
+            "sweep": first["launches_in_daemon"]}
 
 
 def _launched_since(ops, before) -> dict:
@@ -3020,7 +3500,8 @@ TRAIN_PHASES = {
     "val_accuracy": val_accuracy_phase,
 }
 SUBSET_PHASES = ("flash", "ssm", "nas", "modelled", "explore", "cascade", "sweep",
-                 "serving", "report_boot", "mlstm", *MODEL_PHASES, *TRAIN_PHASES)
+                 "serving", "report_boot", "remote", "mlstm", *MODEL_PHASES,
+                 *TRAIN_PHASES)
 
 
 def main(argv=None) -> int:
@@ -3084,6 +3565,7 @@ def main(argv=None) -> int:
     if subset:
         gen = torch.Generator(device="cuda").manual_seed(0)
         nas = None  # the modelled phase prints the nas phase's latency_s when it ran
+        swept = None  # the remote phase compares with the sweep phase's kernel sweep
         for name in subset:
             if name == "flash":
                 flash_rule_check(ops)
@@ -3099,11 +3581,13 @@ def main(argv=None) -> int:
             elif name == "cascade":
                 cascade_phase(torch, ops)
             elif name == "sweep":
-                sweep_phase(torch, ops, ref, nas)
+                swept = sweep_phase(torch, ops, ref, nas)
             elif name == "serving":
                 serving_phase(torch, ops)
             elif name == "report_boot":
                 report_boot_phase(torch, ops, ref)
+            elif name == "remote":
+                remote_phase(torch, ops, swept and swept["kernel_cells"])
             elif name == "mlstm":
                 mlstm_phase(torch, ops, ref, gen)
             elif name in MODEL_PHASES:
@@ -3214,6 +3698,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     booted = report_boot_phase(torch, ops, ref)
 
+    # -- 6h. the remote worker pool: daemons measuring candidates ------------
+    torch.cuda.empty_cache()
+    remote = remote_phase(torch, ops, sweep["kernel_cells"])
+
     # -- 7. the mLSTM scan against its plain version -----------------------
     mlstm_rows = mlstm_phase(torch, ops, ref, gen)
 
@@ -3267,7 +3755,7 @@ def main(argv=None) -> int:
                                 r["screening_launches"].get("flash_attention", 0)
                                 for name, r in cascade.items()},
                              **{f"sweep_{cell}": n.get("flash_attention", 0)
-                                for cell, n in sweep.items()},
+                                for cell, n in sweep["launches"].items()},
                              "zamba2_forward": zfwd["launches"].get("flash_attention", 0),
                              "zamba2_serve": zserve["flash_attention_launches"],
                              "moe_forward": moe["launches"].get("flash_attention", 0),
@@ -3280,6 +3768,8 @@ def main(argv=None) -> int:
                                  booted["explore"]["launches"].get("flash_attention", 0),
                              "report_boot_served":
                                  booted["warm"]["launches"].get("flash_attention", 0),
+                             **{f"remote_{run}": n.get("flash_attention", 0)
+                                for run, n in remote.items()},
                              **{path: n.get("flash_attention", 0)
                                 for path, n in trained_paths.items()}},
         "max_abs_err": served["max_abs_err"], "ms": served["ms"],
@@ -3299,12 +3789,14 @@ def main(argv=None) -> int:
                                 r["screening_launches"].get("ssm_scan", 0)
                                 for name, r in cascade.items()},
                              **{f"sweep_{cell}": n.get("ssm_scan", 0)
-                                for cell, n in sweep.items()},
+                                for cell, n in sweep["launches"].items()},
                              "zamba2_forward": zfwd["launches"].get("ssm_scan", 0),
                              "zamba2_serve": zserve["ssm_scan_launches"],
                              "report_boot_explore":
                                  booted["explore"]["launches"].get("ssm_scan", 0),
                              "report_boot_served": booted["warm"]["launches"].get("ssm_scan", 0),
+                             **{f"remote_{run}": n.get("ssm_scan", 0)
+                                for run, n in remote.items()},
                              **{path: n.get("ssm_scan", 0)
                                 for path, n in trained_paths.items()}},
         "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],

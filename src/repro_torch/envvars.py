@@ -2,9 +2,9 @@
 
 Each knob is declared exactly once, with its parser, default, and the
 documented malformed-value fallback; the readers
-(:mod:`repro.hwgen.generator`, :mod:`repro.evaluation.disk_cache`,
-:mod:`repro.kernels.ops`, :mod:`repro.search.remote`,
-``benchmarks/bench_roofline.py``) consult this
+(:mod:`repro_torch.evaluation.disk_cache`,
+:mod:`repro_torch.evaluation.artifact_store`, :mod:`repro_torch.faults`,
+:mod:`repro_torch.search.remote`, ...) consult this
 registry through :func:`read_env`, and ``scripts/gen_docs.py`` renders
 ``docs/reference/env.md`` from the same entries — the prose cannot drift
 from the behaviour because they share one source of truth.
@@ -15,8 +15,9 @@ the variable were unset — a typo'd shell export must not explode at
 first compile deep inside a worker thread.  Unset or blank values are
 silent and use the caller's default.
 
-Must stay import-light (stdlib only): :mod:`repro.kernels.ops` reads it
-on the kernel hot path and :mod:`repro.evaluation.disk_cache` at cache
+Must stay import-light (stdlib only): the worker daemon
+(:mod:`repro_torch.search.remote.worker`) reads it before torch is
+imported and :mod:`repro_torch.evaluation.disk_cache` at cache
 construction, neither of which may pull in the search stack.
 """
 from __future__ import annotations
@@ -67,7 +68,7 @@ def read_env(name: str, default: Any) -> Any:
     except KeyError:
         raise KeyError(
             f"environment variable {name!r} is not registered in "
-            f"repro.envvars.ENV_VARS; declare it there so docs/reference/"
+            f"repro_torch.envvars.ENV_VARS; declare it there so docs/reference/"
             f"env.md stays complete"
         ) from None
     raw = os.environ.get(name)
@@ -113,7 +114,7 @@ def _positive_float(raw: str) -> float:
 
 
 def _faults_plan(raw: str):
-    # Deferred import: repro.faults is stdlib-only, but envvars must not
+    # Deferred import: repro_torch.faults is stdlib-only, but envvars must not
     # pull it in unless the knob is actually set.
     from repro_torch.faults import FaultPlan
 
@@ -153,7 +154,8 @@ register_env(EnvVar(
     default="`cpu_count / 2` (minimum 1)",
     malformed=("warns and uses the default; values below 1 clamp to 1 "
                "(a zero would deadlock every compile)"),
-    consulted_by="`repro/hwgen/generator.py`",
+    consulted_by="`repro/hwgen/generator.py` (the JAX package; the port's "
+                 "generator has no compile gate to size)",
 ))
 
 register_env(EnvVar(
@@ -169,7 +171,7 @@ register_env(EnvVar(
         "every time)."),
     default="unset — the store grows without bound (append-only)",
     malformed="warns and leaves the store unbounded",
-    consulted_by="`repro/evaluation/disk_cache.py`",
+    consulted_by="`repro_torch/evaluation/disk_cache.py`",
 ))
 
 register_env(EnvVar(
@@ -179,14 +181,15 @@ register_env(EnvVar(
     description=(
         "Overrides the store directory of every disk evaluation cache "
         "opened in the process, regardless of the path the spec or "
-        "constructor asked for.  Worker daemons (`python -m repro.worker "
+        "constructor asked for.  Worker daemons (`python -m repro_torch.worker "
         "--cache-dir ...`) set it so experiment specs shipped from a "
         "submitting host — whose `cache.dir` names a path that only "
         "exists over there — land in the worker's local or "
         "cluster-shared store instead."),
     default="unset — the spec/constructor path is used as-is",
     malformed="not applicable — every non-blank value is a valid path",
-    consulted_by="`repro/evaluation/disk_cache.py`",
+    consulted_by="`repro_torch/evaluation/disk_cache.py`, "
+                 "`repro_torch/evaluation/artifact_store.py`",
 ))
 
 register_env(EnvVar(
@@ -201,7 +204,7 @@ register_env(EnvVar(
         "CLI work without editing the experiment YAML."),
     default="unset — the executor requires an explicit worker list",
     malformed="warns and behaves as unset",
-    consulted_by="`repro/search/remote/executor.py`",
+    consulted_by="`repro_torch/search/remote/executor.py`",
 ))
 
 register_env(EnvVar(
@@ -218,7 +221,7 @@ register_env(EnvVar(
         "executor option wins over the environment."),
     default="10.0",
     malformed="warns and uses the default",
-    consulted_by="`repro/search/remote/client.py`",
+    consulted_by="`repro_torch/search/remote/client.py`",
 ))
 
 register_env(EnvVar(
@@ -233,7 +236,7 @@ register_env(EnvVar(
         "environment."),
     default="2.0",
     malformed="warns and uses the default",
-    consulted_by="`repro/search/remote/worker.py`",
+    consulted_by="`repro_torch/search/remote/worker.py`",
 ))
 
 register_env(EnvVar(
@@ -249,7 +252,7 @@ register_env(EnvVar(
         "`retries` executor option wins over the environment."),
     default="2",
     malformed="warns and uses the default",
-    consulted_by="`repro/search/remote/client.py`",
+    consulted_by="`repro_torch/search/remote/client.py`",
 ))
 
 register_env(EnvVar(
@@ -262,7 +265,8 @@ register_env(EnvVar(
         "hosts — CI, this container — validate the TPU kernels."),
     default="enabled unless running on a TPU backend",
     malformed="not applicable — every non-blank value parses as a flag",
-    consulted_by="`repro/kernels/ops.py`",
+    consulted_by="`repro/kernels/ops.py` (the JAX package; the port's "
+                 "kernels have no interpret mode)",
 ))
 
 register_env(EnvVar(
@@ -278,7 +282,7 @@ register_env(EnvVar(
         "environment."),
     default="2",
     malformed="warns and uses the default",
-    consulted_by="`repro/evaluation/proxies.py`",
+    consulted_by="`repro_torch/evaluation/proxies.py`",
 ))
 
 register_env(EnvVar(
@@ -294,18 +298,18 @@ register_env(EnvVar(
         "environment."),
     default="8 (the full built-in candidate grid)",
     malformed="warns and uses the default",
-    consulted_by="`repro/hwgen/autotune.py`",
+    consulted_by="`repro_torch/hwgen/autotune.py`",
 ))
 
 register_env(EnvVar(
     name="REPRO_FAULTS",
     parse=_faults_plan,
     expected=("a fault-plan string: `seed=N;site:action[@k=v,...];...` "
-              "(see `repro/faults.py`)"),
+              "(see `repro_torch/faults.py`)"),
     description=(
         "Deterministic fault-injection plan, installed at import and "
         "inherited by spawned process workers and `python -m "
-        "repro.worker` daemons.  Rules name a site "
+        "repro_torch.worker` daemons.  Rules name a site "
         "(`disk_cache.read/write`, `study.persist`, "
         "`transport.send/recv`, `worker.trial`, `executor.submit`, "
         "`compile`) and an action (`raise`, `kill`, `delay`, `corrupt`, "
@@ -317,7 +321,7 @@ register_env(EnvVar(
         "see the same plan."),
     default="unset — injection disabled, the fault points are no-ops",
     malformed="warns and leaves injection disabled",
-    consulted_by="`repro/faults.py`",
+    consulted_by="`repro_torch/faults.py`",
 ))
 
 register_env(EnvVar(
@@ -353,7 +357,7 @@ register_env(EnvVar(
         "`quarantine_after` executor option wins over the environment."),
     default="2",
     malformed="warns and uses the default",
-    consulted_by="`repro/search/executors.py`, `repro/search/remote/executor.py`",
+    consulted_by="`repro_torch/search/executors.py`, `repro_torch/search/remote/executor.py`",
 ))
 
 register_env(EnvVar(

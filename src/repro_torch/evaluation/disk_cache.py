@@ -48,9 +48,8 @@ one-line ``RuntimeWarning`` per store.  If a mount grants ``flock``
 worst case is a torn JSONL line, which readers already skip as corrupt
 and rewrite on the next store; the cache degrades to extra recomputes,
 never to wrong values.  ``REPRO_CACHE_DIR`` overrides the store
-directory for every cache opened in the process (the JAX package's
-remote workers use it; the port has no remote backend yet, ROADMAP.md
-Queue 1 item 12).
+directory for every cache opened in the process (worker daemons,
+``python -m repro_torch.worker --cache-dir``, set it).
 
 The store is warm-loaded at construction (study/estimator setup time)
 and refreshed incrementally on miss, so a restarted study starts with

@@ -10,6 +10,9 @@ on the port::
         examples/experiments/sweep_small.yaml \
         --axis targets=host_cpu,edge_npu --device cpu
     PYTHONPATH=src python -m repro_torch.explorer --list-components
+    PYTHONPATH=src python -m repro_torch.explorer \
+        examples/experiments/remote.yaml --device cpu   # daemons first:
+    PYTHONPATH=src python -m repro_torch.worker --device cpu --port 7471
 
 Candidates run on CUDA unless ``--device cpu`` is given, and the spec's
 target must run on that device (``h100``: cuda, ``host_cpu``: cpu).  A
@@ -22,6 +25,11 @@ from __future__ import annotations
 
 import argparse
 from typing import List, Optional
+
+
+def _addresses(raw: str) -> List[str]:
+    """A comma-separated ``host:port`` list, blanks dropped."""
+    return [w for w in (s.strip() for s in raw.split(",")) if w]
 
 
 def _run_experiment(argv: List[str]) -> int:
@@ -42,6 +50,9 @@ def _run_experiment(argv: List[str]) -> int:
     p.add_argument("--tell-order", default=None, choices=("trial", "completion"),
                    help="override schedule.tell_order")
     p.add_argument("--report-dir", default=None, help="override report_dir")
+    p.add_argument("--remote-workers", default=None, metavar="HOST:PORT,...",
+                   help="override executor.workers (comma-separated worker "
+                        "daemons) and switch the backend to remote")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where candidates run (default cuda); must be the "
                         "spec target's device")
@@ -54,6 +65,11 @@ def _run_experiment(argv: List[str]) -> int:
         spec.executor.backend = args.backend
     if args.workers is not None:
         spec.executor.n_workers = max(1, args.workers)
+    if args.remote_workers is not None:
+        spec.executor.workers = _addresses(args.remote_workers)
+        spec.executor.backend = "remote"
+        if args.workers is None:
+            spec.executor.n_workers = max(1, len(spec.executor.workers))
     if args.schedule is not None:
         spec.schedule.mode = args.schedule
     if args.tell_order is not None:
@@ -95,8 +111,8 @@ def _run_sweep(argv: List[str]) -> int:
     p.add_argument("--no-resume", action="store_true",
                    help="re-run every cell even when a completed report exists")
     p.add_argument("--cell-workers", default=None, metavar="HOST:PORT,...",
-                   help="fan cells across worker daemons: not ported yet "
-                        "(ROADMAP.md Queue 1 item 12), refused")
+                   help="fan non-resumed cells across these worker daemons "
+                        "(comma-separated; overrides the sweep's `workers:`)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="the device asked for (default cuda); each cell runs "
                         "on its target's, and cpu refuses a cell on cuda")
@@ -125,7 +141,7 @@ def _run_sweep(argv: List[str]) -> int:
         report = run_sweep(spec, resume=not args.no_resume,
                            overrides=overrides or None,
                            workers=None if args.cell_workers is None
-                           else args.cell_workers.split(","),
+                           else _addresses(args.cell_workers),
                            device=args.device)
     except SweepError as e:
         p.error(str(e))

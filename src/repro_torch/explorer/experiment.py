@@ -30,13 +30,10 @@ plugin registered under a new key is immediately addressable from YAML.
 Validation is eager and errors name the offending key plus the accepted
 alternatives — a typo fails at parse time, not trial 37.
 
-This is the JAX package's ``explorer/experiment.py`` on the port.  A
-section whose modules the port does not have yet raises a
-:class:`NotPortedError` (a ``NotImplementedError``) at parse time, naming
-its ROADMAP.md item: the ``remote`` executor backend.  The JAX package's
-TPU targets have no counterpart in the port and are refused by name.
-``yaml`` is imported only to read YAML (the machine with the card has no
-PyYAML; a dict spec needs none).
+This is the JAX package's ``explorer/experiment.py`` on the port.  The
+JAX package's TPU targets have no counterpart in the port and are
+refused by name.  ``yaml`` is imported only to read YAML (the machine
+with the card has no PyYAML; a dict spec needs none).
 """
 from __future__ import annotations
 
@@ -61,24 +58,8 @@ class ExperimentError(ExplorerError):
 
 
 class NotPortedError(NotImplementedError):
-    """A spec uses a section whose modules the port does not have yet; the
+    """A section or option whose modules the port does not have yet; the
     message names the ROADMAP.md item that brings them."""
-
-
-# what each unported section waits for (ROADMAP.md, Queue 1)
-NOT_PORTED = {
-    "remote": "the 'remote' executor backend is not ported yet: ROADMAP.md Queue 1 "
-              "item 12 (remote)",
-}
-
-
-def _refuse_unported(raw: Mapping[str, Any]) -> None:
-    """Raise :class:`NotPortedError` for an unported section of an
-    experiment document, before any component is looked up."""
-    executor = raw.get("executor")
-    backend = executor.get("backend") if isinstance(executor, Mapping) else executor
-    if backend == "remote":
-        raise NotPortedError(NOT_PORTED["remote"])
 
 
 def _check_target(name: str) -> None:
@@ -935,7 +916,6 @@ class ExperimentSpec:
     def from_dict(cls, raw: Mapping[str, Any],
                   base_dir: Optional[str] = None) -> "ExperimentSpec":
         raw = _require_mapping(raw, "experiment")
-        _refuse_unported(raw)
         _check_keys(raw, set(TOP_LEVEL_KEYS), "experiment")
 
         space_dict = _resolve_search_space(raw.get("search_space"), base_dir)

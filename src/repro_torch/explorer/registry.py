@@ -13,9 +13,9 @@ code can plug in new ones without touching the engine:
         ...
 
 The built-in classes self-register at import time (see
-``repro/search/samplers.py``, ``repro/search/executors.py``,
-``repro/search/pruners.py``, ``repro/evaluation/estimators.py``,
-``repro/hwgen/targets.py``); :func:`ensure_builtins` imports those
+``repro_torch/search/samplers.py``, ``repro_torch/search/executors.py``,
+``repro_torch/search/remote/executor.py``, ``repro_torch/search/pruners.py``,
+``repro_torch/evaluation/estimators.py``, ``repro_torch/hwgen/targets.py``); :func:`ensure_builtins` imports those
 modules on first lookup so a registry consulted before anything else is
 imported still sees the full built-in set.
 
@@ -129,12 +129,11 @@ def ensure_builtins() -> None:
     if _builtins_loaded:
         return
     _builtins_loaded = True
-    # the port's registering modules: the remote executor is not ported
-    # yet (ROADMAP.md Queue 1 item 12)
     import repro_torch.evaluation.estimators  # noqa: F401
     import repro_torch.evaluation.proxies  # noqa: F401
     import repro_torch.evaluation.serving  # noqa: F401
     import repro_torch.hwgen.targets  # noqa: F401
     import repro_torch.search.executors  # noqa: F401
     import repro_torch.search.pruners  # noqa: F401
+    import repro_torch.search.remote.executor  # noqa: F401
     import repro_torch.search.samplers  # noqa: F401

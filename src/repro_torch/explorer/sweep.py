@@ -38,9 +38,10 @@ stopped instead of re-paying completed cells.
 
 This is the JAX package's ``explorer/sweep.py`` on the port.  ``yaml`` is
 imported only to read YAML (the machine with the card has no PyYAML; a
-dict sweep needs none).  The remote fan-out of cells (the ``workers:``
-key, the CLI's ``--cell-workers``) waits for ROADMAP.md Queue 1 item 12
-and is refused with :class:`NotPortedError`.
+dict sweep needs none).  With ``workers:`` (or the CLI's
+``--cell-workers``) the cells that are not resumed fan out across worker
+daemons (``python -m repro_torch.worker``), each run there on its
+target's device.
 """
 from __future__ import annotations
 
@@ -61,7 +62,6 @@ from repro_torch.explorer.experiment import (
     TOP_LEVEL_KEYS,
     ExperimentError,
     ExperimentSpec,
-    NotPortedError,
     _require_mapping,
 )
 from repro_torch.explorer.registry import TARGETS, ExplorerError
@@ -77,13 +77,6 @@ AXIS_ALIASES = {"targets": "target", "samplers": "sampler",
                 "schedules": "schedule", "executors": "executor"}
 
 SWEEP_KEYS = ("name", "base", "axes", "cache", "report_dir", "workers")
-
-
-def _refuse_cell_workers() -> None:
-    raise NotPortedError(
-        "fanning sweep cells across worker daemons (the sweep's 'workers', "
-        "--cell-workers) needs the remote modules, which are not ported yet: "
-        "ROADMAP.md Queue 1 item 12 (remote)")
 
 
 def _load_yaml(path: str) -> Any:
@@ -159,14 +152,14 @@ class SweepCell:
 @dataclasses.dataclass
 class SweepSpec:
     """A validated sweep: base experiment + axes, YAML/dict round-trip.
-    Its keys are ``SWEEP_KEYS``; ``workers`` (fanning cells across worker
-    daemons) is refused until ROADMAP.md Queue 1 item 12."""
+    Its keys are ``SWEEP_KEYS``."""
 
     name: str
     base: Dict[str, Any]          # resolved experiment dict (space inlined)
     axes: Dict[str, List[Any]]    # normalized axis key -> values, in order
     cache: Optional[str] = None   # shared disk store forced into every cell
     report_dir: str = "results"
+    workers: Optional[List[str]] = None  # worker daemons to fan cells across
 
     @classmethod
     def from_dict(cls, raw: Mapping[str, Any],
@@ -177,8 +170,6 @@ class SweepSpec:
             raise SweepError(
                 f"unknown key(s) {unknown} in sweep; allowed keys: "
                 f"{sorted(SWEEP_KEYS)}")
-        if raw.get("workers") is not None:
-            _refuse_cell_workers()
 
         base_raw = raw.get("base")
         if base_raw is None:
@@ -242,12 +233,27 @@ class SweepSpec:
             cache = DEFAULT_DIR
         elif cache is False:
             cache = None
+
+        workers = raw.get("workers")
+        if workers is not None:
+            if (not isinstance(workers, (list, tuple)) or not workers
+                    or not all(isinstance(w, str) for w in workers)):
+                raise SweepError(
+                    "sweep.workers must be a non-empty list of 'host:port' "
+                    "strings")
+            for w in workers:
+                host, _, port = w.rpartition(":")
+                if not host or not port.isdigit():
+                    raise SweepError(
+                        f"sweep.workers address {w!r} is not host:port")
+            workers = [str(w) for w in workers]
         return cls(
             name=str(raw.get("name", "sweep")),
             base=base,
             axes=axes,
             cache=None if cache is None else str(cache),
             report_dir=str(raw.get("report_dir", "results")),
+            workers=workers,
         )
 
     @classmethod
@@ -264,6 +270,8 @@ class SweepSpec:
         }
         if self.cache is not None:
             d["cache"] = self.cache
+        if self.workers is not None:
+            d["workers"] = list(self.workers)
         return d
 
     # -- expansion -------------------------------------------------------------
@@ -535,6 +543,73 @@ def _load_completed_cell(cell: SweepCell) -> Optional[Dict[str, Any]]:
     return persisted
 
 
+def _run_cell(spec_dict: Dict[str, Any], device: str) -> Dict[str, Any]:
+    """Worker-side cell execution: rebuild the validated spec, run it on
+    the cell's ``device``, return the report as a plain dict
+    (module-level, so it crosses the wire as a picklable ``("call", ...)``
+    task).  The *parent* persists the report — the worker's filesystem
+    may not be the submitting host's."""
+    from repro_torch.explorer.explorer import Explorer
+
+    spec = ExperimentSpec.from_dict(spec_dict)
+    return Explorer.from_spec(spec, device=device).run(save_report=False).to_dict()
+
+
+def _persist_cell_report(cell: SweepCell, report: Dict[str, Any]) -> None:
+    """Write a remotely-computed cell report exactly where a local run
+    would have (same path, same shape), so per-cell resume works
+    identically whichever side executed the cell."""
+    path = cell.report_path
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    report["artifact"] = path  # self-locate, like ExplorationReport.save
+    with open(path, "w") as f:
+        f.write(json.dumps(report, indent=2, sort_keys=True) + "\n")
+
+
+def _dispatch_cells(addrs: List[str],
+                    cells: List[SweepCell]) -> Dict[str, Dict[str, Any]]:
+    """Fan independent cells across the worker pool; returns completed
+    ``{cell name: report dict}``.  Cells whose workers die are
+    resubmitted to siblings by the client; cells that still fail (or a
+    pool with zero reachable workers) are simply *absent* from the
+    result, and the caller runs them locally — the sweep always
+    completes."""
+    import pickle
+    import queue as queue_module
+    import warnings
+
+    from repro_torch.search.remote.client import RemoteClient
+
+    client = RemoteClient(list(addrs))
+    done: "queue_module.SimpleQueue" = queue_module.SimpleQueue()
+    results: Dict[str, Dict[str, Any]] = {}
+    try:
+        if not client.connect():
+            warnings.warn(
+                f"no sweep workers reachable among {list(addrs)}; running "
+                f"all cells locally", RuntimeWarning, stacklevel=2)
+            return results
+        for cell in cells:
+            payload = pickle.dumps(
+                ("call", (_run_cell, (cell.spec.to_dict(), cell.device), {})),
+                protocol=pickle.HIGHEST_PROTOCOL)
+            client.submit(cell.name, lambda payload=payload: payload,
+                          lambda key, value, error, worker: done.put(
+                              (key, value, error)))
+        for _ in cells:
+            name, value, error = done.get()
+            if error is not None or not isinstance(value, dict):
+                warnings.warn(
+                    f"sweep cell {name!r} failed remotely "
+                    f"({error!r}); re-running it locally",
+                    RuntimeWarning, stacklevel=2)
+                continue
+            results[name] = value
+    finally:
+        client.close()
+    return results
+
+
 def run_sweep(spec: SweepSpec, resume: bool = True, save_report: bool = True,
               overrides: Optional[Dict[str, Any]] = None,
               workers: Optional[List[str]] = None,
@@ -548,26 +623,51 @@ def run_sweep(spec: SweepSpec, resume: bool = True, save_report: bool = True,
     the CPU, and CUDA only with a card).  Each cell runs on its target's
     device (``h100`` on CUDA; ``host_cpu`` and ``edge_npu`` on the CPU); a
     sweep asked to run on the CPU refuses at expansion a cell whose target
-    runs on CUDA.  ``workers`` (the remote fan-out of cells) is not ported
-    yet and is refused.  Merged summaries stay in deterministic cell
-    order."""
+    runs on CUDA.
+
+    With ``workers`` (argument wins over ``spec.workers``), cells that
+    are not resumed fan out across the worker-daemon pool as independent
+    tasks, each run on its target's device there: cells already carry
+    resume fingerprints and share the disk cache, which is what makes
+    them safely resubmittable on worker failure.  Completed-cell reports
+    are persisted by the parent at the exact local paths, so a remote
+    sweep resumes the same as a local one; cells the pool cannot complete
+    fall back to local execution.  Merged summaries stay in deterministic
+    cell order regardless of remote completion order."""
     from repro_torch.explorer.explorer import Explorer
 
-    if workers is not None:
-        _refuse_cell_workers()
     resolve_device(device)
     cells = spec.expand(overrides, device=device)
+    pool = workers if workers is not None else spec.workers
     summaries: List[Dict[str, Any]] = []
     n_resumed = 0
     t0 = time.perf_counter()
+
+    resumed: Dict[str, Dict[str, Any]] = {}
+    pending: List[SweepCell] = []
     for cell in cells:
         persisted = _load_completed_cell(cell) if resume else None
         if persisted is not None:
+            resumed[cell.name] = persisted
+        else:
+            pending.append(cell)
+
+    remote: Dict[str, Dict[str, Any]] = {}
+    if pool and pending:
+        remote = _dispatch_cells(list(pool), pending)
+
+    for cell in cells:
+        if cell.name in resumed:
             n_resumed += 1
-            summaries.append(_summarize_cell(cell, persisted, resumed=True))
+            summaries.append(_summarize_cell(cell, resumed[cell.name],
+                                             resumed=True))
             continue
-        report_dict = Explorer.from_spec(cell.spec, device=cell.device).run(
-            save_report=True).to_dict()
+        report_dict = remote.get(cell.name)
+        if report_dict is not None:
+            _persist_cell_report(cell, report_dict)
+        else:  # no pool, unreachable pool, or a cell the pool failed
+            report_dict = Explorer.from_spec(cell.spec, device=cell.device).run(
+                save_report=True).to_dict()
         summaries.append(_summarize_cell(cell, report_dict, resumed=False))
     wall_clock = time.perf_counter() - t0
 

@@ -372,9 +372,14 @@ class BaseExecutor:
     pairs where the thunk — run in the scheduler thread by
     :meth:`next_completed` — produces the final outcome (and, for the
     process backend, merges worker state back into the parent trial).
+
+    ``local_first_trial``: whether :class:`ParallelStudy` evaluates an
+    empty study's first trial in the calling process (before the
+    executor fans out) or submits it, alone, to the executor.
     """
 
     name = "base"
+    local_first_trial = True
 
     def _stream(self) -> _StreamState:
         st = getattr(self, "_stream_state", None)

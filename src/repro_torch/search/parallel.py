@@ -185,13 +185,23 @@ class ParallelStudy(Study):
             # trials see a complete registry regardless of scheduling order.
             # (The ring path skips this — screening samples every parameter
             # in the parent before anything is submitted.)
+            # An executor whose workers live elsewhere (``remote``) gets
+            # the first trial alone, and the study waits for it: where it
+            # runs changes nothing, since detached plans re-derive every
+            # suggestion from (seed, number).
             if remaining > 0 and not self.trials:
                 trial = self.ask()
-                values, state = evaluate_trial(objective, trial, catch)
-                self.tell(trial, values, state)
+                if executor.local_first_trial:
+                    values, state = evaluate_trial(objective, trial, catch)
+                    self.tell(trial, values, state)
+                else:
+                    self._first_trial_through(executor, workers, objective,
+                                              trial, catch)
                 remaining -= 1
 
         if remaining <= 0 or (deadline is not None and _monotonic() >= deadline):
+            if not executor.local_first_trial:
+                executor.shutdown()  # started for the first trial
             return
         executor.start(workers)
         try:
@@ -210,6 +220,23 @@ class ParallelStudy(Study):
                                        order, win, deadline)
         finally:
             executor.shutdown()
+
+    def _first_trial_through(self, executor, workers, objective, trial,
+                             catch) -> None:
+        """Evaluate ``trial`` on ``executor`` and tell it before anything
+        else is submitted; an uncaught error is told as FAIL and raised,
+        with the executor shut down, as a local first trial's would be."""
+        executor.start(workers)
+        try:
+            executor.submit(self, objective, trial, catch)
+            trial, outcome = executor.next_completed()
+            self._tell_outcome(trial, outcome)
+        except BaseException:
+            executor.shutdown()
+            raise
+        if isinstance(outcome, BaseException):
+            executor.shutdown()
+            raise outcome
 
     # -- batch scheduler (legacy) ----------------------------------------------
 

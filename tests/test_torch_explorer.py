@@ -1,7 +1,7 @@
 """The port's Explorer facade against the JAX package's on the CPU: the
 quickstart experiment's trials and best trial on every executor backend,
-every example experiment's parsed spec or sweep (or the named refusal of
-a section the port has not ported), the pruners' decisions, kernel tuning
+every example experiment's parsed spec or sweep (``remote.yaml``'s
+``remote`` executor included), the pruners' decisions, kernel tuning
 in search mode, the CLI, and the disk tier's toolchain salt; plus what is
 the port's own (the device the facade runs on, a warm kernel-tuning run,
 ``chip_smoke.py``'s copies of the example documents)."""
@@ -69,9 +69,10 @@ def test_quickstart_matches_jax_on_every_backend(tmp_path, backend, workers, tri
 @pytest.mark.parametrize("path", sorted(EXPERIMENTS.glob("*.yaml")), ids=lambda p: p.name)
 def test_example_experiments_parse_as_in_jax_or_name_their_unported_section(path):
     """Every example parses as in the JAX package: an experiment to the same
-    spec, a sweep to the same sweep spec (whose ``tpu_v5e`` cells the port,
-    which has no TPU target, refuses at expansion); or names the ROADMAP
-    item of the section it uses that the port lacks (``remote``)."""
+    spec (``remote.yaml``'s ``remote`` executor and its worker pool
+    included), a sweep to the same sweep spec (whose ``tpu_v5e`` cells the
+    port, which has no TPU target, refuses at expansion).  No example names
+    a section the port lacks any more."""
     raw = yaml.safe_load(path.read_text())
     JSpec, _ = _jax_explorer()
     if "base" in raw:
@@ -83,23 +84,35 @@ def test_example_experiments_parse_as_in_jax_or_name_their_unported_section(path
         with pytest.raises(SweepError, match="target=tpu_v5e.*no TPU targets"):
             sweep.expand()
         return
-    try:
-        spec = ExperimentSpec.from_yaml(str(path))
-    except NotPortedError as e:
-        assert "ROADMAP.md Queue 1 item 12" in str(e)
-        assert isinstance(e, NotImplementedError)
-        return
+    spec = ExperimentSpec.from_yaml(str(path))
     assert spec.to_dict() == JSpec.from_yaml(str(path)).to_dict()
+    if path.name == "remote.yaml":
+        assert spec.executor.backend == "remote"
+        assert spec.executor.workers == ["127.0.0.1:7471", "127.0.0.1:7472"]
 
 
 @pytest.mark.parametrize("section, value, item", [
     ("executor", {"backend": "remote", "workers": ["127.0.0.1:7471"]}, "item 12"),
 ])
 def test_unported_sections_raise_a_named_not_implemented_error(section, value, item):
+    """The section the port once refused (the ``remote`` executor, ROADMAP
+    ``item``) now parses as in the JAX package and builds the port's remote
+    executor; no refusal in the facade names the item any more."""
+    import inspect
+
+    from repro_torch.explorer import experiment, sweep
+    from repro_torch.search.remote.executor import RemoteExecutor
+
     raw = yaml.safe_load(QUICKSTART.read_text())
     raw[section] = value
-    with pytest.raises(NotPortedError, match=item):
-        ExperimentSpec.from_dict(raw)
+    spec = ExperimentSpec.from_dict(raw)
+    JSpec, _ = _jax_explorer()
+    assert spec.to_dict() == JSpec.from_dict(raw).to_dict()
+    executor = spec.executor.build()
+    assert isinstance(executor, RemoteExecutor) and executor.workers == value["workers"]
+    for module in (experiment, sweep):
+        assert item not in inspect.getsource(module)
+    assert issubclass(NotPortedError, NotImplementedError)  # kept for item 13
 
 
 def test_ported_sections_still_validate_eagerly():
@@ -265,7 +278,7 @@ def test_list_components_names_the_ported_components(capsys):
                  "grad_norm", "prefill_latency_s", "decode_latency_s",
                  "kv_cache_peak_bytes", "throughput_tok_s", "p99_latency_s"):
         assert name in out
-    assert "remote" not in out
+    assert "remote" in out
 
 
 def test_jax_and_torch_values_under_one_key_are_not_read_as_each_other(tmp_path):

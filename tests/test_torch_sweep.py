@@ -2,7 +2,8 @@
 package's on the CPU: the reference test's tiny analytic sweep merged key
 for key through both packages, expansion and axis errors case for case,
 resume, ``edge_npu``'s reuse of ``host_cpu``'s counts, the device each cell
-runs on, the refusals (TPU targets, the remote fan-out of cells), and the
+runs on, the refusals (TPU targets), the remote fan-out of cells (``workers``
+validated as the reference's, an unreachable pool run locally), and the
 reference's ``sweep_small.yaml`` through both command lines."""
 import copy
 import json
@@ -24,7 +25,7 @@ from repro_torch.core.translate import sample_architecture  # noqa: E402
 from repro_torch.evaluation import estimators as test  # noqa: E402
 from repro_torch.evaluation.cache import EvaluationCache  # noqa: E402
 from repro_torch.explorer.experiment import (  # noqa: E402
-    ExperimentError, ExperimentSpec, NotPortedError)
+    ExperimentError, ExperimentSpec)
 from repro_torch.explorer.explorer import Explorer  # noqa: E402
 from repro_torch.explorer.sweep import (  # noqa: E402
     SweepError, SweepSpec, _axis_label, merge_reports, run_sweep)
@@ -293,8 +294,12 @@ def test_edge_npu_counts_nothing_after_host_cpu_but_ranks_by_its_chip(tmp_path):
 @pytest.mark.parametrize("where", ["experiment", "sweep-axis", "workers", "run_sweep",
                                    "cli"])
 def test_refusals_name_their_reason(tmp_path, where):
-    """No TPU target (the port carries no TPU rates); the remote fan-out of
-    cells names ROADMAP item 12."""
+    """No TPU target (the port carries no TPU rates), refused with the
+    reason.  The remote fan-out of cells is ported: a sweep's ``workers``
+    is validated as the reference's; ``run_sweep(workers=)`` and the CLI's
+    ``--cell-workers`` at an unreachable pool warn and run every cell
+    locally."""
+    unreachable = ["127.0.0.1:9"]
     if where == "experiment":
         with pytest.raises(ExperimentError, match="no TPU targets"):
             ExperimentSpec.from_dict(dict(BASE, target="tpu_v5e_pod"))
@@ -304,20 +309,35 @@ def test_refusals_name_their_reason(tmp_path, where):
         with pytest.raises(SweepError, match=r"target=tpu_v5e.*no TPU targets"):
             spec.expand()
     elif where == "workers":
-        with pytest.raises(NotPortedError, match="item 12"):
-            SweepSpec.from_dict(make_sweep(tmp_path, workers=["127.0.0.1:7471"]))
+        jsweep = _jax_sweep()
+        raw = make_sweep(tmp_path, workers=["127.0.0.1:7471", "10.0.0.5:7472"])
+        spec = SweepSpec.from_dict(raw)
+        assert spec.workers == raw["workers"]
+        assert spec.to_dict() == jsweep.SweepSpec.from_dict(raw).to_dict()
+        for bad, match in (([], "non-empty"), (["nope"], "host:port"),
+                           ("127.0.0.1:7471", "non-empty"), ([7471], "non-empty")):
+            with pytest.raises(SweepError, match=match):
+                SweepSpec.from_dict(make_sweep(tmp_path, workers=bad))
+            with pytest.raises(jsweep.SweepError, match=match):
+                jsweep.SweepSpec.from_dict(make_sweep(tmp_path, workers=bad))
+        assert not (tmp_path / "results").exists()
     elif where == "run_sweep":
-        with pytest.raises(NotPortedError, match="item 12"):
-            run_sweep(SweepSpec.from_dict(make_sweep(tmp_path)), workers=["h:1"],
-                      device="cpu")
+        with pytest.warns(RuntimeWarning, match="no sweep workers reachable"):
+            report = run_sweep(SweepSpec.from_dict(make_sweep(tmp_path)),
+                               workers=unreachable, device="cpu")
+        assert report.n_cells == 4 and report.n_resumed == 0
+        assert all(c["best"] is not None for c in report.cells)
     else:
         from repro_torch.explorer.__main__ import main
 
         path = tmp_path / "sweep.yaml"
         path.write_text(yaml.safe_dump(make_sweep(tmp_path)))
-        with pytest.raises(NotPortedError, match="item 12"):
-            main(["sweep", str(path), "--device", "cpu", "--cell-workers", "h:1"])
-    assert not (tmp_path / "results").exists()
+        with pytest.warns(RuntimeWarning, match="no sweep workers reachable"):
+            assert main(["sweep", str(path), "--device", "cpu",
+                         "--cell-workers", ",".join(unreachable)]) == 0
+        assert (tmp_path / "results" / "tiny-sweep.sweep.json").is_file()
+    if where in ("experiment", "sweep-axis"):
+        assert not (tmp_path / "results").exists()
 
 
 def test_cuda_cell_fails_at_expand_under_cpu(tmp_path):
