@@ -162,7 +162,11 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    with and without compression: 12 steps checkpointing every 5 then a
    rerun to 20 (resumed from step 10), and a run preempted by SIGTERM
    after step 10 and resumed, which must end on the uninterrupted run's
-   loss;
+   loss.  ``train_mesh``, in a child process: the CLI's 4 steps of the
+   same shape on the plain path, then on a (1, 1) NCCL mesh with every
+   parameter and moment a DTensor; losses and parameters equal (or within
+   ``TRAIN_MESH_ATOL``), each path's step ms, allocator peak and model
+   TFLOP/s;
 15. val_accuracy: the paper's Listing 3 (``examples/nas_conv1d.py``'s
    space, data and criteria) through the port, training and latency on
    the card, 6 trials with TPE and successive halving; the best trial
@@ -431,6 +435,12 @@ TRAIN_RESUME_ARGS = ["--arch", "qwen3-1.7b", "--smoke", "--seq", "32",
 # compression the error-feedback residual is not checkpointed
 RESUME_REL = 1e-5
 RESUME_COMPRESSION_REL = 1e-2
+# sharded training on one card: the train CLI on a (1, 1) NCCL mesh with
+# DTensor parameters and optimizer state, against the plain path from the
+# same seed; 4 steps of TRAIN_ARGS's shape
+TRAIN_MESH_ARGS = ["--arch", "qwen3-1.7b", "--steps", "4", "--seq", "512",
+                   "--global-batch", "4", "--log-every", "100"]
+TRAIN_MESH_ATOL = 1e-6  # tests/test_torch_train.py's OPT_ATOL, per element, where bits differ
 # examples/nas_conv1d.py's SPACE_YAML as a dict (the card's machine has no
 # PyYAML; tests/test_torch_train_infra.py holds the two equal)
 LISTING3_SPACE = {
@@ -3157,6 +3167,115 @@ def train_phase(torch, ops) -> dict:
     return row
 
 
+TRAIN_MESH_CHILD = """
+import json, math, statistics, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from torch.distributed.tensor import DTensor
+from repro_torch.evaluation.model_flops import model_flops
+from repro_torch.kernels import ops
+from repro_torch.launch import train
+from repro_torch.launch.mesh import make_host_mesh
+
+argv, atol = json.loads(sys.argv[1]), float(sys.argv[2])
+args = train.build_parser().parse_args(argv)
+row = {}
+
+def path(name, mesh=None):
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()  # the plain path's parameters, for the mesh
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary, state = train.run(args, mesh=mesh)
+    steps = summary["step_s"]
+    tokens = args.global_batch * args.seq
+    flops = model_flops(state["model"].spec, "train", args.global_batch, args.seq)
+    steady = statistics.median(steps[1:])
+    row[name] = {"losses": summary["losses"], "step_ms": [x * 1e3 for x in steps],
+                 "median_step_ms": steady * 1e3, "tok_per_s": tokens / steady,
+                 "model_tflop_per_s": flops / steady / 1e12, "wall_s": time.perf_counter() - t0,
+                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                 "held_before": held}
+    return summary, state
+
+launches = dict(ops.LAUNCHES)
+plain, pstate = path("plain")
+want = pstate["params"]  # plain tensors; the module holds the same storage
+del pstate["opt_state"]
+mesh = make_host_mesh("cuda")
+sharded, sstate = path("mesh", mesh)
+got, opt = sstate["params"], sstate["opt_state"]
+row["mesh_shape"] = list(mesh.shape)
+row["mesh_dims"] = list(mesh.mesh_dim_names)
+row["backend"] = torch.distributed.get_backend()
+row["dtensor_params"] = sum(isinstance(v, DTensor) and v.is_cuda for v in got.values())
+row["dtensor_moments"] = sum(isinstance(v, DTensor) and v.is_cuda
+                             for m in ("mu", "nu") for v in opt[m].values())
+row["n_params"] = len(want)
+row["model_parameters_dtensor"] = sum(isinstance(p, DTensor)
+                                      for p in sstate["model"].parameters())
+row["step_dtensor"] = isinstance(opt["step"], DTensor)
+row["losses_equal_bits"] = plain["losses"] == sharded["losses"]
+row["loss_max_abs_diff"] = max(abs(a - b) for a, b in zip(plain["losses"], sharded["losses"]))
+diffs = {k: float((got[k].to_local() - want[k]).abs().max()) for k in want}
+row["params_equal_bits"] = all(torch.equal(got[k].to_local(), want[k]) for k in want)
+row["param_max_abs_diff"] = max(diffs.values())
+row["param_worst"] = max(diffs, key=diffs.get)
+row["atol"] = atol
+row["step_ms_ratio"] = row["mesh"]["median_step_ms"] / row["plain"]["median_step_ms"]
+row["memory_ratio"] = ((row["mesh"]["max_memory_allocated"] - row["mesh"]["held_before"])
+                       / (row["plain"]["max_memory_allocated"] - row["plain"]["held_before"]))
+row["kernel_launches"] = {k: n - launches.get(k, 0) for k, n in ops.LAUNCHES.items()
+                          if n != launches.get(k, 0)}
+print("TRAIN_MESH " + json.dumps(row), flush=True)
+bad = []
+if not all(math.isfinite(x) for x in plain["losses"] + sharded["losses"]):
+    bad.append("a loss is not finite")
+if not (row["dtensor_params"] == row["n_params"] == row["model_parameters_dtensor"]
+        and row["dtensor_moments"] == 2 * row["n_params"] and row["step_dtensor"]):
+    bad.append("not every parameter and moment is a DTensor on the device")
+if row["loss_max_abs_diff"] > atol or row["param_max_abs_diff"] > atol:
+    bad.append(f"the mesh path differs from the plain one by more than {atol}")
+if row["kernel_launches"]:
+    bad.append(f"kernels launched in training: {row['kernel_launches']}")
+torch.distributed.destroy_process_group()
+if bad:
+    sys.exit("train_mesh: " + "; ".join(bad))
+"""
+
+
+def train_mesh_phase(torch, ops) -> dict:
+    """Sharded training on one card, in a child process (its NCCL group ends
+    with it): qwen3-1.7b at full width in fp32, ``TRAIN_MESH_ARGS``'s 4
+    steps on the plain path, then the same 4 steps from the same seed
+    through ``train.run(mesh=make_host_mesh())``, a (1, 1) mesh over NCCL
+    (world size 1) with DTensor parameters and optimizer state.  Prints
+    how many parameters and moments are DTensors on the card, each path's
+    losses, step ms (host clock ending in a device sync), allocator peak
+    and model TFLOP/s (``model_flops`` over the median step), and the
+    largest difference of the losses and parameters; raises unless every
+    one is a DTensor and the two paths agree to ``TRAIN_MESH_ATOL`` (equal
+    bits expected), or a kernel launched."""
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", TRAIN_MESH_CHILD, json.dumps([*TRAIN_MESH_ARGS, "--device", "cuda"]),
+         repr(TRAIN_MESH_ATOL)],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=600)
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("TRAIN_MESH ")]
+    if not lines:
+        raise AssertionError(f"train_mesh: the child printed no result (exit "
+                             f"{proc.returncode}): {proc.stderr[-3000:]}")
+    row = {**json.loads(lines[-1].split(" ", 1)[1]), "phase_wall_s": time.perf_counter() - t0}
+    print("train_mesh " + json.dumps(row))
+    if proc.returncode != 0:
+        raise AssertionError(f"train_mesh: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    return row
+
+
 def _adamw64_first_step(torch, p, g, lr, cfg) -> dict:
     """The reference's AdamW first step (moments from zero, the global-norm
     clip, weight decay on every parameter) in float64, written out here:
@@ -3498,6 +3617,7 @@ TRAIN_PHASES = {
     "train_check": train_check_phase,
     "train_resume": train_resume_phase,
     "val_accuracy": val_accuracy_phase,
+    "train_mesh": train_mesh_phase,
 }
 SUBSET_PHASES = ("flash", "ssm", "nas", "modelled", "explore", "cascade", "sweep",
                  "serving", "report_boot", "remote", "mlstm", *MODEL_PHASES,
@@ -3732,10 +3852,15 @@ def main(argv=None) -> int:
     checked = train_check_phase(torch, ops)
     resumed = train_resume_phase(torch, ops)
 
+    # -- 14b. sharded training: the same CLI on a (1, 1) NCCL mesh -------------
+    torch.cuda.empty_cache()
+    meshed = train_mesh_phase(torch, ops)
+
     # -- 15. the paper's Listing 3 with val_accuracy on the card ---------------
     listing3 = val_accuracy_phase(torch, ops)
     trained_paths = {"train": trained["kernel_launches"],
                      "train_check": checked["kernel_launches"],
+                     "train_mesh": meshed["kernel_launches"],
                      "val_accuracy": listing3["kernel_launches"]}
 
     # -- 16. result --------------------------------------------------------

@@ -13,8 +13,11 @@
     continues during I/O;
   * restore: ``restore(like=..., device=...)`` returns the caller's
     structure with each leaf on ``device`` (by default the device of the
-    ``like`` leaf).  Restoring onto another sharding waits for the port's
-    meshes (ROADMAP Queue 1 item 13);
+    ``like`` leaf); ``shardings=`` (a tree of DTensor placements on the
+    sharding context's mesh) reshards each leaf onto that mesh, whatever
+    mesh saved it;
+  * sharded trees: a DTensor leaf is saved whole (every rank gathers it,
+    rank 0 writes), so a checkpoint does not depend on the mesh;
   * retention: keep the newest K checkpoints.
 """
 from __future__ import annotations
@@ -29,12 +32,16 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.api import current_mesh, is_dtensor
+
 _BF16 = "bfloat16"
 
 
-def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+def _flatten_with_paths(tree, prefix: str = "", is_leaf=None) -> List[Tuple[str, Any]]:
     """(path, leaf) pairs of a tree of dicts, lists and tuples, dict keys
     in sorted order."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix, tree)]
     if isinstance(tree, Mapping):
         items = [(str(k), tree[k]) for k in sorted(tree)]
     elif isinstance(tree, (list, tuple)):
@@ -43,8 +50,23 @@ def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
         return [(prefix, tree)]
     out = []
     for key, val in items:
-        out.extend(_flatten_with_paths(val, f"{prefix}/{key}" if prefix else key))
+        out.extend(_flatten_with_paths(val, f"{prefix}/{key}" if prefix else key, is_leaf))
     return out
+
+
+def _is_placements(x) -> bool:
+    from torch.distributed.tensor import Placement
+
+    return isinstance(x, tuple) and bool(x) and all(isinstance(p, Placement) for p in x)
+
+
+def _world() -> Tuple[int, int]:
+    """(rank, world size) of the running process group, (0, 1) without."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def _unflatten_like(like, leaves: Dict[str, Any], prefix: str = ""):
@@ -68,6 +90,8 @@ def _structure(tree) -> str:
 def _host_array(leaf) -> Tuple[np.ndarray, str]:
     """A copy of ``leaf`` on the host and its dtype's name."""
     if torch.is_tensor(leaf):
+        if is_dtensor(leaf):  # a collective: every rank saves
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.uint16).numpy(), _BF16
@@ -121,12 +145,20 @@ class Checkpointer:
 
     def save(self, step: int, tree) -> None:
         host, structure = self._to_host(tree)
-        self._write(step, host, structure)
+        rank, world = _world()
+        if rank == 0:
+            self._write(step, host, structure)
+        if world > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     def save_async(self, step: int, tree) -> None:
         if self._error:
             raise self._error
         host, structure = self._to_host(tree)  # sync device->host snapshot
+        if _world()[0] != 0:  # rank 0 writes; :meth:`wait` joins the ranks
+            return
         if self._worker is None or not self._worker.is_alive():
             self._worker = threading.Thread(target=self._drain, daemon=True)
             self._worker.start()
@@ -148,6 +180,10 @@ class Checkpointer:
     def wait(self):
         if self._worker is not None and self._worker.is_alive():
             self._q.join()
+        if _world()[1] > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
         if self._error:
             raise self._error
 
@@ -167,12 +203,17 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, like=None, device=None):
+    def restore(self, step: Optional[int] = None, like=None, device=None, shardings=None):
         """Load a checkpoint: ``(step, {path: numpy array})``, or with
         ``like`` (a tree) ``(step, tree)`` of the same structure whose
         leaves are tensors on ``device`` (default: each ``like`` leaf's
         device, the CPU for a leaf that is not a tensor).  Raises
-        ``KeyError`` for a leaf of ``like`` the checkpoint lacks."""
+        ``KeyError`` for a leaf of ``like`` the checkpoint lacks.
+
+        ``shardings`` is a tree like ``like`` whose leaves are tuples of
+        DTensor placements on the sharding context's mesh; each leaf comes
+        back as a DTensor with its placements, each rank slicing its shard
+        from the saved whole."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
@@ -186,11 +227,21 @@ class Checkpointer:
                                     if entry["dtype"] == _BF16 else arr)
         if like is None:
             return step, arrays
+        placed = (dict(_flatten_with_paths(shardings, is_leaf=_is_placements))
+                  if shardings is not None else {})
+        mesh = current_mesh()
+        if placed and mesh is None:
+            raise RuntimeError("restore(shardings=) needs a sharding context's mesh")
         out = {}
         for key, leaf in _flatten_with_paths(like):
             if key not in arrays:
                 raise KeyError(f"checkpoint missing leaf {key!r} (structure changed?)")
             where = device if device is not None else (
                 leaf.device if torch.is_tensor(leaf) else "cpu")
-            out[key] = torch.as_tensor(arrays[key]).to(where)
+            t = torch.as_tensor(arrays[key]).to(where)
+            if key in placed:
+                from torch.distributed.tensor import distribute_tensor
+
+                t = distribute_tensor(t, mesh, placed[key], src_data_rank=None)
+            out[key] = t
         return step, _unflatten_like(like, out)

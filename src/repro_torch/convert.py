@@ -21,7 +21,7 @@ by the caller), so this module needs nothing of JAX.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -46,26 +46,75 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
             yield path, np.asarray(val)
 
 
+def port_names(model: LM, path: Tuple[str, ...]) -> Tuple[List[str], bool]:
+    """(the port's state-dict names of one JAX leaf, whether the leaf is
+    stacked): a stacked segment's leaf is one name a layer, the shared
+    layer's (``params["shared"]``) and the others' one name."""
+    segs = {seg.name: seg for seg in model.segments + model.enc_segments
+            if seg.kind == "stack"}
+    if path[0] not in segs and path[0] != "shared":
+        return [".".join(path)], False
+    m = _SUB.match(path[1]) if len(path) > 3 else None
+    if m is None or path[2] not in ("norm", "inner"):
+        return ["/".join(path)], False  # unexpected: reported by the caller
+    tail = ".".join(path[3:])
+    if path[0] == "shared":
+        return [f"shared.subs.{m.group(1)}.{path[2]}.{tail}"], False
+    seg = segs[path[0]]
+    return [f"{seg.name}.{i}.subs.{m.group(1)}.{path[2]}.{tail}"
+            for i in range(seg.count)], True
+
+
 def _port_keys(model: LM, path: Tuple[str, ...], arr: np.ndarray):
     """(port state-dict key, array) pairs for one JAX leaf; unstacks a
     stacked segment's leading layers axis.  The shared layer
     (``params["shared"]``) has none."""
-    segs = {seg.name: seg for seg in model.segments + model.enc_segments
-            if seg.kind == "stack"}
-    if path[0] not in segs and path[0] != "shared":
-        return [(".".join(path), arr)]
-    m = _SUB.match(path[1]) if len(path) > 3 else None
-    if m is None or path[2] not in ("norm", "inner"):
-        return [("/".join(path), arr)]  # unexpected: reported by the caller
-    if path[0] == "shared":
-        return [(f"shared.subs.{m.group(1)}.{path[2]}.{'.'.join(path[3:])}", arr)]
-    seg = segs[path[0]]
-    if arr.ndim == 0 or arr.shape[0] != seg.count:
+    names, stacked = port_names(model, path)
+    if not stacked:
+        return [(names[0], arr)]
+    if arr.ndim == 0 or arr.shape[0] != len(names):
         raise ValueError(f"{'/'.join(path)}: expected a leading layers axis of "
-                         f"{seg.count}, got shape {arr.shape}")
-    tail = ".".join(path[3:])
-    return [(f"{seg.name}.{i}.subs.{m.group(1)}.{path[2]}.{tail}", arr[i])
-            for i in range(seg.count)]
+                         f"{len(names)}, got shape {arr.shape}")
+    return [(name, arr[i]) for i, name in enumerate(names)]
+
+
+def _axes_leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
+    for key, val in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(val, Mapping):
+            yield from _axes_leaves(val, path)
+        else:
+            yield path, val
+
+
+def axes_from_jax(model: LM, jax_axes: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX ``LM``'s axes tree (``split(init)[1]``: a tuple of logical
+    axes, or None, a leaf) as ``{port state-dict name: axes}``.  A stacked
+    leaf's axes name its trailing dims, so each layer's tensor takes them
+    as they are."""
+    return {name: None if axes is None else tuple(axes)
+            for path, axes in _axes_leaves(jax_axes)
+            for name in port_names(model, path)[0]}
+
+
+def placements_from_jax(model: LM, jax_specs: Mapping[str, Any], mesh) -> Dict[str, Any]:
+    """A tree of JAX ``PartitionSpec``s of the ``LM``'s parameters (a
+    ``NamedSharding``'s ``spec``; leaves are tuples) as ``{port
+    state-dict name: DTensor placements on mesh}``: a stacked leaf's spec
+    loses its layers dim, which the JAX resolver never shards."""
+    from repro_torch.distributed.sharding import placements
+
+    out = {}
+    for path, spec in _axes_leaves(jax_specs):
+        names, stacked = port_names(model, path)
+        spec = tuple(spec)
+        if stacked:
+            if spec and spec[0] is not None:
+                raise ValueError(f"{'/'.join(path)}: a sharded layers dim {spec}")
+            spec = spec[1:]
+        for name in names:
+            out[name] = placements(spec, mesh)
+    return out
 
 
 def _checked(model, state: Dict[str, np.ndarray], what: str) -> Dict[str, np.ndarray]:

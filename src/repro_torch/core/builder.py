@@ -25,6 +25,7 @@ from repro_torch.core.preprocess import build_preprocessing
 from repro_torch.core.registry import BuiltLayer, get_layer_builder, get_transition
 from repro_torch.core.translate import ArchitectureIR
 from repro_torch.device import resolve_device
+from repro_torch.nn.types import frozen
 
 
 class BuildError(ValueError):
@@ -157,5 +158,4 @@ class ModelBuilder:
 
 
 def _params_module(params: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in params.items()})
+    return frozen(params)

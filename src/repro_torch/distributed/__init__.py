@@ -1,3 +1,4 @@
-"""Distributed-training helpers that run on one device: gradient
-compression and fault tolerance.  Sharding and meshes are ROADMAP Queue 1
-item 13."""
+"""Distributed training: logical-axis sharding onto a ``DeviceMesh``
+(``sharding``), the ``constrain`` hooks of model code (``api``), gradient
+compression and fault tolerance.  The dry run over a fake process group
+waits for ROADMAP Queue 1 item 13b."""

@@ -1,11 +1,11 @@
-"""Fault-tolerance utilities: preemption handling and straggler
-detection, the JAX package's ``distributed/fault.py`` on the port.
+"""Fault-tolerance utilities: preemption handling, elastic re-meshing and
+straggler detection, the JAX package's ``distributed/fault.py`` on the
+port.
 
-The mechanisms (atomic checkpoints, deterministic step-indexed data,
-resume from the newest complete checkpoint) are exercised on one device.
-The reference's ``elastic_remesh`` builds the largest mesh the device
-population supports; it waits for the port's meshes (ROADMAP Queue 1 item
-13), as does restoring a checkpoint onto another sharding.
+The mechanisms (atomic checkpoints, restore onto another mesh's
+placements, deterministic step-indexed data, resume from the newest
+complete checkpoint) pair with the cluster scheduler: SIGTERM before
+preemption, and the process group's world for membership.
 """
 from __future__ import annotations
 
@@ -61,6 +61,27 @@ class StragglerMonitor:
         if slow:
             self.flags += 1
         return slow
+
+
+def elastic_remesh(preferred_shape, axes, min_model: int = 1):
+    """Build the largest mesh the *current* process group supports.
+
+    After a failure shrinks the pool (or a restart grows it), training
+    resumes on the new mesh: checkpoints restore onto its placements, so
+    no state is lost.  The model axis is the preferred one, capped at the
+    world and halved until it divides it (not below ``min_model``); the
+    data axis takes the rest."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    data, model = preferred_shape[-2], preferred_shape[-1]
+    model = min(model, n)
+    while model > min_model and n % model:
+        model //= 2
+    data = n // model
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh((data, model), axes[-2:])
 
 
 def with_retries(fn: Callable, retries: int = 3, backoff: float = 1.0,

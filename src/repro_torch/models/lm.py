@@ -47,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.distributed.api import constrain, placed_grad
 from repro_torch.models.specs import LayerSpec, ModelSpec, SubBlock
 from repro_torch.nn import attention as attn
 from repro_torch.nn import initializers as init
@@ -55,8 +56,10 @@ from repro_torch.nn import moe as moe_mod
 from repro_torch.nn import ssm as ssm_mod
 from repro_torch.nn import xlstm as xlstm_mod
 from repro_torch.nn.norms import NORM_APPLY, NORM_INIT
+from repro_torch.nn.types import Axes, P, frozen, record_axes
 
 Cache = List[Dict[str, Dict[str, torch.Tensor]]]
+BATCH: Axes = ("batch", None, None)  # the residual stream's logical axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,11 +178,12 @@ def _sub_decode(sub: SubBlock, params, x, cache, pos):
     return y
 
 
-def _frozen(tensors: Dict[str, Any]) -> nn.ParameterDict:
-    """Frozen parameters; a nested dict (MoE's dense branch) nests."""
-    return nn.ParameterDict({k: _frozen(v) if isinstance(v, dict)
-                             else nn.Parameter(v, requires_grad=False)
-                             for k, v in tensors.items()})
+def _normed(kind: str, params, h: torch.Tensor) -> torch.Tensor:
+    """The norm of the residual stream, kept batch-sharded inside a
+    sharding context (the scale's FSDP sharding would otherwise move the
+    result's model dim onto the data axis, a layout DTensor's views refuse
+    downstream); the norm alone outside one."""
+    return constrain(NORM_APPLY[kind](params, h), BATCH)
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +195,8 @@ class SubBlockModule(nn.Module):
                  inner: Dict[str, torch.Tensor]):
         super().__init__()
         self.sub = sub
-        self.norm = _frozen(norm)
-        self.inner = _frozen(inner)
+        self.norm = frozen(norm)
+        self.inner = frozen(inner)
 
 
 class Layer(nn.Module):
@@ -206,8 +210,10 @@ class Layer(nn.Module):
 
     def _residual(self, h, run):
         for i, blk in enumerate(self.subs):
-            x = NORM_APPLY[self.norm_kind](blk.norm, h)
-            h = h + run(i, blk.sub, blk.inner, x)
+            # inside a sharding context each sub-block's input and output
+            # are pinned to the residual stream's batch-sharded layout
+            x = _normed(self.norm_kind, blk.norm, h)
+            h = h + constrain(run(i, blk.sub, blk.inner, x), BATCH)
         return h
 
     def forward(self, h, positions, enc_out=None):
@@ -239,20 +245,21 @@ class LM(nn.Module):
 
     # -- init ---------------------------------------------------------------
 
+    def _leaf(self, name: str, value: torch.Tensor) -> None:
+        setattr(self, name, nn.Parameter(value, requires_grad=False))
+        record_axes(self, name, value)
+
     def _build(self, generator: Optional[torch.Generator], dtype):
         spec = self.spec
-        self.embed = nn.Parameter(
-            init.normal(generator, (spec.vocab, spec.d_model), dtype, stddev=0.02),
-            requires_grad=False)
+        self._leaf("embed", P(init.normal(generator, (spec.vocab, spec.d_model), dtype,
+                                          stddev=0.02), ("vocab", "embed")))
         if spec.positional == "learned":
-            self.pos_embed = nn.Parameter(
-                init.normal(generator, (spec.max_position, spec.d_model), dtype, stddev=0.02),
-                requires_grad=False)
+            self._leaf("pos_embed", P(init.normal(generator, (spec.max_position, spec.d_model),
+                                                  dtype, stddev=0.02), (None, "embed")))
         if not spec.tie_embeddings:
-            self.head = nn.Parameter(
-                init.normal(generator, (spec.d_model, spec.vocab), dtype, stddev=0.02),
-                requires_grad=False)
-        self.final_norm = _frozen(NORM_INIT[spec.norm](spec.d_model, generator, dtype))
+            self._leaf("head", P(init.normal(generator, (spec.d_model, spec.vocab), dtype,
+                                             stddev=0.02), ("embed", "vocab")))
+        self.final_norm = frozen(NORM_INIT[spec.norm](spec.d_model, generator, dtype))
         shared = [seg for seg in self.segments if seg.kind == "shared"]
         if shared:  # one module, however many segments run it
             self.shared = Layer(shared[0].spec, spec.norm, spec.d_model, generator, dtype)
@@ -262,7 +269,7 @@ class LM(nn.Module):
                     Layer(seg.spec, spec.norm, spec.d_model, generator, dtype)
                     for _ in range(seg.count)]))
         if self.enc_segments:
-            self.enc_final_norm = _frozen(NORM_INIT[spec.norm](spec.d_model, generator, dtype))
+            self.enc_final_norm = frozen(NORM_INIT[spec.norm](spec.d_model, generator, dtype))
             for seg in self.enc_segments:
                 self.add_module(seg.name, nn.ModuleList([
                     Layer(seg.spec, spec.norm, spec.d_model, generator, dtype)
@@ -275,23 +282,51 @@ class LM(nn.Module):
         self._build(generator, dtype)
         return self
 
+    def _runs(self, segments) -> List[Tuple[Segment, List[Layer]]]:
+        """Each segment with its layers in the order they run."""
+        return [(seg, [self.shared] if seg.kind == "shared" else list(getattr(self, seg.name)))
+                for seg in segments]
+
     def layers(self) -> List[Layer]:
         """The layers in the order they run (the shared one at each of its
         segments)."""
-        return [layer for seg in self.segments
-                for layer in ([self.shared] if seg.kind == "shared"
-                              else getattr(self, seg.name))]
+        return [layer for _, run in self._runs(self.segments) for layer in run]
 
     # -- forward ------------------------------------------------------------
 
     def enc_layers(self) -> List[Layer]:
         """The encoder's layers in the order they run."""
-        return [layer for seg in self.enc_segments for layer in getattr(self, seg.name)]
+        return [layer for _, run in self._runs(self.enc_segments) for layer in run]
+
+    def _run_segments(self, segments, h, positions, enc_out=None) -> torch.Tensor:
+        """The segments' layers over ``h``, the residual stream constrained
+        to batch-sharded after each segment (a no-op outside a sharding
+        context)."""
+        for _, run in self._runs(segments):
+            for layer in run:
+                h = layer(h, positions, enc_out)
+            h = constrain(h, BATCH)
+        return h
+
+    def _cached_segments(self, h, cache: Cache, step) -> torch.Tensor:
+        """``step(layer, h, layer_cache)`` over the decoder's layers with
+        their caches; after each stacked segment the residual stream is
+        constrained as in the JAX package's prefill and decode."""
+        if len(cache) != len(self.layers()):
+            raise ValueError(f"cache has {len(cache)} layer entries, the model runs "
+                             f"{len(self.layers())} layers")
+        caches = iter(cache)
+        for seg, run in self._runs(self.segments):
+            for layer in run:
+                h = step(layer, h, next(caches))
+            if seg.kind == "stack":
+                h = constrain(h, BATCH)
+        return h
 
     def _embed(self, tokens: torch.Tensor, prefix_embeds=None) -> torch.Tensor:
         """Token embeddings (scaled by sqrt(d_model) when ``embed_scale``),
         the first ``prefix_embeds.shape[1]`` rows replaced by the prefix."""
-        h = self.embed[tokens]
+        h = placed_grad(self.embed)[tokens]
         if self.spec.embed_scale:
             h = h * (self.spec.d_model ** 0.5)
         if prefix_embeds is not None:
@@ -309,12 +344,12 @@ class LM(nn.Module):
     def head_weight(self) -> Tuple[torch.Tensor, bool]:
         """(weight, transposed): logits = h @ w, or h @ w.T when transposed
         (tied embeddings)."""
-        if self.spec.tie_embeddings:
-            return self.embed, True
+        if self.spec.tie_embeddings:  # the embedding's second use
+            return placed_grad(self.embed), True
         return self.head, False
 
     def _head(self, h: torch.Tensor) -> torch.Tensor:
-        h = NORM_APPLY[self.spec.norm](self.final_norm, h)
+        h = _normed(self.spec.norm, self.final_norm, h)
         w, transposed = self.head_weight()
         logits = h @ (w.T if transposed else w)
         if self.spec.logit_softcap:
@@ -327,17 +362,15 @@ class LM(nn.Module):
         (the stub frontend) -> the encoder output (B, T, d_model)."""
         h = self._add_positions(frames)
         positions = torch.arange(h.shape[1], device=h.device)[None]
-        for layer in self.enc_layers():
-            h = layer(h, positions)
-        return NORM_APPLY[self.spec.norm](self.enc_final_norm, h)
+        h = self._run_segments(self.enc_segments, h, positions)
+        return _normed(self.spec.norm, self.enc_final_norm, h)
 
     def _layers_out(self, tokens, positions, prefix_embeds, enc_out) -> torch.Tensor:
         h = self._add_positions(self._embed(tokens, prefix_embeds))
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-        for layer in self.layers():
-            h = layer(h, positions, enc_out)
-        return h
+        h = constrain(h, BATCH)
+        return self._run_segments(self.segments, h, positions, enc_out)
 
     def forward(self, tokens: torch.Tensor, positions=None, *, prefix_embeds=None,
                 enc_out=None) -> torch.Tensor:
@@ -354,7 +387,7 @@ class LM(nn.Module):
         d_model), for :func:`repro_torch.train.loss.chunked_cross_entropy`
         with :meth:`head_weight`."""
         h = self._layers_out(tokens, positions, prefix_embeds, enc_out)
-        return NORM_APPLY[self.spec.norm](self.final_norm, h)
+        return _normed(self.spec.norm, self.final_norm, h)
 
     # -- decode -------------------------------------------------------------
 
@@ -370,6 +403,28 @@ class LM(nn.Module):
         return [layer.init_cache(batch, max_seq, enc_out, dtype, self.embed.device)
                 for layer in self.layers()]
 
+    # the decode cache's logical axes by sub-block kind (the JAX package's)
+    _CACHE_AXES = {
+        "attention": {"k": ("batch", "kv_seq", "kv_heads", None),
+                      "v": ("batch", "kv_seq", "kv_heads", None)},
+        "cross_attention": {"k": ("batch", "kv_seq", "kv_heads", None),
+                            "v": ("batch", "kv_seq", "kv_heads", None)},
+        "mamba2": {"conv": ("batch", None, "mlp"), "state": ("batch", "heads", None, None)},
+        "mlstm": {"conv": ("batch", None, "mlp"), "c": ("batch", "heads", "mlp", None),
+                  "n": ("batch", "heads", "mlp"), "m": ("batch", "heads")},
+        "slstm": {"conv": ("batch", None, None), "c": ("batch", "heads", "mlp"),
+                  "n": ("batch", "heads", "mlp"), "m": ("batch", "heads", "mlp"),
+                  "h": ("batch", "heads", "mlp")},
+        "mlp": {},
+        "moe": {},
+    }
+
+    def cache_axes(self) -> List[Dict[str, Dict[str, Axes]]]:
+        """Logical-axis tree matching :meth:`init_cache`'s: one ``{sub_<i>:
+        {leaf: axes}}`` a layer invocation, in the order the layers run."""
+        return [{f"sub_{i}": dict(self._CACHE_AXES[blk.sub.kind])
+                 for i, blk in enumerate(layer.subs)} for layer in self.layers()]
+
     def prefill(self, cache: Cache, tokens: torch.Tensor, pos_offset: int = 0):
         """Batched prefill: the whole prompt in one full-sequence forward
         that also fills the decode caches.  tokens: (B, S) integer.
@@ -378,8 +433,7 @@ class LM(nn.Module):
         ``pos = pos_offset + S`` with :meth:`decode`.
         """
         h = self._add_positions(self._embed(tokens), pos_offset)
-        for layer, c in zip(self.layers(), cache, strict=True):
-            h = layer.prefill(h, c, pos_offset)
+        h = self._cached_segments(h, cache, lambda layer, h, c: layer.prefill(h, c, pos_offset))
         return self._head(h), cache
 
     def decode(self, cache: Cache, tokens: torch.Tensor, pos):
@@ -395,6 +449,5 @@ class LM(nn.Module):
                 h = h + self.pos_embed[pos.to(h.device)][:, None].to(h.dtype)
             else:
                 h = self._add_positions(h, int(pos))
-        for layer, c in zip(self.layers(), cache, strict=True):
-            h = layer.decode(h, c, pos)
+        h = self._cached_segments(h, cache, lambda layer, h, c: layer.decode(h, c, pos))
         return self._head(h), cache

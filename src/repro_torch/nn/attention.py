@@ -32,9 +32,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.api import constrain, local, spec
 from repro_torch.nn import initializers as init
 from repro_torch.nn.norms import acc, acc_dtype
 from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.types import P
 
 NEG_INF = -1e30
 IMPLS = ("xla", "xla_chunked", "pallas")
@@ -57,7 +59,14 @@ class AttentionConfig:
     # package's, so one spec drives both packages)
     impl: str = "xla"
     softmax_scale: Optional[float] = None
+    # the JAX package unrolls its chunked-attention KV scan for XLA's cost
+    # analysis; the port's loop over chunks has nothing to unroll, so it
+    # changes nothing
+    scan_unroll: bool = False
     kv_chunk: int = 1024  # xla_chunked block size (halved until it divides T)
+    # inside a sharding context, full-sequence self-attention shards q's
+    # sequence over the model axis ("act_seq") and replicates k/v's heads
+    seq_shard: bool = False
 
     def __post_init__(self):
         if self.impl not in IMPLS:
@@ -85,18 +94,21 @@ def attention_init(cfg: AttentionConfig, generator=None, dtype=torch.float32):
     dh = cfg.head_dim
     hd, kd = cfg.n_heads * dh, cfg.n_kv_heads * dh
     params = {
-        "wq": init.scaled_normal(generator, (cfg.d_model, hd), dtype),
-        "wk": init.scaled_normal(generator, (cfg.d_model, kd), dtype),
-        "wv": init.scaled_normal(generator, (cfg.d_model, kd), dtype),
-        "wo": init.scaled_normal(generator, (hd, cfg.d_model), dtype, fan_in=hd),
+        "wq": P(init.scaled_normal(generator, (cfg.d_model, hd), dtype), ("embed", "heads")),
+        "wk": P(init.scaled_normal(generator, (cfg.d_model, kd), dtype),
+                ("embed", "kv_heads")),
+        "wv": P(init.scaled_normal(generator, (cfg.d_model, kd), dtype),
+                ("embed", "kv_heads")),
+        "wo": P(init.scaled_normal(generator, (hd, cfg.d_model), dtype, fan_in=hd),
+                ("heads", "embed")),
     }
     if cfg.use_bias:
-        params["bq"] = init.zeros(generator, (hd,), dtype)
-        params["bk"] = init.zeros(generator, (kd,), dtype)
-        params["bv"] = init.zeros(generator, (kd,), dtype)
+        params["bq"] = P(init.zeros(generator, (hd,), dtype), ("heads",))
+        params["bk"] = P(init.zeros(generator, (kd,), dtype), ("kv_heads",))
+        params["bv"] = P(init.zeros(generator, (kd,), dtype), ("kv_heads",))
     if cfg.qk_norm:
-        params["q_norm"] = init.ones(generator, (dh,), dtype)
-        params["k_norm"] = init.ones(generator, (dh,), dtype)
+        params["q_norm"] = P(init.ones(generator, (dh,), dtype), (None,))
+        params["k_norm"] = P(init.ones(generator, (dh,), dtype), (None,))
     return params
 
 
@@ -106,18 +118,40 @@ def _headwise_rmsnorm(x, scale, eps=1e-6):
     return (xf * torch.rsqrt(var + eps) * scale.to(xf.dtype)).to(x.dtype)
 
 
-def _project_qkv(params, cfg: AttentionConfig, x, kv_x, positions, kv_positions):
+def _split_heads(x, heads: int, dh: int, axis: str):
+    """(B, S, heads * dh) -> (B, S, heads, dh).  In a sharding context a
+    projection whose columns split over the mesh but whose heads do not
+    (kv_heads = 8 on model = 16) is gathered first: DTensor refuses to
+    cut a head."""
+    b, s, _ = x.shape
+    split = spec((b, s, heads, dh), ("batch", None, axis, None))
+    if split is not None and split[2] is None:
+        x = constrain(x, ("batch", None, None))
+    return x.reshape(b, s, heads, dh)
+
+
+def _project_qkv(params, cfg: AttentionConfig, x, kv_x, positions, kv_positions,
+                 constrain_full_seq: bool = False):
     """q from ``x``, k/v from ``kv_x`` (``x`` itself for self-attention).
-    Returns q:(B,S,H,Dh), k/v:(B,T,KH,Dh), qk-normed and rotated."""
+    Returns q:(B,S,H,Dh), k/v:(B,T,KH,Dh), qk-normed and rotated.
+
+    ``constrain_full_seq`` (full-sequence self-attention with
+    ``seq_shard``) pins q to sequence-sharded ("act_seq") and k/v to
+    replicated heads, as the JAX package does.  Outside a sharding
+    context the constraints are no-ops."""
     b, s, _ = x.shape
     t = kv_x.shape[1]
     dh = cfg.head_dim
     q, k, v = x @ params["wq"], kv_x @ params["wk"], kv_x @ params["wv"]
     if cfg.use_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(b, s, cfg.n_heads, dh)
-    k = k.reshape(b, t, cfg.n_kv_heads, dh)
-    v = v.reshape(b, t, cfg.n_kv_heads, dh)
+    q = _split_heads(q, cfg.n_heads, dh, "heads")
+    k = _split_heads(k, cfg.n_kv_heads, dh, "kv_heads")
+    v = _split_heads(v, cfg.n_kv_heads, dh, "kv_heads")
+    if constrain_full_seq:
+        q = constrain(q, ("batch", "act_seq", None, None))
+        k = constrain(k, ("batch", None, None, None))
+        v = constrain(v, ("batch", None, None, None))
     if cfg.qk_norm:
         q = _headwise_rmsnorm(q, params["q_norm"])
         k = _headwise_rmsnorm(k, params["k_norm"])
@@ -203,6 +237,23 @@ def make_mask(s, t, causal, window, q_offset=0, device=None):
     return mask[None, None, None]
 
 
+def _core_axes(q, k, seq_sharded: bool):
+    """Logical axes of q and of k/v for the core on local shards, and
+    whether each rank picks its q heads' kv heads from whole k and v.
+    Batch, and q's sequence (``seq_shard``) or the heads: the kv heads
+    split with q's where they split alike, and stay whole where they do
+    not (kv_heads = 8 on model = 16), each rank then indexing the ones
+    its q heads read."""
+    whole = ("batch", None, None, None)
+    if seq_sharded:
+        return ("batch", "act_seq", None, None), whole, False
+    qa, ka = ("batch", None, "heads", None), ("batch", None, "kv_heads", None)
+    q_spec, k_spec = spec(q, qa), spec(k, ka)
+    if q_spec is None or q_spec[2] == k_spec[2] or k.shape[2] == 1:
+        return qa, ka, False
+    return qa, whole, True
+
+
 def _flash(q, k, v, cfg: AttentionConfig):
     from repro_torch.kernels import ops as kops
 
@@ -224,17 +275,48 @@ def attention_apply(params, cfg: AttentionConfig, x, positions=None, kv_x=None,
         positions = torch.arange(s, device=x.device)[None]
     if kv_positions is None:
         kv_positions = torch.arange(t, device=x.device)[None]
-    q, k, v = _project_qkv(params, cfg, x, kv_x, positions, kv_positions)
+    full_seq = cfg.seq_shard and not cross
+    q, k, v = _project_qkv(params, cfg, x, kv_x, positions, kv_positions,
+                           constrain_full_seq=full_seq)
     if cfg.impl == "pallas" and not cross:
-        out = _flash(q, k, v, cfg)
+        core, kv_chunk = "flash", None
     elif cfg.impl == "xla_chunked" and not cross:
-        out = chunked_attention(q, k, v, cfg.scale, causal=cfg.causal, window=cfg.window,
-                                kv_chunk=_kv_chunk(cfg, t))
+        core, kv_chunk = "chunked", _kv_chunk(cfg, t)
     else:
+        core, kv_chunk = "grouped", None
         if mask is None:
             mask = make_mask(s, t, cfg.causal and not cross,
                              None if cross else cfg.window, device=x.device)
-        out = grouped_attention(q, k, v, mask, cfg.scale)
+    # the core runs on local shards: DTensor would refuse the flattens of
+    # its batched matmuls.  A q sequence shard needs the mask's rows, so
+    # only the grouped math keeps one (the kernels take no row offset)
+    seq_sharded = full_seq and core == "grouped"
+    qa, ka, by_index = _core_axes(q, k, seq_sharded)
+
+    def attend(q, k, v, *rest):
+        if by_index:  # each local q head's kv head, from the whole k and v
+            *rest, idx = rest
+            k, v = k[:, :, idx], v[:, :, idx]
+        if core == "flash":
+            return _flash(q, k, v, cfg)
+        if core == "chunked":
+            return chunked_attention(q, k, v, cfg.scale, causal=cfg.causal,
+                                     window=cfg.window, kv_chunk=kv_chunk)
+        return grouped_attention(q, k, v, rest[0], cfg.scale)
+
+    args, axes = [q, k, v], [qa, ka, ka]
+    if mask is not None:
+        args.append(mask)
+        axes.append(("batch", None, None, qa[1], None))
+    if by_index:
+        rep = cfg.n_heads // cfg.n_kv_heads
+        args.append(torch.arange(cfg.n_heads, device=x.device) // rep)
+        axes.append(("heads",))
+    out = local(attend, *args, axes=axes)
+    if seq_sharded:
+        # to the heads for the output projection: DTensor (torch 2.11)
+        # refuses to flatten (batch, sequence) with the inner dim sharded
+        out = constrain(out, ("batch", None, "heads", None))
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"]
 
 

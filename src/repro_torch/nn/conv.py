@@ -16,14 +16,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn import initializers as init
+from repro_torch.nn.types import P
 
 
 def conv1d_init(generator, in_ch, out_ch, kernel_size, dtype=torch.float32,
                 use_bias=True):
-    params = {"w": init.scaled_normal(generator, (out_ch, in_ch, kernel_size),
-                                      dtype, fan_in=kernel_size * in_ch)}
+    # the JAX package's (K, C_in, C_out) is (None, None, "mlp")
+    params = {"w": P(init.scaled_normal(generator, (out_ch, in_ch, kernel_size),
+                                        dtype, fan_in=kernel_size * in_ch),
+                     ("mlp", None, None))}
     if use_bias:
-        params["b"] = init.zeros(generator, (out_ch,), dtype)
+        params["b"] = P(init.zeros(generator, (out_ch,), dtype), ("mlp",))
     return params
 
 

@@ -7,6 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn import initializers as init
+from repro_torch.nn.types import P
 
 
 def squared_relu(x):
@@ -35,15 +36,17 @@ class MLPConfig:
 
 def mlp_init(cfg: MLPConfig, generator=None, dtype=torch.float32):
     params = {
-        "w_up": init.scaled_normal(generator, (cfg.d_model, cfg.d_ff), dtype),
-        "w_down": init.scaled_normal(generator, (cfg.d_ff, cfg.d_model), dtype,
-                                     fan_in=cfg.d_ff),
+        "w_up": P(init.scaled_normal(generator, (cfg.d_model, cfg.d_ff), dtype),
+                  ("embed", "mlp")),
+        "w_down": P(init.scaled_normal(generator, (cfg.d_ff, cfg.d_model), dtype,
+                                       fan_in=cfg.d_ff), ("mlp", "embed")),
     }
     if cfg.gated:
-        params["w_gate"] = init.scaled_normal(generator, (cfg.d_model, cfg.d_ff), dtype)
+        params["w_gate"] = P(init.scaled_normal(generator, (cfg.d_model, cfg.d_ff), dtype),
+                             ("embed", "mlp"))
     if cfg.use_bias:
-        params["b_up"] = init.zeros(generator, (cfg.d_ff,), dtype)
-        params["b_down"] = init.zeros(generator, (cfg.d_model,), dtype)
+        params["b_up"] = P(init.zeros(generator, (cfg.d_ff,), dtype), ("mlp",))
+        params["b_down"] = P(init.zeros(generator, (cfg.d_model,), dtype), ("embed",))
     return params
 
 

@@ -23,9 +23,11 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed.api import constrain, local, placed_grad
 from repro_torch.nn import initializers as init
 from repro_torch.nn.mlp import ACTIVATIONS, MLPConfig, mlp_apply, mlp_init
 from repro_torch.nn.norms import acc, acc_dtype
+from repro_torch.nn.types import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +40,9 @@ class MoEConfig:
     activation: str = "silu"
     gated: bool = True
     dense_residual: bool = False  # arctic-style parallel dense MLP
+    # 2D expert sharding: the experts over the model axis and d_ff over the
+    # data axis (``expert_mlp``), in place of FSDP over d_model
+    shard_ff: bool = False
 
     def capacity(self, seq: int) -> int:
         cap = int(self.top_k * seq * self.capacity_factor / self.n_experts)
@@ -51,13 +56,18 @@ class MoEConfig:
 
 def moe_init(cfg: MoEConfig, generator=None, dtype=torch.float32):
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    if cfg.shard_ff:
+        up_axes, down_axes = ("experts", None, "expert_mlp"), ("experts", "expert_mlp", None)
+    else:
+        up_axes, down_axes = ("experts", "embed", "mlp"), ("experts", "mlp", "embed")
     params = {
-        "w_router": init.scaled_normal(generator, (d, e), torch.float32),
-        "w_up": init.scaled_normal(generator, (e, d, f), dtype, fan_in=d),
-        "w_down": init.scaled_normal(generator, (e, f, d), dtype, fan_in=f),
+        "w_router": P(init.scaled_normal(generator, (d, e), torch.float32), ("embed", None)),
+        "w_up": P(init.scaled_normal(generator, (e, d, f), dtype, fan_in=d), up_axes),
+        "w_down": P(init.scaled_normal(generator, (e, f, d), dtype, fan_in=f), down_axes),
     }
     if cfg.gated:
-        params["w_gate"] = init.scaled_normal(generator, (e, d, f), dtype, fan_in=d)
+        params["w_gate"] = P(init.scaled_normal(generator, (e, d, f), dtype, fan_in=d),
+                             up_axes)
     if cfg.dense_residual:
         params["dense"] = mlp_init(cfg.dense_cfg, generator, dtype)
     return params
@@ -121,33 +131,49 @@ def moe_apply(params, cfg: MoEConfig, x: torch.Tensor, return_aux: bool = False)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = cfg.capacity(s)
-    logits = acc(x) @ params["w_router"].to(acc_dtype(x))
-    expert_ids, gates, probs = route_topk(logits, k)
+
+    def route(xx, w):
+        return route_topk(acc(xx) @ w.to(acc_dtype(xx)), k)
+
+    # inside a sharding context the router runs on local shards with its
+    # weight whole: DTensor (torch 2.11) cannot add the two gradients its
+    # gates' normalization gives them in its own layouts
+    expert_ids, gates, probs = local(route, x, params["w_router"],
+                                     axes=(("batch", None, None), (None, None)))
     slot_token, token_slot = _slot_assignment(expert_ids, e, cap)
 
     # dispatch: gather tokens into (B, E, C, d)
     token_of_slot = slot_token.clamp_min(0) // k  # flat choice -> s
     buf = torch.gather(x, 1, token_of_slot.reshape(b, e * cap, 1).expand(-1, -1, d))
     buf = buf.reshape(b, e, cap, d) * (slot_token >= 0)[..., None].to(x.dtype)
+    # experts outermost, the layout the batched matmuls take: each einsum
+    # then runs without a permute (the copy it would make is made here
+    # once), and a DTensor's shards keep the layout of its global strides
+    buf = buf.transpose(0, 1).contiguous()
 
-    # experts: (B, E, C, d) x (E, d, f)
+    # experts: (E, B, C, d) x (E, d, f)
     act = ACTIVATIONS[cfg.activation]
-    up = torch.einsum("becd,edf->becf", buf, params["w_up"])
+    up = torch.einsum("ebcd,edf->ebcf", buf, params["w_up"])
     if cfg.gated:
-        h = act(torch.einsum("becd,edf->becf", buf, params["w_gate"])) * up
+        h = act(torch.einsum("ebcd,edf->ebcf", buf, params["w_gate"])) * up
     else:
         h = act(up)
-    out_buf = torch.einsum("becf,efd->becd", h, params["w_down"])
+    out_buf = torch.einsum("ebcf,efd->ebcd", h, params["w_down"])
 
     # combine: each (token, choice) gathers its slot's output
-    flat_out = out_buf.reshape(b, e * cap, d)
+    flat_out = out_buf.transpose(0, 1).reshape(b, e * cap, d)
     choice_slot = token_slot.reshape(b, s * k)
     flat_idx = (expert_ids.reshape(b, s * k) * cap + choice_slot).clamp_min(0)
     y = torch.gather(flat_out, 1, flat_idx[:, :, None].expand(-1, -1, d))
     y = y * (choice_slot >= 0)[..., None].to(y.dtype)
     y = (y.reshape(b, s, k, d) * gates[..., None].to(y.dtype)).sum(dim=2)
     if cfg.dense_residual:
-        y = y + mlp_apply(params["dense"], cfg.dense_cfg, x)
+        # the two branches meet batch-sharded and the dense branch's input
+        # places its own gradient: DTensor (torch 2.11) refuses the dense
+        # matmuls' gradient in the combine's sequence-sharded layout, and
+        # cannot add their partial gradient of x to the routed one's shard
+        dense = mlp_apply(params["dense"], cfg.dense_cfg, placed_grad(x))
+        y = constrain(y, ("batch", None, None)) + constrain(dense, ("batch", None, None))
     if return_aux:
         me = probs.mean(dim=(0, 1))  # mean router probability per expert
         chosen = torch.nn.functional.one_hot(expert_ids, e).sum(dim=2) > 0

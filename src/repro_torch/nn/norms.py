@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.nn import initializers as init
+from repro_torch.nn.types import P
 
 
 def acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -20,7 +21,7 @@ def acc(x: torch.Tensor) -> torch.Tensor:
 
 
 def rmsnorm_init(d: int, generator=None, dtype=torch.float32):
-    return {"scale": init.ones(generator, (d,), dtype)}
+    return {"scale": P(init.ones(generator, (d,), dtype), ("embed",))}
 
 
 def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -31,8 +32,8 @@ def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def layernorm_init(d: int, generator=None, dtype=torch.float32):
-    return {"scale": init.ones(generator, (d,), dtype),
-            "bias": init.zeros(generator, (d,), dtype)}
+    return {"scale": P(init.ones(generator, (d,), dtype), ("embed",)),
+            "bias": P(init.zeros(generator, (d,), dtype), ("embed",))}
 
 
 def layernorm_apply(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

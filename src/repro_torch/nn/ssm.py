@@ -27,7 +27,9 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.api import along, local
 from repro_torch.nn import initializers as init
+from repro_torch.nn.types import P
 from repro_torch.nn.norms import acc, acc_dtype
 
 IMPLS = ("xla", "pallas")
@@ -62,16 +64,17 @@ def mamba2_init(cfg: Mamba2Config, generator=None, dtype=torch.float32):
     conv_dim = d_in + 2 * cfg.n_groups * cfg.d_state
     proj_out = 2 * d_in + 2 * cfg.n_groups * cfg.d_state + cfg.n_heads
     params = {
-        "in_proj": init.scaled_normal(generator, (cfg.d_model, proj_out), dtype),
-        "conv_w": init.scaled_normal(generator, (cfg.conv_width, conv_dim), dtype,
-                                     fan_in=cfg.conv_width),
-        "conv_b": init.zeros(generator, (conv_dim,), dtype),
-        "A_log": init.zeros(generator, (cfg.n_heads,), torch.float32),
-        "D": init.ones(generator, (cfg.n_heads,), torch.float32),
-        "dt_bias": init.zeros(generator, (cfg.n_heads,), torch.float32),
-        "norm_scale": init.ones(generator, (d_in,), dtype),
-        "out_proj": init.scaled_normal(generator, (d_in, cfg.d_model), dtype,
-                                       fan_in=d_in),
+        "in_proj": P(init.scaled_normal(generator, (cfg.d_model, proj_out), dtype),
+                     ("embed", "mlp")),
+        "conv_w": P(init.scaled_normal(generator, (cfg.conv_width, conv_dim), dtype,
+                                       fan_in=cfg.conv_width), (None, "mlp")),
+        "conv_b": P(init.zeros(generator, (conv_dim,), dtype), ("mlp",)),
+        "A_log": P(init.zeros(generator, (cfg.n_heads,), torch.float32), (None,)),
+        "D": P(init.ones(generator, (cfg.n_heads,), torch.float32), (None,)),
+        "dt_bias": P(init.zeros(generator, (cfg.n_heads,), torch.float32), (None,)),
+        "norm_scale": P(init.ones(generator, (d_in,), dtype), ("mlp",)),
+        "out_proj": P(init.scaled_normal(generator, (d_in, cfg.d_model), dtype,
+                                         fan_in=d_in), ("mlp", "embed")),
     }
     if generator is not None:
         decay = torch.linspace(1.0, 16.0, cfg.n_heads, dtype=torch.float32)
@@ -90,7 +93,8 @@ def causal_conv1d(x, w, b, state=None):
         y = torch.einsum("bwc,wc->bc", window, w) + b
         return y[:, None, :], window[:, 1:, :]
     width, length = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, width - 1, 0))
+    # DTensor (torch 2.11) has no working rule for the pad
+    xp = along(lambda t: F.pad(t, (0, 0, width - 1, 0)), x, (1,))
     y = xp[:, :length] * w[0]
     for i in range(1, width):  # W is tiny (4): no (B, L, W, C) windows tensor
         y = y + xp[:, i : i + length] * w[i]
@@ -196,9 +200,17 @@ def mamba2_apply(params, cfg: Mamba2Config, x):
     if cfg.impl == "pallas":
         from repro_torch.kernels import ops as kops
 
-        y, _ = kops.ssm_scan(xs, dt, A, B_, C_, chunk=chunk)
+        def scan(*t):
+            return kops.ssm_scan(*t, chunk=chunk)[0]
     else:
-        y, _ = ssd_chunked(xs, dt, A, B_, C_, chunk)
+        def scan(*t):
+            return ssd_chunked(*t, chunk)[0]
+    # inside a sharding context the scan runs on local shards, its heads
+    # split only with one group (each head reads its group's B and C)
+    h = "heads" if cfg.n_groups == 1 else None
+    bc = ("batch", None, None, None)
+    y = local(scan, xs, dt, A, B_, C_,
+              axes=(("batch", None, h, None), ("batch", None, h), (h,), bc, bc))
     y = (y + xs * params["D"][None, None, :, None]).to(x.dtype)
     y = y.reshape(b, l, d_in)
     y = _gated_norm(y, z, params["norm_scale"])

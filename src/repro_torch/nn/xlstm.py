@@ -24,9 +24,11 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.api import along, local
 from repro_torch.nn import initializers as init
 from repro_torch.nn.norms import acc, acc_dtype
 from repro_torch.nn.ssm import causal_conv1d
+from repro_torch.nn.types import P
 
 IMPLS = ("xla", "pallas")
 BIG_NEG = -(10.0 ** 6)
@@ -40,6 +42,9 @@ class MLSTMConfig:
     conv_width: int = 4
     chunk: int = 128
     impl: str = "xla"  # "xla": mlstm_chunked | "pallas": the mlstm_scan kernel
+    # the JAX package unrolls its chunk scan for XLA's cost analysis; the
+    # port's loop over chunks has nothing to unroll, so it changes nothing
+    scan_unroll: bool = False
 
     def __post_init__(self):
         if self.impl not in IMPLS:
@@ -78,18 +83,23 @@ class SLSTMConfig:
 def mlstm_init(cfg: MLSTMConfig, generator=None, dtype=torch.float32):
     d_in, h, p = cfg.d_inner, cfg.n_heads, cfg.d_head
     params = {
-        "up_proj": init.scaled_normal(generator, (cfg.d_model, 2 * d_in), dtype),
-        "conv_w": init.scaled_normal(generator, (cfg.conv_width, d_in), dtype,
-                                     fan_in=cfg.conv_width),
-        "conv_b": init.zeros(generator, (d_in,), dtype),
+        "up_proj": P(init.scaled_normal(generator, (cfg.d_model, 2 * d_in), dtype),
+                     ("embed", "mlp")),
+        "conv_w": P(init.scaled_normal(generator, (cfg.conv_width, d_in), dtype,
+                                       fan_in=cfg.conv_width), (None, "mlp")),
+        "conv_b": P(init.zeros(generator, (d_in,), dtype), ("mlp",)),
         # per-head block-diagonal projections (official xLSTM BlockLinear)
-        "wq": init.scaled_normal(generator, (h, p, p), dtype, fan_in=p),
-        "wk": init.scaled_normal(generator, (h, p, p), dtype, fan_in=p),
-        "wv": init.scaled_normal(generator, (h, p, p), dtype, fan_in=p),
-        "w_if": init.scaled_normal(generator, (d_in, 2 * h), torch.float32),
-        "b_if": init.zeros(generator, (2 * h,), torch.float32),
-        "norm_scale": init.ones(generator, (d_in,), dtype),
-        "down_proj": init.scaled_normal(generator, (d_in, cfg.d_model), dtype, fan_in=d_in),
+        "wq": P(init.scaled_normal(generator, (h, p, p), dtype, fan_in=p),
+                ("heads", "mlp", None)),
+        "wk": P(init.scaled_normal(generator, (h, p, p), dtype, fan_in=p),
+                ("heads", "mlp", None)),
+        "wv": P(init.scaled_normal(generator, (h, p, p), dtype, fan_in=p),
+                ("heads", "mlp", None)),
+        "w_if": P(init.scaled_normal(generator, (d_in, 2 * h), torch.float32), ("mlp", None)),
+        "b_if": P(init.zeros(generator, (2 * h,), torch.float32), (None,)),
+        "norm_scale": P(init.ones(generator, (d_in,), dtype), ("mlp",)),
+        "down_proj": P(init.scaled_normal(generator, (d_in, cfg.d_model), dtype,
+                                          fan_in=d_in), ("mlp", "embed")),
     }
     if generator is not None:
         params["b_if"][h:] = 3.0  # forget gates start open
@@ -230,7 +240,7 @@ def _mlstm_qkv_gates(params, cfg: MLSTMConfig, x, conv_state=None):
     v = torch.einsum("blhp,hpk->blhk", xmh, params["wv"])
     if_pre = acc(xm) @ params["w_if"] + params["b_if"]
     i_log = if_pre[..., : cfg.n_heads]
-    f_log = F.logsigmoid(if_pre[..., cfg.n_heads :])
+    f_log = along(F.logsigmoid, if_pre[..., cfg.n_heads :])  # DTensor: no backward rule
     return q, k, v, i_log, f_log, z, new_conv
 
 
@@ -248,9 +258,15 @@ def mlstm_block_apply(params, cfg: MLSTMConfig, x):
     if cfg.impl == "pallas":
         from repro_torch.kernels import ops as kops
 
-        h, _ = kops.mlstm_scan(q, k, v, i_log, f_log, chunk=chunk)
+        def cell(*t):
+            return kops.mlstm_scan(*t, chunk=chunk)[0]
     else:
-        h, _ = mlstm_chunked(q, k, v, i_log, f_log, chunk)
+        def cell(*t):
+            return mlstm_chunked(*t, chunk)[0]
+    # inside a sharding context the cell runs on local shards (batch and
+    # heads): DTensor would refuse its flattens of (batch, heads)
+    qkv, gates = ("batch", None, "heads", None), ("batch", None, "heads")
+    h = local(cell, q, k, v, i_log, f_log, axes=(qkv, qkv, qkv, gates, gates))
     h = _group_norm_heads(h, params["norm_scale"])
     h = h * F.silu(z)
     return h @ params["down_proj"]
@@ -286,15 +302,17 @@ def mlstm_block_decode(params, cfg: MLSTMConfig, x, cache):
 def slstm_init(cfg: SLSTMConfig, generator=None, dtype=torch.float32):
     d, hh, p = cfg.d_model, cfg.n_heads, cfg.d_head
     return {
-        "conv_w": init.scaled_normal(generator, (cfg.conv_width, d), dtype,
-                                     fan_in=cfg.conv_width),
-        "conv_b": init.zeros(generator, (d,), dtype),
-        "w_gates": init.scaled_normal(generator, (d, 4 * d), dtype),
-        "r_gates": init.scaled_normal(generator, (hh, p, 4 * p), dtype, fan_in=p),
-        "b_gates": init.zeros(generator, (4 * d,), torch.float32),
-        "norm_scale": init.ones(generator, (d,), dtype),
-        "up_proj": init.scaled_normal(generator, (d, 2 * cfg.d_up), dtype),
-        "down_proj": init.scaled_normal(generator, (cfg.d_up, d), dtype, fan_in=cfg.d_up),
+        "conv_w": P(init.scaled_normal(generator, (cfg.conv_width, d), dtype,
+                                       fan_in=cfg.conv_width), (None, "embed")),
+        "conv_b": P(init.zeros(generator, (d,), dtype), ("embed",)),
+        "w_gates": P(init.scaled_normal(generator, (d, 4 * d), dtype), ("embed", "mlp")),
+        "r_gates": P(init.scaled_normal(generator, (hh, p, 4 * p), dtype, fan_in=p),
+                     (None, None, None)),
+        "b_gates": P(init.zeros(generator, (4 * d,), torch.float32), ("mlp",)),
+        "norm_scale": P(init.ones(generator, (d,), dtype), ("embed",)),
+        "up_proj": P(init.scaled_normal(generator, (d, 2 * cfg.d_up), dtype), ("embed", "mlp")),
+        "down_proj": P(init.scaled_normal(generator, (cfg.d_up, d), dtype, fan_in=cfg.d_up),
+                       ("mlp", "embed")),
     }
 
 
@@ -311,7 +329,7 @@ def slstm_cell_step(state, x_gates, r_w, n_heads, d_head):
              + r_contrib.reshape(b, n_heads, 4, d_head))
     i_raw, f_raw = gates[:, :, 0], gates[:, :, 1]
     z_raw, o_raw = gates[:, :, 2], gates[:, :, 3]
-    f_log = F.logsigmoid(f_raw)
+    f_log = along(F.logsigmoid, f_raw)  # DTensor has no rule for its backward
     m_next = torch.maximum(f_log + m_s, i_raw)
     m_next = torch.clamp_min(m_next, BIG_NEG)
     i_w = torch.exp(i_raw - m_next)

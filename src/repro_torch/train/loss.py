@@ -3,13 +3,15 @@ step); a chunked variant computes the (B, S, vocab) logits a chunk of
 positions at a time for 150k+ vocabularies.
 
 The JAX package's ``chunked_cross_entropy`` also takes ``unroll``, which
-only changes how XLA's cost analysis counts the scan (the dry run, ROADMAP
-Queue 1 item 13); the port's loop over chunks has nothing to unroll.
+only changes how XLA's cost analysis counts the scan (its dry run, which
+the port has not yet: ROADMAP Queue 1 item 13b); the port's loop over
+chunks has nothing to unroll.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.api import from_local, is_dtensor
 from repro_torch.nn.norms import acc, acc_dtype
 
 
@@ -17,12 +19,36 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torc
     """logits: (B, S, V); labels: (B, S) integer.  Mean over unmasked tokens."""
     logits = acc(logits)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = _gold(logits, labels)
     nll = logz - gold
     if mask is None:
         return nll.mean()
     mask = mask.to(logits.dtype)
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's logit of its label.  On a DTensor, whose vocab may
+    be sharded (DTensor's gather along a sharded dim leaves a masked
+    partial sum it cannot reduce), it is the sum of the logits times the
+    labels' one-hot made on the logits' own placements: no logit moves,
+    and the sum is exact, as every other term is zero."""
+    labels = labels.long()
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    mesh, vdim = logits.device_mesh, logits.ndim - 1
+    placed = [p if p.is_shard() else Replicate() for p in logits.placements]
+    ids = distribute_tensor(torch.arange(logits.shape[-1], device=logits.device), mesh,
+                            [Shard(0) if p.is_shard(vdim) else Replicate() for p in placed],
+                            src_data_rank=None).to_local()
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    lab = labels.redistribute(mesh, [Replicate() if p.is_shard(vdim) else p
+                                     for p in placed]).to_local()
+    onehot = (lab[..., None] == ids).to(logits.dtype)
+    return (logits * from_local(onehot, mesh, placed)).sum(-1)
 
 
 def chunked_cross_entropy(h: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor, *,
@@ -46,7 +72,7 @@ def chunked_cross_entropy(h: torch.Tensor, head_w: torch.Tensor, labels: torch.T
         mi = (torch.ones(li.shape, dtype=dtype, device=h.device) if mask is None
               else mask[:, i:i + chunk].to(dtype))
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, li[..., None])[..., 0]
+        gold = _gold(logits, li)
         total = total + ((logz - gold) * mi).sum()
         count = count + mi.sum()
     return total / count.clamp_min(1.0)

@@ -7,7 +7,9 @@ state-dict names, :func:`repro_torch.train.step.param_dict`), and the
 state holds plain tensors keyed like them: ``step`` (int32, 0-dim) and
 ``mu``/``nu`` (AdamW), ``mu`` (SGD) or ``v`` (Adafactor: ``{"row",
 "col"}`` for a parameter of two or more dimensions, ``{"full"}`` else),
-all in ``state_dtype``.  The rules are the reference's: AdamW's weight
+all in ``state_dtype``.  With DTensor parameters ``step`` is replicated
+and AdamW's and SGD's moments take each parameter's placements, so the
+update runs on local shards; Adafactor's factored moments are plain.  The rules are the reference's: AdamW's weight
 decay applies to every parameter, norms included; the bias corrections
 are in fp32; each update is computed in fp32 and cast to the parameter's
 dtype.
@@ -31,6 +33,8 @@ import math
 from typing import Callable, Dict, Mapping, Optional, Union
 
 import torch
+
+from repro_torch.distributed.api import replicated_like
 
 Params = Dict[str, torch.Tensor]
 
@@ -74,12 +78,13 @@ class Optimizer:
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
         cfg = self.cfg
-        step = torch.zeros((), dtype=torch.int32,
-                           device=next(iter(params.values())).device)
+        first = next(iter(params.values()))
+        step = replicated_like(torch.zeros((), dtype=torch.int32, device=first.device), first)
 
         def zeros(p, shape=None):
-            return torch.zeros(p.shape if shape is None else shape,
-                               dtype=cfg.state_dtype, device=p.device)
+            if shape is None:  # a DTensor parameter's moments take its placements
+                return torch.zeros_like(p, dtype=cfg.state_dtype)
+            return torch.zeros(shape, dtype=cfg.state_dtype, device=p.device)
 
         if cfg.name == "adamw":
             return {"step": step, "mu": {k: zeros(p) for k, p in params.items()},

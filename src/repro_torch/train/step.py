@@ -15,6 +15,11 @@ as the reference's ``lax.scan`` does) and gradient compression with error
 feedback.  Model-family differences (decoder-only / enc-dec / vlm-prefix)
 are absorbed by ``model_forward`` keyed on the batch contents.
 
+The parameters may be DTensors on a mesh (``launch/train.py --mesh``, run
+inside :func:`repro_torch.distributed.api.sharding_context`): gradients,
+the microbatch accumulator and the optimizer's state take each
+parameter's placements, so every update stays on local shards.
+
 Training runs each sub-block's ``impl`` as its spec says; the JAX package
 trains on ``impl="xla"`` (every config's default), since its Pallas
 kernels have no gradient, and the port's CUDA kernels are forward-only
@@ -27,6 +32,7 @@ from typing import Dict, Mapping
 import torch
 from torch import nn
 
+from repro_torch.distributed.api import placed_like, replicate
 from repro_torch.train.loss import chunked_cross_entropy, cross_entropy, shift_labels
 from repro_torch.train.optimizer import Optimizer
 
@@ -99,12 +105,16 @@ def make_loss_fn(model, loss_chunk: int = 0):
 
 def value_and_grad(loss_fn, params: Mapping[str, torch.Tensor], batch):
     """(loss, {name: gradient}) of ``loss_fn(params, batch)``; a parameter
-    the loss does not reach gets a zero gradient, as under ``jax.grad``."""
+    the loss does not reach gets a zero gradient, as under ``jax.grad``.
+
+    With DTensor parameters (inside a sharding context) the loss is
+    replicated before the backward, and each gradient comes back with its
+    parameter's placements (a partial sum is reduce-scattered there)."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
-        loss = loss_fn(leaves, batch)
+        loss = replicate(loss_fn(leaves, batch))
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-    return loss.detach(), {k: torch.zeros_like(v) if g is None else g
+    return loss.detach(), {k: torch.zeros_like(v) if g is None else placed_like(g, v)
                            for (k, v), g in zip(leaves.items(), grads)}
 
 
@@ -125,8 +135,7 @@ def make_train_step(model, optimizer: Optimizer, *, microbatches: int = 1,
                 return x[i * size:(i + 1) * size]
 
             loss = 0.0
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for k, p in params.items()}
+            grads = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
             for i in range(microbatches):
                 mb = {k: split_mb(v, i) for k, v in batch.items()}
                 mb_loss, mb_grads = value_and_grad(loss_fn, params, mb)

@@ -171,12 +171,12 @@ def test_arctic_dense_branch_is_carried_across():
 
 
 def test_moe_config_fields_match_jax():
-    """The port's fields are the JAX config's but its sharding switch
-    (``shard_ff``) and the unused ``router_jitter`` and ``dense_d_ff``, in
-    the same order."""
+    """The port's fields are the JAX config's but the unused
+    ``router_jitter`` and ``dense_d_ff``, in the same order (the sharding
+    switch ``shard_ff`` included)."""
     assert [f.name for f in dataclasses.fields(tmoe.MoEConfig)] == \
         [f.name for f in dataclasses.fields(jmoe.MoEConfig)
-         if f.name not in ("router_jitter", "shard_ff", "dense_d_ff")]
+         if f.name not in ("router_jitter", "dense_d_ff")]
     for seq in (1, 7, 2048):
         cfg = dict(d_model=8, d_ff=8, n_experts=16, top_k=4)
         assert tmoe.MoEConfig(**cfg).capacity(seq) == jmoe.MoEConfig(**cfg).capacity(seq)

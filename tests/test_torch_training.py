@@ -100,9 +100,9 @@ def test_restore_missing_leaf_raises(tmp_path):
 
 
 def test_restore_places_leaves_on_the_callers_device(tmp_path):
-    """The port's counterpart of the reference's resharding restore (which
-    waits for item 13): each leaf on ``device``, or on its ``like`` leaf's,
-    with the saved dtype; without ``like``, the arrays by path."""
+    """Restore without a mesh: each leaf on ``device``, or on its ``like``
+    leaf's, with the saved dtype; without ``like``, the arrays by path
+    (the resharding restore is held in ``test_torch_distributed.py``)."""
     ck = Checkpointer(str(tmp_path))
     tree = {"w": torch.arange(16.0).reshape(4, 4), "i": torch.arange(3, dtype=torch.int32)}
     ck.save(7, tree)
@@ -233,10 +233,16 @@ def test_train_cli_main_prints_the_references_last_line(capsys):
 
 
 def test_train_cli_refuses_without_a_card_and_the_sharded_meshes():
-    from repro_torch.explorer.experiment import NotPortedError
+    """Without a card nothing trains on ``cuda``, and the production meshes
+    refuse a world smaller than theirs with the reference's message (the
+    process group the CLI started for it ends with it)."""
+    import torch.distributed as dist
 
-    with pytest.raises(NotPortedError, match="item 13"):
+    with pytest.raises(RuntimeError, match=r"need 256 devices for mesh \(16, 16\), have 1"):
         train_cli.main(SMOKE + ["--mesh", "single"])
+    with pytest.raises(RuntimeError, match=r"need 512 devices for mesh \(2, 16, 16\), have 1"):
+        train_cli.main(SMOKE + ["--mesh", "multi"])
+    assert not dist.is_initialized()
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA card"):
             train_cli.main(SMOKE[:-2] + ["--steps", "1"])
