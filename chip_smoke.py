@@ -153,7 +153,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    process at full width (fp32, AdamW with the CLI's cosine schedule, batch
    4 x 512 tokens, 8 steps; ``train``): every loss finite, the last below
    the first, no kernel launched (training runs the plain math, as the
-   reference's does), the plain attention once a layer a step; its step
+   reference's does), the plain attention once a layer a step (twice with
+   remat, the spec's default: the backward recomputes each layer); its step
    times, tokens/s, allocator peak and device time by kind over one step.
    ``train_check``: the same widths cut to 2 layers, one step in fp32 and
    in float64 from the same weights and batch: each gradient tensor and
@@ -167,6 +168,19 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    parameter and moment a DTensor; losses and parameters equal (or within
    ``TRAIN_MESH_ATOL``), each path's step ms, allocator peak and model
    TFLOP/s;
+14c. dryrun: the multi-pod dry run (``python -m repro_torch.launch.dryrun``)
+   under this machine's torch, each cell in a child process with the cards
+   hidden: qwen3-1.7b train_4k on (16, 16) and, without the cost counters,
+   on (2, 16, 16), dbrx-132b train_4k with ``--opt``'s variant (no cost
+   counters), and
+   zamba2-2.7b long_500k; each must be ``ok`` (status, seconds, collective
+   bytes by kind printed).  Then the dry run held to the card: qwen3-1.7b
+   cut to 2 layers at batch 4 x 512, its (1, 1) record on the fake group
+   against the same step on a (1, 1) NCCL mesh: ``argument_bytes`` equal to
+   the card's parameters, moments and batch and to the bytes the caching
+   allocator was asked for them (its blocks round each up to 512 bytes, or
+   more where a large block is not split), no collective; MemTracker's
+   peak over the card's printed;
 15. val_accuracy: the paper's Listing 3 (``examples/nas_conv1d.py``'s
    space, data and criteria) through the port, training and latency on
    the card, 6 trials with TPE and successive halving; the best trial
@@ -441,6 +455,20 @@ RESUME_COMPRESSION_REL = 1e-2
 TRAIN_MESH_ARGS = ["--arch", "qwen3-1.7b", "--steps", "4", "--seq", "512",
                    "--global-batch", "4", "--log-every", "100"]
 TRAIN_MESH_ATOL = 1e-6  # tests/test_torch_train.py's OPT_ATOL, per element, where bits differ
+# the dry run's CLI cells (arch, shape, mesh, extra arguments), each in a
+# child process with the cards hidden, all at once; dbrx with --opt's
+# variant and without the cost counters (a third of its time), so that the
+# phase stays within 90 s
+DRYRUN_CELLS = [
+    ("qwen3-1.7b", "train_4k", "single", []),
+    ("qwen3-1.7b", "train_4k", "multi", ["--no-cost"]),
+    ("dbrx-132b", "train_4k", "single",
+     ["--variant", "chunked_loss,remat_dots,seq_shard,moe_2d", "--no-cost"]),
+    ("zamba2-2.7b", "long_500k", "single", []),
+]
+# the dry run held to the card: qwen3-1.7b cut to 2 layers, batch 4 x 512
+DRYRUN_CHECK = {"arch": "qwen3-1.7b", "layers": 2, "batch": 4, "seq": 512}
+DRYRUN_ALLOC_ROUND = 512  # the caching allocator's least rounding of a block
 # examples/nas_conv1d.py's SPACE_YAML as a dict (the card's machine has no
 # PyYAML; tests/test_torch_train_infra.py holds the two equal)
 LISTING3_SPACE = {
@@ -3104,7 +3132,8 @@ def train_phase(torch, ops) -> dict:
     as published (28 layers, d_model 2048, vocab 151,936, tied embeddings):
     fp32, AdamW with the CLI's cosine schedule, ``TRAIN_ARGS``.  Raises
     unless every loss is finite, the last below the first, no kernel
-    launched and the plain attention ran once a layer a step.  Prints the
+    launched and the plain attention ran once a layer a step (twice with
+    remat: the backward recomputes each layer).  Prints the
     step times (host clock ending in a device sync), tokens/s, the
     allocator's peak and the device time by kind over one more step, with
     its forward-and-backward and its optimizer update as ranges."""
@@ -3145,9 +3174,12 @@ def train_phase(torch, ops) -> dict:
         raise AssertionError(f"train: the loss did not fall or is not finite: {losses}")
     if launched:
         raise AssertionError(f"train: kernels launched in training: {launched}")
-    if len(plain) != spec.n_layers * args.steps:
+    # once a layer a step, and with remat once more as the backward
+    # recomputes each layer
+    runs = spec.n_layers * args.steps * (2 if spec.remat else 1)
+    if len(plain) != runs:
         raise AssertionError(f"train: the plain attention ran {len(plain)} times, "
-                             f"expected {spec.n_layers * args.steps}")
+                             f"expected {runs}")
     batch = train._to_device(state["data"].batch_at(args.steps), state["device"])
 
     def one_step():
@@ -3273,6 +3305,180 @@ def train_mesh_phase(torch, ops) -> dict:
     print("train_mesh " + json.dumps(row))
     if proc.returncode != 0:
         raise AssertionError(f"train_mesh: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    return row
+
+
+DRYRUN_CHECK_CHILD = """
+import json, math, sys
+from unittest import mock
+import torch
+import torch.distributed as dist
+from repro_torch.configs import SHAPES, ShapeCell
+from repro_torch.distributed.api import sharding_context
+from repro_torch.distributed.sharding import default_rules
+from repro_torch.hwgen.collectives import CollectiveCounter, total_collective_bytes
+from repro_torch.kernels import ops
+from repro_torch.launch import dryrun, mesh as mesh_lib
+
+check, rounding = json.loads(sys.argv[1]), int(sys.argv[2])
+cell = ShapeCell("train_4k", "train", check["seq"], check["batch"])
+row = {"arch": check["arch"], "layers": check["layers"], "batch": check["batch"],
+       "seq": check["seq"]}
+
+with mock.patch.dict(dryrun.SHAPES, {"train_4k": cell}):
+    # the dry run on the fake group, on a (1, 1) mesh
+    dryrun.start_fake_group(256)
+    with mock.patch.object(mesh_lib, "make_production_mesh",
+                           lambda multi_pod=False, device_type=None:
+                           mesh_lib.make_mesh((1, 1), ("data", "model"), device_type)):
+        record = dryrun.run_cell(check["arch"], "train_4k", False, n_units=check["layers"])
+    dist.destroy_process_group()
+    row["dryrun"] = {k: record[k] for k in ("status", "memory", "collective_bytes",
+                                            "param_bytes_per_device", "opt_bytes_per_device",
+                                            "model_flops", "trace_s")}
+    row["dryrun"]["flops"] = record["cost"]["flops"]
+    # the same step on the card, on a (1, 1) NCCL mesh
+    host = mesh_lib.make_host_mesh("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(mesh_lib, "make_production_mesh",
+                           lambda multi_pod=False, device_type=None: host):
+        step, args, mesh, meta = dryrun.build_cell(check["arch"], "train_4k", False,
+                                                   n_units=check["layers"], device="cuda")
+    torch.cuda.synchronize()
+    tensors = dryrun._locals(args)
+    placed = torch.cuda.memory_allocated() - held
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    rounded = sum(-(-t.numel() * t.element_size() // rounding) * rounding for t in tensors)
+    # the allocator's block behind each argument's storage: the bytes it was
+    # asked for, and the block's size (rounded up to 512, and a large block
+    # not split when its remainder would be small)
+    blocks = {}
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for block in seg["blocks"]:
+            if block["state"] == "active_allocated":
+                blocks[addr] = (block["requested_size"], block["size"])
+            addr += block["size"]
+    found = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in tensors}
+    unfound = sum(ptr not in blocks for ptr in found)
+    requested = sum(blocks[ptr][0] for ptr in found if ptr in blocks)
+    in_blocks = sum(blocks[ptr][1] for ptr in found if ptr in blocks)
+    short = sum(blocks[ptr][1] < -(-n // rounding) * rounding
+                for ptr, n in found.items() if ptr in blocks)
+    launches = dict(ops.LAUNCHES)
+    with sharding_context(mesh, default_rules(mesh)), CollectiveCounter() as counter:
+        _, _, metrics = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    row["card"] = {"argument_tensors": len(tensors), "argument_bytes": nbytes,
+                   "requested_bytes": requested, "argument_blocks_bytes": in_blocks,
+                   "argument_storages_not_in_a_block": unfound,
+                   "rounded_argument_bytes": rounded,
+                   "blocks_over_rounded_bytes": in_blocks - rounded,
+                   "allocated_while_placing": placed,
+                   "max_memory_allocated_less_held": peak, "held_before": held,
+                   "collective_bytes": total_collective_bytes(counter.stats),
+                   "collectives": sum(v["count"] for v in counter.stats.values()),
+                   "loss": float(metrics["loss"].full_tensor() if hasattr(
+                       metrics["loss"], "full_tensor") else metrics["loss"])}
+    row["argument_bytes_equal"] = (row["dryrun"]["memory"]["argument_bytes"] == nbytes
+                                   == requested)
+    row["blocks_hold_the_rounded_bytes"] = not unfound and not short
+    row["memtracker_peak_over_card_peak"] = (row["dryrun"]["memory"]["peak_bytes_per_device"]
+                                             / peak)
+    row["kernel_launches"] = {k: n - launches.get(k, 0) for k, n in ops.LAUNCHES.items()
+                              if n != launches.get(k, 0)}
+print("DRYRUN_CHECK " + json.dumps(row), flush=True)
+bad = []
+if record["status"] != "ok":
+    bad.append(f"the dry run's status is {record['status']}")
+if not row["argument_bytes_equal"]:
+    bad.append(f"argument_bytes {row['dryrun']['memory']['argument_bytes']} differs from the "
+               f"card's argument tensors ({nbytes}) or the bytes their blocks were asked "
+               f"for ({requested})")
+if not row["blocks_hold_the_rounded_bytes"]:
+    bad.append(f"{unfound} argument storages in no block, {short} blocks smaller than "
+               f"their tensor rounded up to {rounding}")
+if row["card"]["collectives"] or not math.isfinite(row["card"]["loss"]):
+    bad.append("a collective on one card, or a loss that is not finite")
+if row["kernel_launches"]:
+    bad.append(f"kernels launched: {row['kernel_launches']}")
+dist.destroy_process_group()
+if bad:
+    sys.exit("dryrun: " + "; ".join(bad))
+"""
+
+
+def _dryrun_cell(arch, shape, mesh, extra, out) -> tuple:
+    """``python -m repro_torch.launch.dryrun`` for one cell, started in a
+    child process with the cards hidden (the dry run needs none)."""
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+           "--mesh", mesh, "--out", out, *extra]
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                 env=env, cwd=str(ROOT))
+
+
+def dryrun_phase(torch, ops) -> dict:
+    """The multi-pod dry run (``repro_torch.launch.dryrun``) under this
+    machine's torch.  ``DRYRUN_CELLS`` through the CLI, each in a child
+    process with the cards hidden (the fake process group at 256 or 512
+    ranks, the model on ``meta``): status, seconds and collective bytes by
+    kind of each; raises on any error.  Meanwhile, in another child, the
+    dry run held to the card: ``DRYRUN_CHECK``'s train step, its (1, 1)
+    record on the fake group, then the same step on a (1, 1) NCCL mesh on
+    the card: ``argument_bytes`` must equal the bytes of the card's
+    parameters, moments and batch and the bytes the caching allocator was
+    asked for them, each in a block of at least its size rounded up to
+    ``DRYRUN_ALLOC_ROUND`` (the blocks' total is printed); MemTracker's
+    peak over the card's (``max_memory_allocated`` less what was held
+    before) and the collectives counted on NCCL (none) are printed."""
+    import subprocess
+    import tempfile
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory() as out:
+        cells = [_dryrun_cell(*cell, out) for cell in DRYRUN_CELLS]
+        check = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CHECK_CHILD, json.dumps(DRYRUN_CHECK),
+             str(DRYRUN_ALLOC_ROUND)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env, cwd=str(ROOT))
+        rows, bad = [], []
+        for (arch, shape, mesh, extra), (cmd, proc) in zip(DRYRUN_CELLS, cells):
+            stdout, stderr = proc.communicate(timeout=600)
+            lines = [line for line in stdout.splitlines() if line.startswith("{")]
+            rec = json.loads(lines[-1]) if lines else {"status": "no record"}
+            suffix = ("__" + extra[1].replace(",", "+")) if "--variant" in extra else ""
+            path = Path(out) / f"{arch}__{shape}__{mesh}{suffix}.json"
+            kinds = json.loads(path.read_text()).get("collectives", {}) if path.exists() else {}
+            row = {"cell": f"{arch}__{shape}__{mesh}", "args": extra, "status": rec.get("status"),
+                   "exit": proc.returncode, "trace_s": rec.get("trace_s"),
+                   "total_s": rec.get("total_s"), "collective_bytes": rec.get("collective_bytes"),
+                   "collective_bytes_by_kind": {k: v["bytes"] for k, v in kinds.items()},
+                   "argument_bytes": rec.get("memory", {}).get("argument_bytes"),
+                   "peak_bytes_per_device": rec.get("memory", {}).get("peak_bytes_per_device"),
+                   "model_flops": rec.get("model_flops"), "flops": rec.get("cost", {}).get("flops")}
+            print("dryrun_cell " + json.dumps(row))
+            rows.append(row)
+            if proc.returncode != 0 or rec.get("status") not in ("ok", "skipped"):
+                bad.append(f"{row['cell']} {extra}: {rec.get('status')} (exit "
+                           f"{proc.returncode}): {stderr[-2000:]}")
+        stdout, stderr = check.communicate(timeout=600)
+    lines = [line for line in stdout.splitlines() if line.startswith("DRYRUN_CHECK ")]
+    checked = json.loads(lines[-1].split(" ", 1)[1]) if lines else None
+    row = {"torch": torch.__version__, "cells": rows, "check": checked,
+           "phase_wall_s": time.perf_counter() - t0}
+    print("dryrun " + json.dumps(row))
+    if check.returncode != 0 or checked is None:
+        bad.append(f"the check against the card: exit {check.returncode}: {stderr[-3000:]}")
+    if bad:
+        raise AssertionError("dryrun: " + "; ".join(bad))
     return row
 
 
@@ -3618,6 +3824,7 @@ TRAIN_PHASES = {
     "train_resume": train_resume_phase,
     "val_accuracy": val_accuracy_phase,
     "train_mesh": train_mesh_phase,
+    "dryrun": dryrun_phase,
 }
 SUBSET_PHASES = ("flash", "ssm", "nas", "modelled", "explore", "cascade", "sweep",
                  "serving", "report_boot", "remote", "mlstm", *MODEL_PHASES,
@@ -3856,11 +4063,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     meshed = train_mesh_phase(torch, ops)
 
+    # -- 14c. the multi-pod dry run; its counts held to the card --------------
+    dried = dryrun_phase(torch, ops)
+
     # -- 15. the paper's Listing 3 with val_accuracy on the card ---------------
     listing3 = val_accuracy_phase(torch, ops)
     trained_paths = {"train": trained["kernel_launches"],
                      "train_check": checked["kernel_launches"],
                      "train_mesh": meshed["kernel_launches"],
+                     "dryrun": dried["check"]["kernel_launches"],
                      "val_accuracy": listing3["kernel_launches"]}
 
     # -- 16. result --------------------------------------------------------

@@ -1,4 +1,4 @@
 """Distributed training: logical-axis sharding onto a ``DeviceMesh``
 (``sharding``), the ``constrain`` hooks of model code (``api``), gradient
-compression and fault tolerance.  The dry run over a fake process group
-waits for ROADMAP Queue 1 item 13b."""
+compression and fault tolerance.  The dry run over a fake process group is
+``repro_torch.launch.dryrun``."""

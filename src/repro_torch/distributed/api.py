@@ -15,7 +15,11 @@ scan: DTensor would refuse their flattens or gather them), and
 :func:`along` an op DTensor has no working rule for (a pad, a cumsum,
 a log-sigmoid), keeping every placement the op allows;
 :func:`placed_grad` gives one use of a DTensor whose gradients are
-summed its own gradient placement.
+summed its own gradient placement.  :func:`gathered` gathers a weight's
+FSDP shards as it is used, :func:`embedding` looks tokens up in a
+vocab-sharded table, :func:`unflatten` and :func:`flatten` reshape where
+DTensor would refuse, and :func:`write_at` writes one position of a
+sequence-sharded cache.
 """
 from __future__ import annotations
 
@@ -42,11 +46,21 @@ def sharding_context(mesh, rules):
     """Activate (mesh, rules) for :func:`constrain` within the block."""
     from torch.distributed.tensor.experimental import implicit_replication
 
+    with rebind(mesh, rules), implicit_replication():
+        yield
+
+
+@contextlib.contextmanager
+def rebind(mesh, rules):
+    """Bind (mesh, rules) in this thread for the block, and nothing else:
+    for code that an enclosing :func:`sharding_context` runs on another
+    thread (a recomputation in a card's backward runs on the autograd
+    engine's thread).  DTensor's implicit replication is process-wide, set
+    by the enclosing context, and its exit would clear it."""
     prev = (current_mesh(), current_rules())
     _state.mesh, _state.rules = mesh, rules
     try:
-        with implicit_replication():
-            yield
+        yield
     finally:
         _state.mesh, _state.rules = prev
 
@@ -117,14 +131,23 @@ def to_local(x, placements_, grad_placements=None):
     return _DenseGrad.apply(t) if t.requires_grad and _sharded(placements_) else t
 
 
-def from_local(t, mesh, placements_):
-    """The local ``t`` (one rank's even shard) as a DTensor with
-    ``placements_``, differentiably; a shard is made contiguous first,
-    for the views DTensor takes of it."""
+def from_local(t, mesh, placements_, shape=None):
+    """The local ``t`` (one rank's shard) as a DTensor with ``placements_``,
+    differentiably; a shard is made contiguous first, for the views DTensor
+    takes of it.  ``shape``, the global shape, is needed where the shards
+    are uneven (otherwise it is taken as the local shape times the mesh's
+    split)."""
     from torch.distributed.tensor import DTensor
 
     t = t.contiguous() if _sharded(placements_) else t
-    return DTensor.from_local(t, mesh, placements_, run_check=False)
+    kwargs = {}
+    if shape is not None:
+        stride, n = [], 1
+        for size in reversed(tuple(shape)):
+            stride.insert(0, n)
+            n *= size
+        kwargs = {"shape": torch.Size(shape), "stride": tuple(stride)}
+    return DTensor.from_local(t, mesh, placements_, run_check=False, **kwargs)
 
 
 def local(fn: Callable, *args, axes):
@@ -177,6 +200,128 @@ def along(fn: Callable, x, dims: Tuple[int, ...] = ()):
                    else Replicate() for p in x.placements)
     out = fn(to_local(x, target))
     return from_local(out, x.device_mesh, target)
+
+
+def embedding(w, tokens):
+    """``w[tokens]``.  On a DTensor table inside a sharding context, the
+    lookup XLA partitions a gather into: each rank looks its tokens (batch
+    split as the rules say) up in its shard of the vocab, zero where a
+    token lies in another shard, and the shards' rows sum through an
+    all-reduce (``Partial``) over the mesh dims that split the vocab."""
+    if current_mesh() is None or not is_dtensor(w):
+        return w[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.distributed.sharding import placements
+
+    mesh = w.device_mesh
+    if not is_dtensor(tokens):
+        tokens = replicated_like(tokens, w)
+    tok = placements(spec(tokens, ("batch",) + (None,) * (tokens.ndim - 1)), mesh)
+    out = []
+    for i, (pw, pt) in enumerate(zip(w.placements, tok)):
+        if pw.is_shard(0) and pt.is_shard():
+            raise ValueError(f"mesh dim {i} splits both the vocab and the tokens")
+        out.append(Partial() if pw.is_shard(0) else Shard(tokens.ndim) if pw.is_shard(1)
+                   else pt if pt.is_shard() else Replicate())
+    # the table is whole on the mesh dims that split the tokens: its
+    # gradient there is each rank's share (a partial sum), as in local()
+    table = to_local(w, tuple(w.placements), [Partial() if pt.is_shard() else pw
+                                               for pw, pt in zip(w.placements, tok)])
+    ids = tokens.redistribute(mesh, tok).to_local()
+    shape, offset = compute_local_shape_and_global_offset(w.shape, mesh, w.placements)
+    if shape[0] == w.shape[0]:
+        rows = table[ids]
+    else:
+        ids = ids - offset[0]
+        held = (ids >= 0) & (ids < shape[0])
+        rows = table[ids.clamp(0, shape[0] - 1)] * held[..., None].to(table.dtype)
+    return DTensor.from_local(rows, mesh, out, run_check=False)
+
+
+def gathered(w):
+    """A weight as FSDP uses it inside a sharding context: a DTensor ``w``
+    sharded on a mesh dim that splits the batch (``rules["batch"]``) is
+    all-gathered there, its other shards kept, and its gradient goes back
+    to ``w``'s placements (reduce-scattered).  Left to itself, DTensor
+    contracts over such a shard instead, which in the backward moves the
+    whole batch's activations.  A weight with nothing to gather gets
+    :func:`placed_grad`; a plain one, or one outside a context, is
+    returned as it is."""
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is None or rules is None or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    names = tuple(w.device_mesh.mesh_dim_names)
+    batch = {names.index(a) for a in rules.get("batch", ()) if a in names}
+    target = tuple(Replicate() if i in batch and p.is_shard() else p
+                   for i, p in enumerate(w.placements))
+    if target == tuple(w.placements):
+        return placed_grad(w)
+    return w.redistribute(w.device_mesh, target)
+
+
+def unflatten(x, dim: int, sizes: Tuple[int, ...]):
+    """``x.unflatten(dim, sizes)``.  A DTensor whose shard of ``dim`` the
+    leading size does not split evenly (4 heads on model = 16) is first
+    replicated on the mesh dims that shard ``dim``: DTensor refuses to cut
+    a head.  The result's gradient comes back with its placements, so the
+    backward's flatten is one DTensor takes."""
+    if not is_dtensor(x):
+        return x.unflatten(dim, sizes)
+    from torch.distributed.tensor import Replicate
+
+    d = dim % x.ndim
+    mesh = x.device_mesh
+    ways = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(d):
+            ways *= mesh.size(i)
+    if sizes[0] % ways:
+        x = x.redistribute(mesh, [Replicate() if p.is_shard(d) else p for p in x.placements])
+    return placed_grad(x.unflatten(dim, sizes))
+
+
+def flatten(x, start: int, end: int):
+    """``x.flatten(start, end)``.  A DTensor sharded on one of the inner
+    dims (``start`` excluded) is first replicated there: torch 2.11's
+    DTensor refuses to flatten a dim into a sharded one.  The result's
+    gradient comes back with its placements."""
+    if not is_dtensor(x):
+        return x.flatten(start, end)
+    from torch.distributed.tensor import Replicate
+
+    start, end = start % x.ndim, end % x.ndim
+    inner = [p.is_shard() and start < p.dim <= end for p in x.placements]
+    if any(inner):
+        x = x.redistribute(x.device_mesh, [Replicate() if i else p
+                                           for i, p in zip(inner, x.placements)])
+    return placed_grad(x.flatten(start, end))
+
+
+def write_at(buf, dim: int, index: int, value) -> None:
+    """``buf.select(dim, index).copy_(value)``, in place.  On a DTensor
+    ``buf`` (a decode cache whose sequence is sharded) ``value`` takes
+    ``buf``'s placements on its other dims, and the rank whose shard holds
+    ``index`` writes it there."""
+    if not is_dtensor(buf):
+        buf.select(dim, index).copy_(value)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = buf.device_mesh
+    target = [Replicate() if p.is_shard(dim) else Shard(p.dim - 1) if p.is_shard()
+              and p.dim > dim else p for p in buf.placements]
+    if not is_dtensor(value):
+        value = replicated_like(value, buf)
+    local_value = value.redistribute(mesh, target).to_local()
+    shape, offset = compute_local_shape_and_global_offset(buf.shape, mesh, buf.placements)
+    at = index - offset[dim]
+    if 0 <= at < shape[dim]:
+        buf.to_local().select(dim, at).copy_(local_value)
 
 
 def replicate(x):

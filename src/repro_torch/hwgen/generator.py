@@ -53,6 +53,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import faults
 from repro_torch.device import resolve_device
+from repro_torch.hwgen.collectives import CollectiveCounter, total_collective_bytes
 from repro_torch.hwgen.roofline import roofline_terms
 from repro_torch.hwgen.targets import TargetSpec, get_target
 from repro_torch.ioutils import lock_file, unlock_file
@@ -188,7 +189,9 @@ def program_cost(candidate, example_args: Tuple,
       :func:`kernel_work` gives it (its inputs read once, its outputs
       written once), the rule the kernels' bounds use.  Traffic inside a
       layer between its own operations is not counted.
-    * Collective bytes: 0 (one card).
+    * Collective bytes: every collective the forward issues, by
+      :class:`repro_torch.hwgen.collectives.CollectiveCounter` (the
+      reference parses them from the compiled program): 0 on one card.
     * Peak bytes: the weights and the input, plus the largest pair of
       consecutive activations (a stage's input and output, both live
       while it runs): the counterpart of the reference's
@@ -203,7 +206,8 @@ def program_cost(candidate, example_args: Tuple,
     nbytes = weights = 0
     held = [_nbytes(x)]  # every stage's output, the input first
     with torch.inference_mode(), ksched.use_schedules(schedules), \
-            ksched.record_kernel_calls(sink), FlopCounterMode(display=False) as counter:
+            ksched.record_kernel_calls(sink), FlopCounterMode(display=False) as counter, \
+            CollectiveCounter() as collectives:
         if candidate.preprocess is not None:
             y = candidate.preprocess(x)
             nbytes += _nbytes(x) + _nbytes(y)
@@ -228,7 +232,8 @@ def program_cost(candidate, example_args: Tuple,
     pair = max((a + b for a, b in zip(held, held[1:])), default=held[0])
     return ProgramCost(flops=float(counter.get_total_flops() + kernel_flops),
                        bytes_accessed=float(nbytes + kernel_bytes),
-                       collective_bytes=0.0, peak_bytes=weights + held[0] + pair,
+                       collective_bytes=float(total_collective_bytes(collectives.stats)),
+                       peak_bytes=weights + held[0] + pair,
                        kernel_calls=calls)
 
 

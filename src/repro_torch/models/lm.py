@@ -42,12 +42,16 @@ embeddings.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                   create_selective_checkpoint_contexts)
 
-from repro_torch.distributed.api import constrain, placed_grad
+from repro_torch.distributed.api import (constrain, current_mesh, current_rules, embedding,
+                                         gathered, rebind)
 from repro_torch.models.specs import LayerSpec, ModelSpec, SubBlock
 from repro_torch.nn import attention as attn
 from repro_torch.nn import initializers as init
@@ -186,6 +190,45 @@ def _normed(kind: str, params, h: torch.Tensor) -> torch.Tensor:
     return constrain(NORM_APPLY[kind](params, h), BATCH)
 
 
+def _keep_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of matrix products without
+    batch dims, recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_layer(layer: nn.Module, remat: bool, policy: Optional[str], h, positions, enc_out):
+    """``layer(h, positions, enc_out)``.  Inside a sharding context each of
+    the layer's weights is :func:`gathered` as the layer runs.  With
+    ``remat`` the layer runs under ``torch.utils.checkpoint``
+    (non-reentrant): its activations, the gathered weights too, are made
+    again in the backward.  The layer's parameters as bound now (a train
+    step's, through ``functional_call``) are arguments of the function,
+    which binds them again, so a recomputation, run after
+    ``functional_call`` has put the module's own tensors back, uses the
+    step's."""
+    mesh, rules = current_mesh(), current_rules()
+    if not remat and mesh is None:
+        return layer(h, positions, enc_out)
+    params = dict(layer.named_parameters())
+
+    def run(params, h):
+        # a recomputation runs in the autograd engine's thread (a card's
+        # backward has its own), where the layer's mesh and rules are unset
+        with rebind(mesh, rules):
+            return torch.func.functional_call(
+                layer, {k: gathered(v) for k, v in params.items()}, (h, positions, enc_out))
+
+    if not remat:
+        return run(params, h)
+    kwargs = {}
+    if policy == "dots":
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _keep_products)
+    return checkpoint(run, params, h, use_reentrant=False, **kwargs)
+
+
 # ---------------------------------------------------------------------------
 # layer = sequence of pre-norm residual sub-blocks
 # ---------------------------------------------------------------------------
@@ -301,10 +344,12 @@ class LM(nn.Module):
     def _run_segments(self, segments, h, positions, enc_out=None) -> torch.Tensor:
         """The segments' layers over ``h``, the residual stream constrained
         to batch-sharded after each segment (a no-op outside a sharding
-        context)."""
+        context), each layer by :func:`_run_layer` (remat with
+        ``spec.remat`` and grad enabled, the shared layer too)."""
+        remat = self.spec.remat and torch.is_grad_enabled()
         for _, run in self._runs(segments):
             for layer in run:
-                h = layer(h, positions, enc_out)
+                h = _run_layer(layer, remat, self.spec.remat_policy, h, positions, enc_out)
             h = constrain(h, BATCH)
         return h
 
@@ -326,7 +371,7 @@ class LM(nn.Module):
     def _embed(self, tokens: torch.Tensor, prefix_embeds=None) -> torch.Tensor:
         """Token embeddings (scaled by sqrt(d_model) when ``embed_scale``),
         the first ``prefix_embeds.shape[1]`` rows replaced by the prefix."""
-        h = placed_grad(self.embed)[tokens]
+        h = embedding(gathered(self.embed), tokens)
         if self.spec.embed_scale:
             h = h * (self.spec.d_model ** 0.5)
         if prefix_embeds is not None:
@@ -345,8 +390,8 @@ class LM(nn.Module):
         """(weight, transposed): logits = h @ w, or h @ w.T when transposed
         (tied embeddings)."""
         if self.spec.tie_embeddings:  # the embedding's second use
-            return placed_grad(self.embed), True
-        return self.head, False
+            return gathered(self.embed), True
+        return gathered(self.head), False
 
     def _head(self, h: torch.Tensor) -> torch.Tensor:
         h = _normed(self.spec.norm, self.final_norm, h)

@@ -24,6 +24,7 @@ from repro_torch.nn.moe import MoEConfig
 SUBBLOCK_KINDS = ("attention", "cross_attention", "mlp", "moe", "mamba2", "mlstm",
                   "slstm")
 POSITIONALS = ("rope", "learned", "none")
+REMAT_POLICIES = (None, "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,11 +64,28 @@ class ModelSpec:
     frontend: Optional[str] = None  # None | "audio_stub" | "vision_stub"
     num_prefix_tokens: int = 0  # vlm: patch-embedding prefix length
     logit_softcap: Optional[float] = None
+    # remat: in a forward that builds an autograd graph (training), each
+    # layer's activations are recomputed in the backward instead of kept
+    # (torch.utils.checkpoint), as the reference's jax.checkpoint.
+    remat: bool = True
+    # remat_policy: None = keep nothing inside a layer (most recompute, least
+    # memory); "dots" = the counterpart of the reference's
+    # dots_with_no_batch_dims_saveable: matrix products without batch dims
+    # (aten.mm, aten.addmm) are kept, everything else (aten.bmm, the
+    # elementwise ops) is recomputed.
+    remat_policy: Optional[str] = None
+    # scan_layers: the reference scans a segment's stacked layers (True) or
+    # unrolls them for its dry run's cost analysis (False); the port runs
+    # every layer in a Python loop either way, so the field changes nothing.
+    scan_layers: bool = True
 
     def __post_init__(self):
         if self.positional not in POSITIONALS:
             raise ValueError(f"unknown positional {self.positional!r}; the port has "
                              f"{POSITIONALS}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}; the port has "
+                             f"{REMAT_POLICIES}")
 
     @property
     def n_layers(self) -> int:

@@ -32,7 +32,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distributed.api import constrain, local, spec
+from repro_torch.distributed.api import (constrain, current_mesh, from_local, is_dtensor,
+                                         local, placed_grad, spec, to_local, write_at)
 from repro_torch.nn import initializers as init
 from repro_torch.nn.norms import acc, acc_dtype
 from repro_torch.nn.rope import apply_rope
@@ -254,6 +255,31 @@ def _core_axes(q, k, seq_sharded: bool):
     return qa, whole, True
 
 
+def _on_shards(attend, q, k, v, mask, cfg: AttentionConfig, seq_sharded: bool = False):
+    """``attend(q, k, v, mask)`` run on local shards (DTensor would refuse
+    the flattens of its batched matmuls): batch and q's heads (or its
+    sequence) split, the kv heads split alike or indexed from whole k and
+    v (:func:`_core_axes`).  Outside a sharding context it is ``attend``'s
+    call."""
+    qa, ka, by_index = _core_axes(q, k, seq_sharded)
+
+    def on_local(q, k, v, *rest):
+        if by_index:  # each local q head's kv head, from the whole k and v
+            *rest, idx = rest
+            k, v = k[:, :, idx], v[:, :, idx]
+        return attend(q, k, v, rest[0] if rest else None)
+
+    args, axes = [q, k, v], [qa, ka, ka]
+    if mask is not None:
+        args.append(mask)
+        axes.append(("batch", None, None, qa[1], None))
+    if by_index:
+        rep = cfg.n_heads // cfg.n_kv_heads
+        args.append(torch.arange(cfg.n_heads, device=q.device) // rep)
+        axes.append(("heads",))
+    return local(on_local, *args, axes=axes)
+
+
 def _flash(q, k, v, cfg: AttentionConfig):
     from repro_torch.kernels import ops as kops
 
@@ -287,37 +313,28 @@ def attention_apply(params, cfg: AttentionConfig, x, positions=None, kv_x=None,
         if mask is None:
             mask = make_mask(s, t, cfg.causal and not cross,
                              None if cross else cfg.window, device=x.device)
-    # the core runs on local shards: DTensor would refuse the flattens of
-    # its batched matmuls.  A q sequence shard needs the mask's rows, so
-    # only the grouped math keeps one (the kernels take no row offset)
+    # a q sequence shard needs the mask's rows, so only the grouped math
+    # keeps one (the kernels take no row offset)
     seq_sharded = full_seq and core == "grouped"
-    qa, ka, by_index = _core_axes(q, k, seq_sharded)
 
-    def attend(q, k, v, *rest):
-        if by_index:  # each local q head's kv head, from the whole k and v
-            *rest, idx = rest
-            k, v = k[:, :, idx], v[:, :, idx]
+    def attend(q, k, v, mask):
         if core == "flash":
             return _flash(q, k, v, cfg)
         if core == "chunked":
             return chunked_attention(q, k, v, cfg.scale, causal=cfg.causal,
                                      window=cfg.window, kv_chunk=kv_chunk)
-        return grouped_attention(q, k, v, rest[0], cfg.scale)
+        return grouped_attention(q, k, v, mask, cfg.scale)
 
-    args, axes = [q, k, v], [qa, ka, ka]
-    if mask is not None:
-        args.append(mask)
-        axes.append(("batch", None, None, qa[1], None))
-    if by_index:
-        rep = cfg.n_heads // cfg.n_kv_heads
-        args.append(torch.arange(cfg.n_heads, device=x.device) // rep)
-        axes.append(("heads",))
-    out = local(attend, *args, axes=axes)
+    out = _on_shards(attend, q, k, v, mask, cfg, seq_sharded)
     if seq_sharded:
         # to the heads for the output projection: DTensor (torch 2.11)
         # refuses to flatten (batch, sequence) with the inner dim sharded
         out = constrain(out, ("batch", None, "heads", None))
-    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"]
+    # the flatten's gradient comes back on the flattened heads as the
+    # forward placed them: DTensor's choice for it (the heads' dim sharded)
+    # cannot be cut into heads that do not split evenly (56 on model = 16)
+    out = placed_grad(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
+    return out @ params["wo"]
 
 
 def init_kv_cache(cfg: AttentionConfig, batch, max_seq, dtype=torch.float32,
@@ -348,13 +365,13 @@ def cross_attention_cached(params, cfg: AttentionConfig, x, cache):
     q = x @ params["wq"]
     if cfg.use_bias:
         q = q + params["bq"]
-    q = q.reshape(b, s, cfg.n_heads, dh)
+    q = _split_heads(q, cfg.n_heads, dh, "heads")
     if cfg.qk_norm:
         q = _headwise_rmsnorm(q, params["q_norm"])
     t = cache["k"].shape[1]
     mask = torch.ones((1, 1, 1, s, t), dtype=torch.bool, device=x.device)
-    out = grouped_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask,
-                            cfg.scale)
+    out = _on_shards(lambda q, k, v, mask: grouped_attention(q, k, v, mask, cfg.scale),
+                     q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask, cfg)
     return out.reshape(b, s, cfg.n_heads * dh) @ params["wo"]
 
 
@@ -413,14 +430,71 @@ def attention_decode(params, cfg: AttentionConfig, x, cache, pos):
         cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
         cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
     else:
-        cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+        write_at(cache["k"], 1, pos, k_new[:, 0].to(cache["k"].dtype))
+        write_at(cache["v"], 1, pos, v_new[:, 0].to(cache["v"].dtype))
     kj = torch.arange(cache["k"].shape[1], device=x.device)[None, :]
     valid = kj <= positions  # (B,T)
     if cfg.window is not None:
         valid &= kj > positions - cfg.window
-    mask = valid[:, None, None, None, :]  # (B,1,1,1,T)
-    out = grouped_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-                            mask, cfg.scale)
+    if is_dtensor(cache["k"]) and current_mesh() is not None:
+        out = _decode_on_shards(q, cache["k"], cache["v"], valid, cfg.scale)
+    else:
+        mask = valid[:, None, None, None, :]  # (B,1,1,1,T)
+        out = grouped_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                                mask, cfg.scale)
     y = out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ params["wo"]
     return y, cache
+
+
+def decode_partials(q, k, v, valid, scale):
+    """One query's attention over a part of the cache, unnormalised: the
+    part's score max ``m`` (B,KH,G,1,1), the sum ``l`` of exp(score - m)
+    and ``o`` = exp(score - m) @ v (B,1,KH,G,Dh), in the accumulation
+    dtype.  Parts combine exactly by :func:`combine_partials`."""
+    b, s, h, dh = q.shape
+    kheads = k.shape[2]
+    qg = q.reshape(b, s, kheads, h // kheads, dh)
+    scores = acc(torch.einsum("bskgd,btkd->bkgst", qg, k.to(q.dtype))) * scale
+    scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    return m, p.sum(dim=-1, keepdim=True), torch.einsum("bkgst,btkd->bskgd", p, acc(v))
+
+
+def combine_partials(m_max, m, l_sum, o):
+    """Rescale a part's ``(m, l, o)`` to the global max ``m_max``: summed
+    over the parts, ``o / l`` is the softmax-weighted sum."""
+    w = torch.exp(m - m_max)
+    return l_sum * w, o * w.permute(0, 3, 1, 2, 4)
+
+
+def _decode_on_shards(q, k, v, valid, scale):
+    """Decode attention against a DTensor cache, as XLA partitions the
+    reference's: the cache stays where it is (batch and sequence
+    sharded), q and the valid mask follow its batch, each rank attends
+    over its part of the sequence, and the parts combine through an
+    all-reduce of the max, then of the sums (``Partial`` placements)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = k.device_mesh
+    kp = tuple(k.placements)
+    seq = [i for i, p in enumerate(kp) if p.is_shard(1)]
+    kv_target = [p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in kp]
+    q_target = [Shard(0) if p.is_shard(0) else Replicate() for p in kp]
+    k_l, v_l = to_local(k, kv_target), to_local(v, kv_target)
+    q_l = to_local(q if is_dtensor(q) else from_local(q, mesh, [Replicate()] * mesh.ndim),
+                   q_target)
+    valid_l = to_local(from_local(valid, mesh, [Replicate()] * mesh.ndim), kv_target)
+
+    def over_parts(t, op):
+        if not seq:
+            return t
+        part = [Partial(op) if i in seq else q_target[i] for i in range(mesh.ndim)]
+        return DTensor.from_local(t, mesh, part, run_check=False).redistribute(
+            mesh, q_target).to_local()
+
+    m, l_sum, o = decode_partials(q_l, k_l, v_l, valid_l, scale)
+    l_sum, o = combine_partials(over_parts(m, "max"), m, l_sum, o)
+    out = over_parts(o, "sum") / over_parts(l_sum, "sum").permute(0, 3, 1, 2, 4)
+    b, s, kheads, g, dh = out.shape
+    return from_local(out.reshape(b, s, kheads * g, dh).to(q.dtype), mesh, q_target)

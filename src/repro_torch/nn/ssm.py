@@ -242,7 +242,12 @@ def mamba2_decode(params, cfg: Mamba2Config, x, cache):
     C_t = xbc_t[..., d_in + gn :].reshape(b, cfg.n_groups, cfg.d_state)
     dt = F.softplus(acc(dt_raw[:, 0]) + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    y_t, state = ssd_recurrent_step(cache["state"], x_t, dt, A, B_t, C_t)
+    # on local shards inside a sharding context, as the forward's scan
+    h = "heads" if cfg.n_groups == 1 else None
+    bc = ("batch", None, None)
+    y_t, state = local(ssd_recurrent_step, cache["state"], x_t, dt, A, B_t, C_t,
+                       axes=(("batch", h, None, None), ("batch", h, None), ("batch", h), (h,),
+                             bc, bc))
     y_t = (y_t + x_t * params["D"][None, :, None]).to(x.dtype)
     y = _gated_norm(y_t.reshape(b, 1, d_in), z, params["norm_scale"])
     out = y @ params["out_proj"]

@@ -24,7 +24,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.api import along, local
+from repro_torch.distributed.api import along, flatten, local, unflatten
 from repro_torch.nn import initializers as init
 from repro_torch.nn.norms import acc, acc_dtype
 from repro_torch.nn.ssm import causal_conv1d
@@ -219,7 +219,7 @@ def _group_norm_heads(x, scale, eps=1e-6):
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
     y = (xf - mu) * (var + eps) ** -0.5
-    return (y.reshape(b, l, h * p) * acc(scale)).to(x.dtype)
+    return (flatten(y, 2, 3) * acc(scale)).to(x.dtype)
 
 
 def _mlstm_qkv_gates(params, cfg: MLSTMConfig, x, conv_state=None):
@@ -233,8 +233,8 @@ def _mlstm_qkv_gates(params, cfg: MLSTMConfig, x, conv_state=None):
     else:
         xc, new_conv = causal_conv1d(xm, params["conv_w"], params["conv_b"], state=conv_state)
         xc = F.silu(xc)
-    xch = xc.reshape(b, l, cfg.n_heads, cfg.d_head)
-    xmh = xm.reshape(b, l, cfg.n_heads, cfg.d_head)
+    xch = unflatten(xc, -1, (cfg.n_heads, cfg.d_head))
+    xmh = unflatten(xm, -1, (cfg.n_heads, cfg.d_head))
     q = torch.einsum("blhp,hpk->blhk", xch, params["wq"])
     k = torch.einsum("blhp,hpk->blhk", xch, params["wk"])
     v = torch.einsum("blhp,hpk->blhk", xmh, params["wv"])
@@ -325,7 +325,7 @@ def slstm_cell_step(state, x_gates, r_w, n_heads, d_head):
     h_heads = h_s.reshape(b, n_heads, d_head)
     r_contrib = torch.einsum("bhp,hpk->bhk", acc(h_heads), acc(r_w))
     # gate layout is per-head-major: (head, gate-kind, unit)
-    gates = (acc(x_gates).reshape(b, n_heads, 4, d_head)
+    gates = (unflatten(acc(x_gates), -1, (n_heads, 4, d_head))
              + r_contrib.reshape(b, n_heads, 4, d_head))
     i_raw, f_raw = gates[:, :, 0], gates[:, :, 1]
     z_raw, o_raw = gates[:, :, 2], gates[:, :, 3]
@@ -367,16 +367,23 @@ def slstm_block_apply(params, cfg: SLSTMConfig, x, cache=None):
     if decode:
         state = slstm_cell_step(state, x_gates_all[:, 0], params["r_gates"],
                                 cfg.n_heads, cfg.d_head)
-        h_seq = state[3].reshape(b, 1, d)
+        h_seq = flatten(state[3], 1, 2)[:, None]
         new_cache = {"conv": new_conv.to(cache["conv"].dtype), "c": state[0],
                      "n": state[1], "m": state[2], "h": state[3]}
     else:
-        hs = []
-        for t in range(l):
-            state = slstm_cell_step(state, x_gates_all[:, t], params["r_gates"],
-                                    cfg.n_heads, cfg.d_head)
-            hs.append(state[3])
-        h_seq = torch.stack(hs, dim=1).reshape(b, l, d)
+        def scan(x_gates_all, r_gates, *state):
+            hs = []
+            for t in range(l):
+                state = slstm_cell_step(state, x_gates_all[:, t], r_gates,
+                                        cfg.n_heads, cfg.d_head)
+                hs.append(state[3])
+            return torch.stack(hs, dim=1)
+
+        # the time loop on local shards (batch kept, heads whole): on
+        # DTensors each of its ~20 ops a step would pass DTensor's dispatch
+        h_seq = local(scan, x_gates_all, params["r_gates"], *state,
+                      axes=[("batch", None, None), (None, None, None)]
+                      + [("batch", None, None)] * 4).reshape(b, l, d)
 
     # output: group norm + gated up/down projection
     xf = acc(h_seq).reshape(b, -1, cfg.n_heads, cfg.d_head)

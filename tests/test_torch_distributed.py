@@ -303,6 +303,21 @@ def test_sharded_gradients_match_unsharded(runs, name):
                  _prefixed(runs["gloo"], f"grads/{name}/plain"), GRAD_REL)
 
 
+@pytest.mark.parametrize("arch", W.DECODE_ARCHS)
+def test_sharded_decode_matches_unsharded(runs, arch):
+    """Three decode steps on (2, 2) against the unsharded decode, the
+    caches placed by their logical axes (the dry run's placement):
+    attention's K/V with the sequence split over ``model`` (each new row
+    written where its position lies, the softmax's parts combined by
+    all-reduces), Mamba2's state with its heads split, whisper's cross
+    K/V, the mLSTM and sLSTM states."""
+    for i in range(W.DECODE_STEPS):
+        want = runs["gloo"][f"decode/{arch}/{i}/plain"]
+        got = runs["gloo"][f"decode/{arch}/{i}/mesh"]
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() < REL * np.abs(want).max(), (arch, i)
+
+
 def test_compress_decompress_on_sharded_gradients_is_the_global_one(runs):
     """Sharded as (Shard(0), Shard(1)) on (2, 2), the quantized gradient and
     its error equal the unsharded ones bit for bit, and keep the

@@ -36,6 +36,11 @@ GRAD_ARCHS = ("paligemma-3b", "zamba2-2.7b", "xlstm-1.3b", "arctic-480b", "qwen3
 # attention variants of a smoke config: a sequence-sharded q, and 3 KV heads
 # for 6 q heads, which split on model = 2 where the KV heads do not
 VARIANTS = {"seq_shard": dict(seq_shard=True), "kv3": dict(n_kv_heads=3)}
+# decode against caches placed by their logical axes: attention's K/V
+# sequence split, Mamba2's heads and the shared layer, whisper's cross K/V,
+# the mLSTM and sLSTM states
+DECODE_ARCHS = ("qwen3-1.7b", "zamba2-2.7b", "whisper-medium", "xlstm-1.3b")
+DECODE_STEPS = 3
 
 
 def nested(flat):
@@ -224,6 +229,32 @@ def _gloo_checks(rank, d):
                                              for k in p)}
         arrays.update({f"grads/{name}/plain/{k}": v.numpy() for k, v in g0.items()})
         arrays.update({f"grads/{name}/mesh/{k}": v for k, v in _full(g1).items()})
+
+    # decode on the mesh: the caches (4 sequences of 8 positions) placed by
+    # their logical axes, three steps against the unsharded decode
+    from repro_torch.launch.dryrun import _distribute
+
+    rng = np.random.default_rng(11)
+    for arch in DECODE_ARCHS:
+        dspec = get_arch(arch).smoke_spec_fn()
+        plain = LM(dspec).init(torch.Generator().manual_seed(0))
+        m = LM(dspec).init(torch.Generator().manual_seed(0))
+        p = distribute_model(m, mesh, rules)
+        enc = None
+        if dspec.encoder_layers:
+            enc = torch.from_numpy(rng.standard_normal((4, 6, dspec.d_model)).astype(np.float32))
+        with torch.no_grad():
+            c0 = plain.init_cache(4, 8, enc_out=enc)
+            c1 = _distribute(plain.init_cache(4, 8, enc_out=enc), plain.cache_axes(), mesh, rules)
+        step_fn = tstep.make_decode_step(m)
+        for i in range(DECODE_STEPS):
+            tok = torch.from_numpy(rng.integers(0, dspec.vocab, (4, 1)))
+            with torch.no_grad():
+                want, _ = plain.decode(c0, tok, i)
+            with sharding_context(mesh, rules):
+                got, _ = step_fn(p, c1, replicate_tree(tok, mesh), i)
+            arrays[f"decode/{arch}/{i}/plain"] = want.numpy()
+            arrays[f"decode/{arch}/{i}/mesh"] = got.full_tensor().numpy()
 
     # compress_decompress on sharded gradients: blocks over the global tensor
     from torch.distributed.tensor import Shard, distribute_tensor
