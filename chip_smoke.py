@@ -101,7 +101,12 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    the sweep phase's kernel sweep fanned to the surviving daemon: both
    cells computed there and persisted here, the local sweep's best trials
    (or a trial it measured within 5% of one),
-   a resumed re-run doing nothing; no degradation warning anywhere;
+   a resumed re-run doing nothing; no degradation warning anywhere.  After
+   the first explore run (``remote_hostless``), the same spec again from a
+   parent without a card (``CUDA_VISIBLE_DEVICES= python -m
+   repro_torch.explorer spec.json --device cpu --remote-workers ...``): the
+   first run's trial params, states and best trial, each latency within 5%
+   and peak within 1% of it, flash and ``ssm_scan`` launched in the daemons;
 7. the mLSTM scan against its plain version (fp32 and bf16, timed as in
    3), at the xlstm-1.3b forward's shape and smaller ones; the forward's
    shape and batch 4 at 512 also with the kernel's device time from
@@ -171,9 +176,9 @@ Run from the root of a checkout.  Phases, each of which raises on failure
 14c. dryrun: the multi-pod dry run (``python -m repro_torch.launch.dryrun``)
    under this machine's torch, each cell in a child process with the cards
    hidden: qwen3-1.7b train_4k on (16, 16) and, without the cost counters,
-   on (2, 16, 16), dbrx-132b train_4k with ``--opt``'s variant (no cost
-   counters), and
-   zamba2-2.7b long_500k; each must be ``ok`` (status, seconds, collective
+   on (2, 16, 16), dbrx-132b train_4k with ``--opt``'s variant cut to 8 of
+   its 40 layers (no cost counters), and zamba2-2.7b long_500k; each must
+   be ``ok`` (status, seconds, collective
    bytes by kind printed).  Then the dry run held to the card: qwen3-1.7b
    cut to 2 layers at batch 4 x 512, its (1, 1) record on the fake group
    against the same step on a (1, 1) NCCL mesh: ``argument_bytes`` equal to
@@ -181,12 +186,26 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    allocator was asked for them (its blocks round each up to 512 bytes, or
    more where a large block is not split), no collective; MemTracker's
    peak over the card's printed;
+14d. pod_nas: the paper's mode-2 LM search (``examples/torch/
+   hw_in_loop_nas_lm.py``), in a child process: 3 trials on ``h100_pod``
+   (256 cards over the fake process group, bf16 parameters laid out on
+   ``meta`` at the reference's widths, each counted at 1 and 2 layers and
+   extrapolated), each trial's counting seconds, per-device argument and
+   peak GB, collective bytes and roofline terms printed; then its best
+   candidate cut to 2 layers laid out on a (1, 1) NCCL mesh on the card,
+   the counted ``argument_bytes`` held to the card's parameter and token
+   bytes and to the bytes the allocator was asked for them.  Before it,
+   here and alone on the host, 2 trials of its ``h100`` branch measured on
+   the card (sequence 128, batch 2, fp32); the child then runs beside the
+   dryrun phase's children.  No kernel is launched (the backbones run the
+   plain math);
 15. val_accuracy: the paper's Listing 3 (``examples/nas_conv1d.py``'s
    space, data and criteria) through the port, training and latency on
    the card, 6 trials with TPE and successive halving; the best trial
    trained again on the CPU from the same weights must agree;
-16. a JSON line per kernel, the card's name and power limit, and the
-   ``{"ok": true, ...}`` line last.
+16. each phase's wall seconds (``phase_seconds``), a JSON line per
+   kernel, the card's name and power limit, and the ``{"ok": true, ...}``
+   line last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -457,18 +476,30 @@ TRAIN_MESH_ARGS = ["--arch", "qwen3-1.7b", "--steps", "4", "--seq", "512",
 TRAIN_MESH_ATOL = 1e-6  # tests/test_torch_train.py's OPT_ATOL, per element, where bits differ
 # the dry run's CLI cells (arch, shape, mesh, extra arguments), each in a
 # child process with the cards hidden, all at once; dbrx with --opt's
-# variant and without the cost counters (a third of its time), so that the
-# phase stays within 90 s
+# variant (selective remat, the chunked loss, the MoE step on DTensor),
+# without the cost counters (a third of its time) and cut to its first 8
+# layers: all 40 took 81.5 s of a 95.9 s phase on an NVIDIA H100 80GB
+# HBM3's host, in a whole run that came within 14 s of the script's
+# 1,200 s limit
 DRYRUN_CELLS = [
     ("qwen3-1.7b", "train_4k", "single", []),
     ("qwen3-1.7b", "train_4k", "multi", ["--no-cost"]),
     ("dbrx-132b", "train_4k", "single",
-     ["--variant", "chunked_loss,remat_dots,seq_shard,moe_2d", "--no-cost"]),
+     ["--variant", "chunked_loss,remat_dots,seq_shard,moe_2d", "--no-cost", "--units", "8"]),
     ("zamba2-2.7b", "long_500k", "single", []),
 ]
 # the dry run held to the card: qwen3-1.7b cut to 2 layers, batch 4 x 512
 DRYRUN_CHECK = {"arch": "qwen3-1.7b", "layers": 2, "batch": 4, "seq": 512}
 DRYRUN_ALLOC_ROUND = 512  # the caching allocator's least rounding of a block
+# the paper's mode-2 LM search (examples/torch/hw_in_loop_nas_lm.py): its
+# study on h100_pod counted on the host in a child process, its best
+# candidate cut to POD_CHECK_LAYERS laid out on the card; its h100 branch
+# measured here
+POD_EXAMPLE = ROOT / "examples" / "torch" / "hw_in_loop_nas_lm.py"
+POD_TRIALS = 3
+POD_MEASURED_TRIALS = 2
+POD_CHECK_LAYERS = 2
+POD_BATCH, POD_SEQ = 32, 2048  # the reference's defaults
 # examples/nas_conv1d.py's SPACE_YAML as a dict (the card's machine has no
 # PyYAML; tests/test_torch_train_infra.py holds the two equal)
 LISTING3_SPACE = {
@@ -2740,7 +2771,7 @@ def _gate_free(path) -> bool:
 
 
 def _remote_trials(explorer) -> list:
-    return [{"number": t.number, "state": t.state.value,
+    return [{"number": t.number, "state": t.state.value, "params": dict(t.params),
              "signature": t.user_attrs.get("signature"),
              "latency_s": t.user_attrs.get("latency_s"),
              "peak_bytes": t.user_attrs.get("peak_bytes"),
@@ -2814,6 +2845,78 @@ def _against_serial(label, trials, serial, pids, failures) -> dict:
             or summary["peak_apart"] or len(trials) != NAS_TRIALS):
         failures.append(f"remote {label}: {summary}")
     return summary
+
+
+def _hostless_run(tmp, addrs, label) -> tuple:
+    """``explore_spec`` through the daemons at ``addrs`` from a parent
+    without a card: ``CUDA_VISIBLE_DEVICES= python -m repro_torch.explorer
+    <spec>.json --device cpu --remote-workers <addrs>`` with no disk cache
+    (the daemons' store would answer every value) and the study stored as
+    JSONL, from which the trials are read back.  Returns the trials (as ``_remote_trials`` gives
+    them), the report, the wall and the child's output."""
+    import subprocess
+
+    spec = explore_spec("remote", REMOTE_DAEMONS, f"{tmp}/{label}")
+    spec.pop("cache")
+    spec["persistence"] = f"{tmp}/{label}.jsonl"
+    path = Path(tmp) / f"{label}.json"
+    path.write_text(json.dumps(spec))
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.explorer", str(path),
+                           "--device", "cpu", "--remote-workers", ",".join(addrs),
+                           "--report-dir", f"{tmp}/{label}"],
+                          capture_output=True, text=True, env=env, cwd=str(ROOT),
+                          timeout=REMOTE_START_S + 300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"remote_hostless: the parent without a card exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    report = json.loads((Path(tmp) / label / f"{spec['name']}.report.json").read_text())
+    stored = {}
+    for line in Path(spec["persistence"]).read_text().splitlines():
+        record = json.loads(line)
+        if record.get("kind") == "trial":
+            stored[record["trial"]["number"]] = record["trial"]
+    trials = [{"number": t["number"], "state": t["state"], "params": t["params"],
+               "signature": t["user_attrs"].get("signature"),
+               "latency_s": t["user_attrs"].get("latency_s"),
+               "peak_bytes": t["user_attrs"].get("peak_bytes"),
+               "kernel_schedules": t["user_attrs"].get("kernel_schedules"),
+               "pid": (t["user_attrs"].get("worker") or {}).get("pid"),
+               "launches": (t["user_attrs"].get("worker") or {}).get("launches") or {}}
+              for t in (stored[n] for n in sorted(stored))]
+    return trials, report, wall, proc.stdout + proc.stderr
+
+
+def _hostless_against(trials, report, parent, parent_best, pids, launched) -> dict:
+    """The card-less parent's run against the on-card parent's: the same
+    trial params, states and best trial; each latency within
+    ``REMOTE_LATENCY_REL`` and peak within ``NAS_PEAK_REL``; every trial in
+    a daemon; flash and ``ssm_scan`` launched there; the report naming the
+    daemons' device; no degradation in its output."""
+    by_number = {t["number"]: t for t in parent}
+    latency = {t["number"]: t["latency_s"] / by_number[t["number"]]["latency_s"]
+               for t in trials}
+    peak = {t["number"]: t["peak_bytes"] / by_number[t["number"]]["peak_bytes"]
+            for t in trials}
+    row = {
+        "same_trials": [(t["number"], t["state"], t["params"]) for t in trials]
+        == [(t["number"], t["state"], t["params"]) for t in parent],
+        "best": report["best"]["number"], "parent_best": parent_best,
+        "device": report["device"], "backend": report["backend"],
+        "not_in_a_daemon": [t["number"] for t in trials if t["pid"] not in pids],
+        "latency_over_parent": [min(latency.values()), max(latency.values())],
+        "peak_over_parent": [min(peak.values()), max(peak.values())],
+        "latency_apart": {n: r for n, r in latency.items() if abs(r - 1) > REMOTE_LATENCY_REL},
+        "peak_apart": {n: r for n, r in peak.items() if abs(r - 1) > NAS_PEAK_REL},
+        "launches_in_daemons": launched}
+    row["ok"] = (row["same_trials"] and row["best"] == parent_best
+                 and row["device"] == "cuda" and row["backend"] == "remote"
+                 and not row["not_in_a_daemon"] and not row["latency_apart"]
+                 and not row["peak_apart"] and len(trials) == NAS_TRIALS
+                 and all(launched.get(k, 0) > 0 for k in ("flash_attention", "ssm_scan")))
+    return row
 
 
 def _kernel_sweep_spec(report_dir) -> dict:
@@ -2894,7 +2997,12 @@ def remote_phase(torch, ops, local_sweep=None) -> dict:
     ``ssm_scan`` launched there (differences of the daemons' cumulative
     counts), the serial run's best trial, each ``latency_s`` within
     ``REMOTE_LATENCY_REL`` and each ``peak_bytes`` within ``NAS_PEAK_REL``
-    of the serial run's.  (b) The same spec again without a disk cache
+    of the serial run's.  (a2) The same spec from a parent without a card
+    (``_hostless_run``: a child with the cards hidden, ``--device cpu``, no
+    disk cache), held to (a) by ``_hostless_against``; if a latency misses,
+    both parents run again in turns, each measuring anew, and the check
+    reads the second pair (a daemon is sometimes slow: ROADMAP Queue 3 item
+    2).  (b) The same spec again without a disk cache
     (the daemons' store would answer every value): SIGTERM to one daemon
     once it has finished a trial and holds the measurement gate for its
     next; the ``shutdown`` frame must make the client resubmit at once
@@ -2964,6 +3072,36 @@ def remote_phase(torch, ops, local_sweep=None) -> dict:
                 failures.append(f"remote explore: warnings {warned}, launches in the "
                                 f"daemons {launched}, best {report.best['number']} "
                                 f"against the serial {serial_report.best['number']}")
+
+            # -- (a2) the same spec from a parent without a card --------------
+            trials, hreport, wall_hostless, output = _hostless_run(tmp, addrs, "hostless")
+            hostless = {"wall_s": wall_hostless, "trials": trials,
+                        "warnings": [line for line in output.splitlines()
+                                     if any(p in line for p in REMOTE_WARNINGS)],
+                        **_hostless_against(trials, hreport, remote, report.best["number"],
+                                            pids, _launch_delta(trials, seen))}
+            print("remote_hostless " + json.dumps(hostless))
+            if hostless["latency_apart"] and not hostless["warnings"]:
+                # a daemon's measurement is sometimes slow (ROADMAP Queue 3
+                # item 2): both parents again in turns, each measuring anew,
+                # before the check is read; the limit stays
+                spec = explore_spec("remote", REMOTE_DAEMONS, f"{tmp}/cache_again")
+                spec.pop("cache")
+                spec["executor"]["workers"] = addrs
+                again_explorer, again_report, wall_again, _ = _explore_run(torch, spec)
+                parent_again = _remote_trials(again_explorer)
+                _launch_delta(parent_again, seen)
+                trials, hreport, wall_hostless, output = _hostless_run(tmp, addrs,
+                                                                       "hostless_again")
+                hostless["first"] = {k: hostless[k] for k in (
+                    "latency_over_parent", "latency_apart", "ok")}
+                hostless.update(wall_s=wall_hostless, trials=trials, parent_again_s=wall_again,
+                                **_hostless_against(trials, hreport, parent_again,
+                                                    again_report.best["number"], pids,
+                                                    _launch_delta(trials, seen)))
+                print("remote_hostless_again " + json.dumps(hostless))
+            if not hostless["ok"] or hostless["warnings"]:
+                failures.append(f"remote hostless: {json.dumps(hostless)[:3000]}")
 
             # -- (b) SIGTERM to a daemon mid-run ------------------------------
             victim, survivor = daemons
@@ -3114,12 +3252,13 @@ def remote_phase(torch, ops, local_sweep=None) -> dict:
                     daemon["proc"].wait(timeout=REMOTE_EXIT_S)
     summary = {"phase_s": time.perf_counter() - t_phase, "survivor_ended": survivor_ended,
                "wall_s": {"explore_remote": wall_remote, "explore_serial": wall_serial,
-                          "kill": wall_kill, "sweep": first["wall_s"]}}
+                          "hostless": hostless["wall_s"], "kill": wall_kill,
+                          "sweep": first["wall_s"]}}
     print("remote_summary " + json.dumps(summary))
     if failures:
         raise AssertionError("; ".join(failures))
-    return {"explore": launched, "kill": row["launches_in_daemons"],
-            "sweep": first["launches_in_daemon"]}
+    return {"explore": launched, "hostless": hostless["launches_in_daemons"],
+            "kill": row["launches_in_daemons"], "sweep": first["launches_in_daemon"]}
 
 
 def _launched_since(ops, before) -> dict:
@@ -3316,6 +3455,7 @@ import torch.distributed as dist
 from repro_torch.configs import SHAPES, ShapeCell
 from repro_torch.distributed.api import sharding_context
 from repro_torch.distributed.sharding import default_rules
+from repro_torch.hwgen import sharded
 from repro_torch.hwgen.collectives import CollectiveCounter, total_collective_bytes
 from repro_torch.kernels import ops
 from repro_torch.launch import dryrun, mesh as mesh_lib
@@ -3327,7 +3467,7 @@ row = {"arch": check["arch"], "layers": check["layers"], "batch": check["batch"]
 
 with mock.patch.dict(dryrun.SHAPES, {"train_4k": cell}):
     # the dry run on the fake group, on a (1, 1) mesh
-    dryrun.start_fake_group(256)
+    sharded.start_fake_group(256)
     with mock.patch.object(mesh_lib, "make_production_mesh",
                            lambda multi_pod=False, device_type=None:
                            mesh_lib.make_mesh((1, 1), ("data", "model"), device_type)):
@@ -3348,7 +3488,7 @@ with mock.patch.dict(dryrun.SHAPES, {"train_4k": cell}):
         step, args, mesh, meta = dryrun.build_cell(check["arch"], "train_4k", False,
                                                    n_units=check["layers"], device="cuda")
     torch.cuda.synchronize()
-    tensors = dryrun._locals(args)
+    tensors = sharded.local_tensors(args)
     placed = torch.cuda.memory_allocated() - held
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     rounded = sum(-(-t.numel() * t.element_size() // rounding) * rounding for t in tensors)
@@ -3454,7 +3594,10 @@ def dryrun_phase(torch, ops) -> dict:
             stdout, stderr = proc.communicate(timeout=600)
             lines = [line for line in stdout.splitlines() if line.startswith("{")]
             rec = json.loads(lines[-1]) if lines else {"status": "no record"}
-            suffix = ("__" + extra[1].replace(",", "+")) if "--variant" in extra else ""
+            flags = [a for a in extra if a != "--no-cost"]
+            opts = dict(zip(flags[::2], flags[1::2]))
+            suffix = ("__" + opts["--variant"].replace(",", "+")) if "--variant" in opts else ""
+            suffix += f"__units{opts['--units']}" if "--units" in opts else ""
             path = Path(out) / f"{arch}__{shape}__{mesh}{suffix}.json"
             kinds = json.loads(path.read_text()).get("collectives", {}) if path.exists() else {}
             row = {"cell": f"{arch}__{shape}__{mesh}", "args": extra, "status": rec.get("status"),
@@ -3479,6 +3622,203 @@ def dryrun_phase(torch, ops) -> dict:
         bad.append(f"the check against the card: exit {check.returncode}: {stderr[-3000:]}")
     if bad:
         raise AssertionError("dryrun: " + "; ".join(bad))
+    return row
+
+
+POD_NAS_CHILD = """
+import importlib.util, json, math, sys, time
+import torch
+from repro_torch.distributed.api import sharding_context
+from repro_torch.distributed.sharding import default_rules
+from repro_torch.hwgen import sharded
+from repro_torch.hwgen.collectives import CollectiveCounter, total_collective_bytes
+from repro_torch.hwgen.generator import TorchGenerator
+from repro_torch.hwgen.targets import TargetSpec, get_target
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.lm import LM
+
+path, trials, layers, batch, seq, rounding = sys.argv[1], *map(int, sys.argv[2:])
+loader = importlib.util.spec_from_file_location("hw_in_loop_nas_lm", path)
+ex = importlib.util.module_from_spec(loader)
+loader.loader.exec_module(ex)
+launches = dict(ops.LAUNCHES)
+
+# the study on h100_pod: 256 fake ranks, every candidate on meta
+rows = []
+t0 = time.perf_counter()
+study = ex.run_study(TorchGenerator(get_target("h100_pod")), trials, batch, seq,
+                     log=lambda line: rows.append(json.loads(line.split(" ", 1)[1])))
+out = {"trials": rows, "study_s": time.perf_counter() - t0,
+       "states": [t.state.value for t in study.trials]}
+best = study.best_trial
+out["best"] = {"number": best.number, "params": best.params}
+
+# its best candidate cut to `layers`, counted on a (1, 1) mesh of the fake group
+spec = ex.with_depth(ex.spec_from_params(best.params), layers)
+one = TargetSpec(name="h100_1x1", chip=get_target("h100_pod").chip, mesh_shape=(1, 1),
+                 mesh_axes=("data", "model"), measurement="roofline", device="cpu")
+fn, args, shardings = ex.sharded_program(spec, one, batch, seq)
+counted = TorchGenerator(one).generate(fn, args, shardings)
+
+# the same layout on the card, on a (1, 1) NCCL mesh: weights and tokens drawn there
+mesh = make_host_mesh("cuda")
+torch.cuda.synchronize()
+torch.cuda.empty_cache()
+held = torch.cuda.memory_allocated()
+torch.cuda.reset_peak_memory_stats()
+gen = torch.Generator("cuda").manual_seed(0)
+model = LM(spec).init(gen, torch.bfloat16)
+tokens = torch.randint(0, spec.vocab, (batch, seq), dtype=torch.int32, device="cuda",
+                       generator=gen)
+placed = sharded.distribute(({k: p.detach() for k, p in model.named_parameters()}, tokens),
+                            shardings, mesh)
+torch.cuda.synchronize()
+tensors = sharded.local_tensors(placed)
+nbytes = sum(t.numel() * t.element_size() for t in tensors)
+blocks = {}
+for seg in torch.cuda.memory_snapshot():
+    addr = seg["address"]
+    for block in seg["blocks"]:
+        if block["state"] == "active_allocated":
+            blocks[addr] = (block["requested_size"], block["size"])
+        addr += block["size"]
+found = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in tensors}
+unfound = sum(ptr not in blocks for ptr in found)
+requested = sum(blocks[ptr][0] for ptr in found if ptr in blocks)
+short = sum(blocks[ptr][1] < -(-n // rounding) * rounding
+            for ptr, n in found.items() if ptr in blocks)
+t0 = time.perf_counter()
+with torch.no_grad(), sharding_context(mesh, default_rules(mesh)), \\
+        CollectiveCounter() as counter:
+    logits = fn(*placed)
+    logits = logits.to_local() if hasattr(logits, "to_local") else logits
+    finite = bool(torch.isfinite(logits).all())
+torch.cuda.synchronize()
+out["check"] = {
+    "params": best.params, "layers": layers, "batch": batch, "seq": seq,
+    "counted": {"argument_bytes": counted.memory["argument_bytes"],
+                "peak_bytes_per_device": counted.memory["peak_bytes_per_device"],
+                "collective_bytes": counted.collective_bytes, "flops": counted.flops},
+    "card": {"argument_tensors": len(tensors), "argument_bytes": nbytes,
+             "requested_bytes": requested, "storages_not_in_a_block": unfound,
+             "blocks_below_rounded": short, "forward_s": time.perf_counter() - t0,
+             "max_memory_allocated_less_held": torch.cuda.max_memory_allocated() - held,
+             "collectives": sum(v["count"] for v in counter.stats.values()),
+             "logits_shape": list(logits.shape), "logits_finite": finite}}
+out["check"]["argument_bytes_equal"] = (counted.memory["argument_bytes"] == nbytes
+                                        == requested)
+out["check"]["counted_peak_over_card_peak"] = (
+    counted.memory["peak_bytes_per_device"]
+    / out["check"]["card"]["max_memory_allocated_less_held"])
+out["kernel_launches"] = {k: n - launches.get(k, 0) for k, n in ops.LAUNCHES.items()
+                          if n != launches.get(k, 0)}
+torch.distributed.destroy_process_group()
+print("POD_NAS " + json.dumps(out), flush=True)
+"""
+
+
+def _pod_child():
+    """The mode-2 search's child process (``POD_NAS_CHILD``), started: its
+    study on ``h100_pod`` on the host, then its best candidate on the card."""
+    import subprocess
+
+    return subprocess.Popen(
+        [sys.executable, "-c", POD_NAS_CHILD, str(POD_EXAMPLE), str(POD_TRIALS),
+         str(POD_CHECK_LAYERS), str(POD_BATCH), str(POD_SEQ), str(DRYRUN_ALLOC_ROUND)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=str(ROOT))
+
+
+def _pod_measured(torch, ops) -> dict:
+    """``POD_MEASURED_TRIALS`` trials of the mode-2 search's ``h100`` branch
+    on the card (sequence 128, batch 2, fp32 weights from seed 0, each
+    placed, run and timed), with the kernels they launched."""
+    import importlib.util
+
+    loader = importlib.util.spec_from_file_location("hw_in_loop_nas_lm", POD_EXAMPLE)
+    example = importlib.util.module_from_spec(loader)
+    loader.loader.exec_module(example)
+    from repro_torch.hwgen.generator import TorchGenerator
+    from repro_torch.hwgen.targets import get_target
+
+    before = dict(ops.LAUNCHES)
+    rows = []
+    t0 = time.perf_counter()
+    study = example.run_study(TorchGenerator(get_target("h100")), POD_MEASURED_TRIALS, 2, 128,
+                              log=lambda line: rows.append(json.loads(line.split(" ", 1)[1])))
+    torch.cuda.synchronize()
+    return {"study": study, "rows": rows, "measured_s": time.perf_counter() - t0,
+            "launched": _launched_since(ops, before)}
+
+
+def pod_nas_phase(torch, ops, measured=None, child=None) -> dict:
+    """The paper's mode-2 LM search (``examples/torch/hw_in_loop_nas_lm.py``,
+    the reference's search space and objective).  A child process
+    (``_pod_child``) runs its study on ``h100_pod`` for ``POD_TRIALS``
+    trials (the fake process group stays in that process) and holds its
+    best candidate, cut to ``POD_CHECK_LAYERS`` layers, to the card: the
+    counted ``argument_bytes`` on a (1, 1) mesh must equal the bytes of
+    its parameters and tokens laid out on a (1, 1) NCCL mesh and the bytes
+    the allocator was asked for them, each in a block of at least its size
+    rounded up to ``DRYRUN_ALLOC_ROUND``; the forward there must give
+    finite logits and issue no collective.  ``POD_MEASURED_TRIALS`` trials
+    of the study's ``h100`` branch run on the card here
+    (``_pod_measured``), before the child starts: their forwards are
+    host-bound, and the child's counting would share the host with them.
+    ``measured`` and ``child`` are those when the caller ran and started
+    them (the main path runs the child beside the dryrun phase's).  Every
+    trial must complete, and no kernel launch anywhere (the backbones run
+    the plain math, as the reference's default ``impl`` does)."""
+    t_phase = time.perf_counter()
+    if measured is None:
+        measured = _pod_measured(torch, ops)
+        torch.cuda.empty_cache()
+    if child is None:
+        child = _pod_child()
+    try:
+        stdout, stderr = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    study, launched = measured["study"], measured["launched"]
+    for row in measured["rows"]:
+        print("pod_nas_measured_trial " + json.dumps(row))
+    lines = [line for line in stdout.splitlines() if line.startswith("POD_NAS ")]
+    counted = json.loads(lines[-1].split(" ", 1)[1]) if lines else None
+    bad = []
+    if child.returncode != 0 or counted is None:
+        bad.append(f"the child: exit {child.returncode}: {stderr[-3000:]}")
+    else:
+        for row in counted["trials"]:
+            print("pod_nas_trial " + json.dumps(row))
+        print("pod_nas_check " + json.dumps(counted["check"]))
+        check = counted["check"]
+        if counted["states"] != ["complete"] * POD_TRIALS:
+            bad.append(f"pod trials {counted['states']}")
+        if not check["argument_bytes_equal"] or check["card"]["storages_not_in_a_block"] \
+                or check["card"]["blocks_below_rounded"]:
+            bad.append(f"argument bytes: counted {check['counted']['argument_bytes']}, on "
+                       f"the card {check['card']}")
+        if check["card"]["collectives"] or not check["card"]["logits_finite"] \
+                or check["card"]["logits_shape"] != [POD_BATCH, POD_SEQ, 32000]:
+            bad.append(f"the forward on the card: {check['card']}")
+        if counted["kernel_launches"]:
+            bad.append(f"kernels launched in the child: {counted['kernel_launches']}")
+    states = [t.state.value for t in study.trials]
+    if states != ["complete"] * POD_MEASURED_TRIALS:
+        bad.append(f"measured trials {states}")
+    if launched:
+        bad.append(f"kernels launched: {launched}")
+    row = {"phase_s": time.perf_counter() - t_phase, "measured_s": measured["measured_s"],
+           "study_s": counted and counted["study_s"], "best": counted and counted["best"],
+           "measured_best": {"number": study.best_trial.number,
+                             "params": study.best_trial.params} if study.best_trial else None,
+           "kernel_launches": launched}
+    print("pod_nas " + json.dumps(row))
+    if bad:
+        raise AssertionError("pod_nas: " + "; ".join(bad))
     return row
 
 
@@ -3825,6 +4165,7 @@ TRAIN_PHASES = {
     "val_accuracy": val_accuracy_phase,
     "train_mesh": train_mesh_phase,
     "dryrun": dryrun_phase,
+    "pod_nas": pod_nas_phase,
 }
 SUBSET_PHASES = ("flash", "ssm", "nas", "modelled", "explore", "cascade", "sweep",
                  "serving", "report_boot", "remote", "mlstm", *MODEL_PHASES,
@@ -3834,6 +4175,7 @@ SUBSET_PHASES = ("flash", "ssm", "nas", "modelled", "explore", "cascade", "sweep
 def main(argv=None) -> int:
     import argparse
 
+    t_script = time.perf_counter()
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3923,15 +4265,27 @@ def main(argv=None) -> int:
                 TRAIN_PHASES[name](torch, ops)
         return 0
 
+    # each phase's wall seconds, printed before the result: what the
+    # script's time limit is spent on
+    spent = {"build": round(time.perf_counter() - t0, 1)}
+
+    def timed(label, phase, *args):
+        t_phase = time.perf_counter()
+        try:
+            return phase(*args)
+        finally:
+            spent[label] = round(time.perf_counter() - t_phase, 1)
+
     # -- 3. kernel against plain version ----------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_rule_check(ops)
-    kernel_rows = flash_phase(torch, ops, gen)
+    kernel_rows = timed("flash", flash_phase, torch, ops, gen)
 
     # -- 3b. the SSD scan against its plain version -------------------------
-    ssm_rows = ssm_phase(torch, ops, ref, gen)
+    ssm_rows = timed("ssm", ssm_phase, torch, ops, ref, gen)
 
     # -- 4. serve at full width -------------------------------------------
+    t_serve = time.perf_counter()
     args = serve.parse_args(SERVE_ARGS)
     plain_calls = []
     ops.LAUNCHES.clear()
@@ -3998,83 +4352,103 @@ def main(argv=None) -> int:
     profile_window(torch, "decode B=4", lambda: int(
         model.decode(decode_cache, decode_tokens, decode_pos)[0].argmax()))
 
+    spent["serve"] = round(time.perf_counter() - t_serve, 1)
+
     # -- 6. the NAS loop at zamba2-2.7b's widths ---------------------------
     del decode_cache, engine, model
     torch.cuda.empty_cache()
-    nas = nas_phase(torch, ops, ref)
+    nas = timed("nas", nas_phase, torch, ops, ref)
 
     # -- 6b. metric: modelled over the nas phase's candidates ----------------
-    modelled_phase(torch, ops, nas)
+    timed("modelled", modelled_phase, torch, ops, nas)
 
     # -- 6c. the Explorer facade with the kernel-schedule tuner -------------
     torch.cuda.empty_cache()
-    explore = explore_phase(torch, ops)
+    explore = timed("explore", explore_phase, torch, ops)
 
     # -- 6d. the fidelity cascade: a synflow screen before the measurement --
     torch.cuda.empty_cache()
-    cascade = cascade_phase(torch, ops)
+    cascade = timed("cascade", cascade_phase, torch, ops)
 
     # -- 6e. sweeps: three targets; the kernels through run_sweep; hw_parallel
     torch.cuda.empty_cache()
-    sweep = sweep_phase(torch, ops, ref, nas)
+    sweep = timed("sweep", sweep_phase, torch, ops, ref, nas)
 
     # -- 6f. the traffic-shaped serving estimators: modelled, nothing runs ----
-    serving_phase(torch, ops)
+    timed("serving", serving_phase, torch, ops)
 
     # -- 6g. deploy-best: an exploration's winner booted from the store ------
     torch.cuda.empty_cache()
-    booted = report_boot_phase(torch, ops, ref)
+    booted = timed("report_boot", report_boot_phase, torch, ops, ref)
 
     # -- 6h. the remote worker pool: daemons measuring candidates ------------
     torch.cuda.empty_cache()
-    remote = remote_phase(torch, ops, sweep["kernel_cells"])
+    remote = timed("remote", remote_phase, torch, ops, sweep["kernel_cells"])
 
     # -- 7. the mLSTM scan against its plain version -----------------------
-    mlstm_rows = mlstm_phase(torch, ops, ref, gen)
+    mlstm_rows = timed("mlstm", mlstm_phase, torch, ops, ref, gen)
 
     # -- 8. the xlstm-1.3b forward through the kernel -----------------------
-    xfwd = xlstm_forward_phase(torch, ops, ref, serve)
-    xfwd16 = xlstm_forward_bf16_phase(torch, ops, ref, serve)
+    xfwd = timed("xlstm_forward", xlstm_forward_phase, torch, ops, ref, serve)
+    xfwd16 = timed("xlstm_forward_bf16", xlstm_forward_bf16_phase, torch, ops, ref, serve)
 
     # -- 9. serving xlstm-1.3b ----------------------------------------------
-    xserve = lm_serve_phase(torch, ops, ref, serve, "xlstm", XLSTM_SERVE_ARGS)
+    xserve = timed("xlstm_serve", lm_serve_phase, torch, ops, ref, serve, "xlstm",
+                   XLSTM_SERVE_ARGS)
 
     # -- 10. zamba2-2.7b: its forward, then serving it -----------------------
-    zfwd = zamba2_forward_phase(torch, ops, ref, serve)
-    zserve = lm_serve_phase(torch, ops, ref, serve, "zamba2", ZAMBA2_SERVE_ARGS)
+    zfwd = timed("zamba2_forward", zamba2_forward_phase, torch, ops, ref, serve)
+    zserve = timed("zamba2_serve", lm_serve_phase, torch, ops, ref, serve, "zamba2",
+                   ZAMBA2_SERVE_ARGS)
 
     # -- 11. dbrx-132b at its published widths, one layer ---------------------
-    moe = moe_forward_phase(torch, ops, ref, serve)
+    moe = timed("moe_forward", moe_forward_phase, torch, ops, ref, serve)
 
     # -- 12. paligemma-3b: its forward with a patch prefix, then serving it ----
-    pfwd = paligemma_forward_phase(torch, ops, ref, serve)
-    pserve = lm_serve_phase(torch, ops, ref, serve, "paligemma", PALIGEMMA_SERVE_ARGS)
+    pfwd = timed("paligemma_forward", paligemma_forward_phase, torch, ops, ref, serve)
+    pserve = timed("paligemma_serve", lm_serve_phase, torch, ops, ref, serve, "paligemma",
+                   PALIGEMMA_SERVE_ARGS)
 
     # -- 13. whisper-medium: encoder, decoder, the cached path ----------------
-    wfwd = whisper_forward_phase(torch, ops, ref, serve)
+    wfwd = timed("whisper_forward", whisper_forward_phase, torch, ops, ref, serve)
 
     # -- 14. training: qwen3-1.7b at full width, fp32 vs float64, resume ----
     torch.cuda.empty_cache()
-    trained = train_phase(torch, ops)
-    checked = train_check_phase(torch, ops)
-    resumed = train_resume_phase(torch, ops)
+    trained = timed("train", train_phase, torch, ops)
+    checked = timed("train_check", train_check_phase, torch, ops)
+    resumed = timed("train_resume", train_resume_phase, torch, ops)
 
     # -- 14b. sharded training: the same CLI on a (1, 1) NCCL mesh -------------
     torch.cuda.empty_cache()
-    meshed = train_mesh_phase(torch, ops)
+    meshed = timed("train_mesh", train_mesh_phase, torch, ops)
 
-    # -- 14c. the multi-pod dry run; its counts held to the card --------------
-    dried = dryrun_phase(torch, ops)
+    # -- 14c. the paper's mode-2 LM search's h100 trials, alone on the host;
+    # then the multi-pod dry run (its counts held to the card) beside the
+    # search's pod study and card check in a child -------------------------
+    torch.cuda.empty_cache()
+    pod_measured = timed("pod_nas_measured", _pod_measured, torch, ops)
+    torch.cuda.empty_cache()
+    pod_child = _pod_child()
+    try:
+        dried = timed("dryrun", dryrun_phase, torch, ops)
+        pod = timed("pod_nas", pod_nas_phase, torch, ops, pod_measured, pod_child)
+    finally:
+        if pod_child.poll() is None:
+            pod_child.kill()
+            pod_child.wait()
 
     # -- 15. the paper's Listing 3 with val_accuracy on the card ---------------
-    listing3 = val_accuracy_phase(torch, ops)
+    listing3 = timed("val_accuracy", val_accuracy_phase, torch, ops)
     trained_paths = {"train": trained["kernel_launches"],
                      "train_check": checked["kernel_launches"],
                      "train_mesh": meshed["kernel_launches"],
                      "dryrun": dried["check"]["kernel_launches"],
+                     "pod_nas": pod["kernel_launches"],
                      "val_accuracy": listing3["kernel_launches"]}
 
     # -- 16. result --------------------------------------------------------
+    print("phase_seconds " + json.dumps({**spent, "total": round(
+        time.perf_counter() - t_script, 1)}))
     served = kernel_rows[(REPORTED_CASE, "float32")]
     scan = ssm_rows[(SSM_REPORTED_CASE, "float32", "float32")]
     mscan = mlstm_rows[(MLSTM_REPORTED_CASE, "float32")]

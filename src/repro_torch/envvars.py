@@ -261,8 +261,8 @@ register_env(EnvVar(
     expected="a flag (`0`/`false` disables, anything else enables)",
     description=(
         "Force Pallas kernels into interpreter mode (`0`/`false` "
-        "disables it even off-TPU).  Interpret mode is how non-TPU "
-        "hosts — CI, this container — validate the TPU kernels."),
+        "disables it even off-TPU).  Interpret mode is how hosts "
+        "without a TPU validate the TPU kernels."),
     default="enabled unless running on a TPU backend",
     malformed="not applicable — every non-blank value parses as a flag",
     consulted_by="`repro/kernels/ops.py` (the JAX package; the port's "

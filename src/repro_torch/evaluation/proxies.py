@@ -24,7 +24,9 @@ screen with ``direction: minimize``.
 Where the port differs from the reference:
 
 * The proxies run on the card unless the caller asks for the CPU
-  (``device=``; the Explorer passes its target's device).  On CUDA each
+  (``device=``; the Explorer passes its target's device, and a card-less
+  host submitting a CUDA target's trials to remote daemons passes its own,
+  so its screen draws the weights and runs on the CPU).  On CUDA each
   forward holds :func:`~repro_torch.hwgen.generator.measurement_gate`:
   the cascade screens cohorts in the parent while process workers time
   candidates on the same card, and a proxy's forward beside a timing would

@@ -13,13 +13,19 @@ on the port::
     PYTHONPATH=src python -m repro_torch.explorer \
         examples/experiments/remote.yaml --device cpu   # daemons first:
     PYTHONPATH=src python -m repro_torch.worker --device cpu --port 7471
+    PYTHONPATH=src python -m repro_torch.explorer spec.yaml --device cpu \
+        --remote-workers cardhost:7471,cardhost:7472  # target h100, no card here
 
 Candidates run on CUDA unless ``--device cpu`` is given, and the spec's
-target must run on that device (``h100``: cuda, ``host_cpu``: cpu).  A
-sweep runs each cell on its target's device; with ``--device cpu`` a
-cell whose target runs on CUDA is refused.  Overrides exist for the
-knobs CI and quick local smoke runs need to shrink without editing the
-experiment/sweep file.
+target must run on that device (``h100``: cuda, ``host_cpu``: cpu), but
+on remote daemons: with ``executor: remote`` (or ``--remote-workers``) a
+host without a card submits an ``h100`` study under ``--device cpu`` and
+the daemons' cards run every candidate.  A sweep runs each cell on its
+target's device; with ``--device cpu`` a cell whose target runs on CUDA
+is refused unless ``--cell-workers`` (or the sweep's ``workers:``) runs
+it on daemons.  An experiment file ending in ``.json`` is read without
+PyYAML.  Overrides exist for the knobs CI and quick local smoke runs
+need to shrink without editing the experiment/sweep file.
 """
 from __future__ import annotations
 
@@ -54,8 +60,9 @@ def _run_experiment(argv: List[str]) -> int:
                    help="override executor.workers (comma-separated worker "
                         "daemons) and switch the backend to remote")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="where candidates run (default cuda); must be the "
-                        "spec target's device")
+                   help="where this process runs (default cuda); the spec "
+                        "target's device, or cpu for a card-less host whose "
+                        "remote workers run the candidates")
     args = p.parse_args(argv)
 
     spec = ExperimentSpec.from_yaml(args.experiment)
@@ -115,7 +122,8 @@ def _run_sweep(argv: List[str]) -> int:
                         "(comma-separated; overrides the sweep's `workers:`)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="the device asked for (default cuda); each cell runs "
-                        "on its target's, and cpu refuses a cell on cuda")
+                        "on its target's, and cpu refuses a cell on cuda "
+                        "unless --cell-workers runs it")
     args = p.parse_args(argv)
 
     spec = SweepSpec.from_yaml(args.sweep)

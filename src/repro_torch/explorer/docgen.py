@@ -1,19 +1,40 @@
-"""The component walk behind ``python -m repro_torch.explorer
---list-components``: every registry kind and the components the port has
-registered under it, read from the live registries with constructor
-signatures; and the ``fidelity`` sections of the experiment reference,
-rendered from the port's spec metadata (``FIELD_DOCS``/``KEYS``) as the
-JAX package's ``explorer/docgen.py`` renders them.
+"""Generate the port's reference docs from the code that enforces them
+(the JAX package's ``explorer/docgen.py`` on the port).
 
-The JAX package's ``explorer/docgen.py`` also renders the committed
-reference docs (``docs/reference/*.md``) whole; those documents describe
-the reference, and the port writes no file of its own for them.
+The YAML surface (experiment/sweep keys, registered components, REPRO_*
+environment knobs) is large enough that hand-maintained prose drifts.
+This module walks the *actual* sources of truth — the spec dataclasses'
+fields + ``FIELD_DOCS``/``KEYS`` validation metadata, the component
+registries (with constructor signatures), and the
+:data:`repro_torch.envvars.ENV_VARS` registry — and renders markdown.
+
+The port's surface is not the reference's: its targets are ``h100``,
+``host_cpu``, ``edge_npu`` and the pods ``h100_pod``/``h100_2pod`` (a spec
+naming a TPU target is refused at parse time), every target names the
+device its candidates run on, and its estimators, executors and knobs
+are its own.  So it renders its own reference,
+``docs/reference/torch/*.md``, beside the JAX package's
+``docs/reference/*.md``, which stay the reference's.
+
+Consumers:
+
+* ``scripts/gen_docs_torch.py`` writes/checks ``docs/reference/torch/*.md``;
+* ``python -m repro_torch.explorer --list-components`` prints the
+  component walk as text.
+
+``scripts/gen_docs_torch.py --check`` fails when a change to the YAML
+surface, a registry or an env knob was not regenerated.
 """
 from __future__ import annotations
 
 import dataclasses
 import inspect
 from typing import Any, Dict, List
+
+GENERATED_BANNER = (
+    "<!-- GENERATED FILE — do not edit by hand.\n"
+    "     Regenerate with: PYTHONPATH=src python scripts/gen_docs_torch.py -->\n"
+)
 
 # ---------------------------------------------------------------------------
 # component walk (registries)
@@ -82,8 +103,46 @@ def list_components_text() -> str:
     return "\n".join(lines).rstrip() + "\n"
 
 
+def components_markdown() -> str:
+    parts = [GENERATED_BANNER, "# Component reference (the PyTorch port)", "",
+             "Every string key addressable from experiment/sweep YAML run by",
+             "`python -m repro_torch.explorer`, as registered in",
+             "`repro_torch/explorer/registry.py`.  Plugins added via",
+             "`@register_component(kind, name)` join these tables at runtime.",
+             ""]
+    for kind, entries in walk_components().items():
+        parts.append(f"## `{kind}`")
+        parts.append("")
+        if kind == "target":
+            parts.append("| key | chip | peak FLOP/s (bf16) | HBM B/s | "
+                         "link B/s | HBM bytes | mesh | measurement | device |")
+            parts.append("|---|---|---|---|---|---|---|---|---|")
+            for e in entries:
+                t = e["target"]
+                chip = t["chip"]
+                mesh = "x".join(str(s) for s in t["mesh_shape"])
+                parts.append(
+                    f"| `{e['name']}` | {chip['name']} | "
+                    f"{chip['peak_flops_bf16']:.3g} | "
+                    f"{chip['hbm_bandwidth']:.3g} | "
+                    f"{chip['ici_bandwidth']:.3g} | "
+                    f"{chip['hbm_bytes']} | {mesh} | {t['measurement']} | "
+                    f"{t['device']} |")
+        else:
+            parts.append("| key | class | constructor | summary |")
+            parts.append("|---|---|---|---|")
+            for e in entries:
+                sig = (f"`{e['signature'].replace('|', chr(92) + '|')}`"
+                       if e["signature"] else "—")
+                summary = e["summary"].replace("|", "\\|")
+                parts.append(f"| `{e['name']}` | `{e['class']}` | {sig} | "
+                             f"{summary} |")
+        parts.append("")
+    return "\n".join(parts).rstrip() + "\n"
+
+
 # ---------------------------------------------------------------------------
-# experiment spec walk (validation metadata)
+# experiment / sweep spec walk (validation metadata)
 # ---------------------------------------------------------------------------
 
 def _spec_rows(cls: Any) -> List[Dict[str, str]]:
@@ -92,6 +151,10 @@ def _spec_rows(cls: Any) -> List[Dict[str, str]]:
     docs: Dict[str, str] = getattr(cls, "FIELD_DOCS", {})
     fields = {f.name: f for f in dataclasses.fields(cls)}
     keys = list(getattr(cls, "KEYS", fields))
+    # SamplerSpec/PrunerSpec carry free-form options; document them too
+    for extra in docs:
+        if extra not in keys:
+            keys.append(extra)
     rows = []
     for key in keys:
         f = fields.get(key)
@@ -167,3 +230,125 @@ def serving_markdown() -> str:
              "same arrivals, lengths and prompt tokens on every backend, so "
              "fixed-seed sweeps rank serving criteria deterministically.")
     return "\n".join(parts).rstrip() + "\n"
+
+
+def experiment_spec_markdown() -> str:
+    from repro_torch.explorer.experiment import (
+        TOP_LEVEL_DOCS,
+        TOP_LEVEL_KEYS,
+        BudgetSpec,
+        CacheSpec,
+        CriterionSpec,
+        ExecutorSpec,
+        FaultsSpec,
+        KernelTuningSpec,
+        PrunerSpec,
+        SamplerSpec,
+        ScheduleSpec,
+    )
+    from repro_torch.explorer.sweep import SWEEP_KEYS, SweepSpec
+
+    missing = sorted(set(TOP_LEVEL_KEYS) - set(TOP_LEVEL_DOCS))
+    if missing:
+        raise AssertionError(
+            f"TOP_LEVEL_DOCS is missing experiment key(s) {missing}")
+
+    parts = [GENERATED_BANNER, "# Experiment & sweep YAML reference (the PyTorch port)", "",
+             "What `python -m repro_torch.explorer` accepts.  Validation is",
+             "eager: unknown keys name the allowed set, unknown component",
+             "names list the registered alternatives, and component options",
+             "are bound against the constructor at parse time — a typo fails",
+             "before trial 0, not at trial 37.  The JAX package's TPU",
+             "targets are refused: the port carries no TPU rates.  A file",
+             "ending in `.json` is read without PyYAML.",
+             "",
+             "## Experiment document (top level)", "",
+             "| key | description |", "|---|---|"]
+    for key in TOP_LEVEL_KEYS:
+        parts.append(f"| `{key}` | {TOP_LEVEL_DOCS[key]} |")
+    parts.append("")
+    parts += _spec_table("sampler", SamplerSpec)
+    parts += _spec_table("executor", ExecutorSpec)
+    parts += _spec_table("schedule", ScheduleSpec)
+    parts += _spec_table(
+        "criteria[i]", CriterionSpec,
+        note="Each list entry is one criterion; scores aggregate by "
+             "estimator name.")
+    parts += fidelity_markdown().rstrip("\n").split("\n") + [""]
+    parts += _spec_table(
+        "kernel_tuning", KernelTuningSpec,
+        note="Kernel-schedule tuning: the CUDA kernels' tile and chunk "
+             "parameters become a per-target tuning dimension.  `cached` "
+             "attaches a `ScheduleTuner` (winners persist in the experiment "
+             "cache, keyed by kernel/shape-bucket/mesh scope — warm restarts "
+             "re-tune nothing); `search` exposes the fields as "
+             "`schedule:<kernel>:<field>` trial parameters.")
+    parts += _spec_table("cache", CacheSpec)
+    parts += _spec_table("budget", BudgetSpec)
+    parts += _spec_table("pruner", PrunerSpec)
+    parts += _spec_table(
+        "faults", FaultsSpec,
+        note="Deterministic fault injection (chaos testing a run on "
+             "purpose): the validated plan is installed for the run and "
+             "exported through `REPRO_FAULTS`, so spawned process workers "
+             "replay the same seeded schedule.")
+    parts += serving_markdown().rstrip("\n").split("\n") + [""]
+    parts += ["## Sweep document", "",
+              "A sweep fans one base experiment across axes "
+              "(`python -m repro_torch.explorer sweep sweep.yaml`); every key:",
+              ""]
+    sweep_rows = _spec_rows(SweepSpec)
+    row_keys = [r["key"] for r in sweep_rows]
+    missing = sorted(set(SWEEP_KEYS) - set(row_keys))
+    if missing:
+        raise AssertionError(f"SweepSpec.FIELD_DOCS is missing {missing}")
+    parts += ["| key | default | description |", "|---|---|---|"]
+    for row in sweep_rows:
+        parts.append(f"| `{row['key']}` | `{row['default']}` | "
+                     f"{row['description']} |")
+    parts.append("")
+    return "\n".join(parts).rstrip() + "\n"
+
+
+# ---------------------------------------------------------------------------
+# environment variables (repro_torch.envvars registry)
+# ---------------------------------------------------------------------------
+
+def env_markdown() -> str:
+    from repro_torch.envvars import ENV_VARS
+
+    parts = [GENERATED_BANNER, "# Environment variables (the PyTorch port)", "",
+             "Every `REPRO_*` knob the port reads, generated from the "
+             "`repro_torch.envvars.ENV_VARS` registry — the same entries the "
+             "readers parse with, so documented defaults and documented "
+             "malformed-value fallbacks are the implemented ones.",
+             "",
+             "Unset or blank values silently use the default.  A malformed "
+             "value emits a `RuntimeWarning` naming the variable and falls "
+             "back — it never raises.",
+             ""]
+    for name in sorted(ENV_VARS):
+        var = ENV_VARS[name]
+        parts += [
+            f"## `{name}`", "",
+            var.description, "",
+            f"- **expected:** {var.expected}",
+            f"- **default:** {var.default}",
+            f"- **on malformed values:** {var.malformed}",
+            f"- **consulted by:** {var.consulted_by}",
+            "",
+        ]
+    return "\n".join(parts).rstrip() + "\n"
+
+
+# ---------------------------------------------------------------------------
+# the generated file set
+# ---------------------------------------------------------------------------
+
+def generated_files() -> Dict[str, str]:
+    """Relative path (from the repo root) -> rendered content."""
+    return {
+        "docs/reference/torch/experiment_spec.md": experiment_spec_markdown(),
+        "docs/reference/torch/components.md": components_markdown(),
+        "docs/reference/torch/env.md": env_markdown(),
+    }

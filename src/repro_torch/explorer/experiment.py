@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import json
 import os
 from typing import Any, Dict, List, Mapping, Optional
 
@@ -109,8 +110,8 @@ class SamplerSpec:
     options: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     # FIELD_DOCS on every spec class is read by repro_torch.explorer.docgen to
-    # generate docs/reference/experiment_spec.md — the table lives next
-    # to the validator so the two cannot drift
+    # generate docs/reference/torch/experiment_spec.md — the table lives
+    # next to the validator so the two cannot drift
     FIELD_DOCS = {
         "name": "registered sampler key (see `components.md`); a bare "
                 "string is shorthand for `{name: ...}`",
@@ -856,6 +857,55 @@ TOP_LEVEL_KEYS = (
     "pruner", "scalarize", "report_dir", "faults", "serving",
 )
 
+# read by repro_torch.explorer.docgen into the top-level table of
+# docs/reference/torch/experiment_spec.md
+TOP_LEVEL_DOCS = {
+    "name": "experiment name; names the report artifact "
+            "`<report_dir>/<name>.report.json` (default: `experiment`)",
+    "search_space": "**required** — inline search-space DSL mapping, or "
+                    "`{file: path.yaml}` (relative paths resolve against "
+                    "the experiment file; the loaded space is inlined so "
+                    "the spec stays self-contained)",
+    "sampler": "which sampler proposes trials (see table below)",
+    "executor": "where objective evaluations run (see table below)",
+    "schedule": "how `ParallelStudy` schedules trials (see table below)",
+    "criteria": "**required** — non-empty list of criterion entries "
+                "(see table below); at least one `kind: objective`",
+    "fidelity": "optional multi-fidelity evaluation cascade (see table "
+                "below): candidates are screened a generation at a time "
+                "through cheap stages before the top-level criteria — the "
+                "implicit final stage — run on the survivors",
+    "kernel_tuning": "optional kernel-schedule tuning (see table below): "
+                     "the CUDA kernels' tile and chunk parameters become a "
+                     "per-target tuning dimension, autotuned+cached "
+                     "(`cached`) or co-searched with the architecture "
+                     "(`search`)",
+    "target": "registered hardware target key (default `host_cpu`; see "
+              "`components.md`); injected into estimators that accept a "
+              "`target` kwarg.  Its `device` is where its candidates run "
+              "(`h100` on CUDA; `host_cpu`, `edge_npu` and the pod targets, "
+              "which are counted and never run, on the host), and the device "
+              "the run asks for (`--device`) must be it, but for a host "
+              "without a card submitting a CUDA target to `executor: remote`",
+    "cache": "evaluation-cache configuration (see table below)",
+    "persistence": "study storage JSONL path; re-running resumes stored "
+                   "trials against the budget (default: in-memory only)",
+    "budget": "how much to search (see table below)",
+    "pruner": "optional early-stopping pruner (see table below)",
+    "scalarize": "`true` (default): weighted-sum single-objective search; "
+                 "`false`: multi-objective (Pareto) — rejects "
+                 "soft constraints, which only exist in scalarized mode",
+    "report_dir": "directory for the report artifact (default `results`)",
+    "faults": "optional deterministic fault injection (see table below): "
+              "a seeded chaos schedule installed for the run and "
+              "inherited by spawned process workers via `REPRO_FAULTS`",
+    "serving": "optional serving configuration (see table below): "
+               "continuous-batching limits plus a seeded traffic mix; "
+               "injected into the traffic-shaped estimators "
+               "(`p99_latency_s`, `throughput_tok_s`, ...) and recorded "
+               "in the report for `repro_torch.launch.serve --from-report`",
+}
+
 def _resolve_search_space(raw: Any, base_dir: Optional[str]) -> Dict[str, Any]:
     """Inline mapping, inline YAML text, or ``{file: path}`` reference
     (relative paths resolve against the experiment file's directory).
@@ -999,10 +1049,16 @@ class ExperimentSpec:
 
     @classmethod
     def from_yaml(cls, path: str) -> "ExperimentSpec":
-        import yaml
-
+        """The experiment in a YAML file; a ``.json`` file (JSON is YAML)
+        is read without PyYAML."""
         with open(path) as f:
-            raw = yaml.safe_load(f.read())
+            text = f.read()
+        if path.endswith(".json"):
+            raw = json.loads(text)
+        else:
+            import yaml
+
+            raw = yaml.safe_load(text)
         return cls.from_dict(raw, base_dir=os.path.dirname(os.path.abspath(path)))
 
     @classmethod

@@ -29,11 +29,19 @@ CUDA, ``host_cpu`` on the CPU).  :class:`Explorer` takes the device the
 caller asked for (CUDA unless told otherwise, as every entry point of the
 port) and refuses a target that runs elsewhere, so nothing quietly runs
 on the CPU in place of the card; the zero-cost proxies of a ``fidelity``
-section run there too.
+section run there too.  One exception, the paper's hardware-in-the-loop
+split: with ``executor: remote`` a submitting host without a card may ask
+for the CPU while the target runs on CUDA.  The daemons' cards run every
+candidate; the host samples, prunes, tells, reports and screens a
+``fidelity`` cohort on its own device, and builds no tuner and no
+measurement of its own.  If no daemon answers, the run raises
+:class:`~repro_torch.device.NoCudaCardError` rather than measure on the
+host.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -55,15 +63,20 @@ def _canonical_spec_key(spec_dict: Dict[str, Any]) -> str:
 def _check_device(spec: ExperimentSpec, device: str) -> torch.device:
     """The device asked for (``resolve_device``: CUDA unless the caller
     asked for the CPU, and CUDA only with a card), which must be the one
-    the spec's target runs its candidates on."""
+    the spec's target runs its candidates on, unless the candidates run on
+    remote daemons: then a host asking for the CPU may submit a CUDA
+    target's trials (it runs none of them itself)."""
     dev = resolve_device(device)
     target = TARGETS.get(spec.target)
-    if torch.device(target.device).type != dev.type:
+    remote = spec.executor.backend == "remote"
+    if torch.device(target.device).type != dev.type and not (
+            remote and dev.type == "cpu"):
         raise ExperimentError(
             f"target {target.name!r} runs its candidates on {target.device}, but the "
             f"exploration was asked to run on {dev.type}: name a target of that "
-            f"device (h100 for cuda, host_cpu for cpu) or ask for {target.device} "
-            f"(--device {target.device})")
+            f"device (h100 for cuda, host_cpu for cpu), ask for {target.device} "
+            f"(--device {target.device}), or run the candidates on worker daemons "
+            f"(executor: remote, --remote-workers)")
     return dev
 
 
@@ -87,10 +100,15 @@ class SpecObjective:
     cache counters) so the parent can aggregate cache behaviour across
     worker processes it cannot otherwise observe."""
 
-    def __init__(self, spec_dict: Dict[str, Any], run_token: Optional[str] = None):
+    def __init__(self, spec_dict: Dict[str, Any], run_token: Optional[str] = None,
+                 host_device: Optional[str] = None):
         self.spec_dict = spec_dict
         self.run_token = run_token
-        self._key = (_canonical_spec_key(spec_dict), run_token)
+        # set for a submitting host whose device is not its target's (a
+        # card-less parent of remote daemons): its state screens on that
+        # device and holds no tuner, since it runs no candidate itself
+        self.host_device = host_device
+        self._key = (_canonical_spec_key(spec_dict), run_token, host_device)
 
     def _state(self):
         state = _PROCESS_STATE.get(self._key)
@@ -109,7 +127,7 @@ class SpecObjective:
 
             tuner = None
             kt = spec.kernel_tuning
-            if kt is not None and kt.mode == "cached":
+            if kt is not None and kt.mode == "cached" and self.host_device is None:
                 from repro_torch.hwgen.autotune import ScheduleTuner
 
                 # the tuner shares the experiment cache, so tuned
@@ -118,36 +136,41 @@ class SpecObjective:
                 tuner = ScheduleTuner(target, cache=cache,
                                       budget=kt.budget, overrides=kt.kernels)
 
+            # the target's device is the one the Explorer was asked for
+            # (Explorer checks it): the proxies run there too, and on a
+            # card-less submitting host on the host's own device
+            device = self.host_device or target.device
+
             def build_criterion(c):
-                # the target's device is the one the Explorer was asked
-                # for (Explorer checks it): the proxies run there too
                 return OptimizationCriteria(
                     c.build_estimator(target=target, cache=cache, tuner=tuner,
-                                      device=target.device, serving=spec.serving),
+                                      device=device, serving=spec.serving),
                     kind=c.kind, direction=c.direction,
                     weight=c.weight, limit=c.limit,
                 )
 
             criteria = [build_criterion(c) for c in spec.criteria]
-            if spec.fidelity is not None:
-                # screening stages from the fidelity section, the
-                # top-level criteria as the implicit final stage
+            runner = CriteriaRunner(criteria, cache=cache)
+
+            def cascade():
+                # screening stages from the fidelity section, the top-level
+                # criteria as the implicit final stage; built only where a
+                # cohort is screened (the submitting process), so a worker
+                # that evaluates promoted trials builds no proxy
                 stages = [
                     FidelityStage(s.name, [build_criterion(c) for c in s.criteria],
                                   keep=KeepRule(**s.keep.to_dict()))
                     for s in spec.fidelity.stages
                 ]
                 stages.append(FidelityStage("final", criteria))
-                runner = CascadeRunner(stages, cache=cache)
-            else:
-                runner = CriteriaRunner(criteria, cache=cache)
+                return CascadeRunner(stages, cache=cache)
             # a prior run's state for the same spec is dead weight now —
             # its counters must not leak into this run's report
             for stale in [k for k in _PROCESS_STATE
-                          if k[0] == self._key[0] and k != self._key]:
+                          if k[0::2] == self._key[0::2] and k != self._key]:
                 del _PROCESS_STATE[stale]
             state = _PROCESS_STATE[self._key] = (
-                spec, space, builder, runner, cache, tuner)
+                spec, space, builder, runner, cache, tuner, functools.cache(cascade))
         return state
 
     @property
@@ -163,7 +186,7 @@ class SpecObjective:
         :meth:`Explorer.best_model` to hand back the winning network."""
         from repro_torch.core.translate import sample_architecture
 
-        _, space, builder, _, _, _ = self._state()
+        _, space, builder, *_ = self._state()
         return builder.build(sample_architecture(space, trial))
 
     def screen_cohort(self, trials):
@@ -175,7 +198,8 @@ class SpecObjective:
         from repro_torch.core.translate import sample_architecture
         from repro_torch.search.parallel import ScreenDecision
 
-        _, space, builder, runner, _, _ = self._state()
+        _, space, builder, *_, cascade = self._state()
+        runner = cascade()
         models = []
         for trial in trials:
             arch = sample_architecture(space, trial)
@@ -222,7 +246,7 @@ class SpecObjective:
         from repro_torch.core.translate import sample_architecture
         from repro_torch.hwgen.generator import generate_call_count
 
-        spec, space, builder, runner, cache, tuner = self._state()
+        spec, space, builder, runner, cache, tuner, _ = self._state()
         arch = sample_architecture(space, trial)
         model = builder.build(arch)
         trial.set_user_attr("signature", arch.signature())
@@ -381,7 +405,8 @@ class ExplorationReport:
     # sweep can detect that a persisted cell still matches its spec
     spec: Optional[Dict[str, Any]] = None
     artifact: Optional[str] = None
-    # the device the candidates ran on ("cuda", "cpu")
+    # the device the candidates ran on ("cuda", "cpu"): the daemons' for a
+    # card-less submitting host
     device: Optional[str] = None
     # CUDA kernel launches by kernel over the run, summed over the worker
     # processes (ops.LAUNCHES; none on the CPU, where the plain versions run)
@@ -406,9 +431,15 @@ class Explorer:
 
     def __init__(self, spec: ExperimentSpec, device: str = "cuda"):
         self.spec = spec
+        # the device this process runs on; the candidates' is the target's
         self.device = _check_device(spec, device)
+        target_device = TARGETS.get(spec.target).device
+        self.hostless = torch.device(target_device).type != self.device.type
         self.study = None  # composed ParallelStudy, available after run()
         self._objective: Optional[SpecObjective] = None
+        # what this process builds and screens with (the objective itself,
+        # but on a card-less submitting host)
+        self._host_objective: Optional[SpecObjective] = None
 
     # -- constructors ----------------------------------------------------------
 
@@ -437,6 +468,11 @@ class Explorer:
         from repro_torch.search.parallel import ParallelStudy
 
         spec = self.spec
+        backend = spec.executor.build()
+        if hasattr(backend, "trial_device"):
+            # a remote pool's local fallback must run where the trials
+            # would have: this host's card for a CUDA target, or nowhere
+            backend.trial_device = TARGETS.get(spec.target).device
         study = ParallelStudy(
             name=spec.name,
             sampler=spec.sampler.build(),
@@ -444,7 +480,7 @@ class Explorer:
             directions=spec.directions,
             storage=spec.persistence,
             n_workers=spec.executor.n_workers,
-            backend=spec.executor.build(),
+            backend=backend,
             schedule=spec.schedule.mode,
             tell_order=spec.schedule.tell_order,
             window=spec.schedule.window,
@@ -452,6 +488,8 @@ class Explorer:
         self.study = study
         self._objective = objective = SpecObjective(
             spec.to_dict(), run_token=uuid.uuid4().hex)
+        self._host_objective = host = objective if not self.hostless else SpecObjective(
+            spec.to_dict(), run_token=objective.run_token, host_device=self.device.type)
 
         # a faults: section arms the chaos plan for exactly this run —
         # installed in-process for serial/threaded execution, exported
@@ -477,7 +515,7 @@ class Explorer:
                 study.optimize(objective, remaining,
                                n_workers=spec.executor.n_workers,
                                timeout_s=spec.budget.timeout_s,
-                               screen=(objective.screen_cohort
+                               screen=(host.screen_cohort
                                        if spec.fidelity is not None else None),
                                cohort=(spec.fidelity.generation
                                        if spec.fidelity is not None else None))
@@ -501,12 +539,12 @@ class Explorer:
 
     def best_model(self):
         """Rebuild the winning architecture as an executable BuiltModel."""
-        if self.study is None or self._objective is None:
+        if self.study is None or self._host_objective is None:
             raise ExperimentError("best_model() requires a completed run()")
         best = self.study.best_trial
         if best is None:
             raise ExperimentError("no completed trials — nothing to rebuild")
-        return self._objective.build_model(best)
+        return self._host_objective.build_model(best)
 
     # -- report assembly -------------------------------------------------------
 
@@ -648,7 +686,7 @@ class Explorer:
         this process swept it or read it from the cache.  Workers of the
         process backend keep theirs (their counters reach the report
         through the trials); None where this process tuned nothing."""
-        tuner = self._objective.tuner if self._objective is not None else None
+        tuner = self._host_objective.tuner if self._host_objective is not None else None
         if tuner is None:
             return None
         return tuner.records() or None
@@ -699,6 +737,6 @@ class Explorer:
             toolchain=toolchain_versions(),
             target=TARGETS.get(spec.target).to_dict(),
             spec=spec.to_dict(),
-            device=str(self.device),
+            device=TARGETS.get(spec.target).device if self.hostless else str(self.device),
             kernel_launches=_aggregate_launches(study.trials),
         )

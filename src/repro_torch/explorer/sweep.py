@@ -161,6 +161,35 @@ class SweepSpec:
     report_dir: str = "results"
     workers: Optional[List[str]] = None  # worker daemons to fan cells across
 
+    # read by repro_torch.explorer.docgen into the sweep table of
+    # docs/reference/torch/experiment_spec.md
+    FIELD_DOCS = {
+        "name": "sweep name; names `<report_dir>/<name>.sweep.json` and "
+                "the per-cell directory `<report_dir>/<name>.cells/` "
+                "(default: `sweep`)",
+        "base": "**required** — the experiment every cell starts from: an "
+                "inline experiment mapping or `{file: experiment.yaml}` "
+                "(validated eagerly; search-space refs are inlined)",
+        "axes": "**required** — non-empty mapping of axis -> list of "
+                "values; `target`/`sampler`/`schedule`/`executor` (or "
+                "their plural aliases) override those sections whole, any "
+                "other dotted key (e.g. `budget.n_trials`) overrides one "
+                "leaf; the cross product of all axes defines the cells",
+        "cache": "shared disk-cache directory forced into **every** cell "
+                 "(so cells of one mesh scope reuse each other's counts); "
+                 "omit to inherit the base experiment's cache section "
+                 "unchanged",
+        "report_dir": "directory for the merged sweep report and the "
+                      "per-cell reports (default `results`)",
+        "workers": "worker-daemon addresses (`[\"host:port\", ...]`) to fan "
+                   "independent cells across (see `python -m "
+                   "repro_torch.worker`); cells are resubmitted on worker "
+                   "failure and fall back to local sequential execution when "
+                   "no worker is reachable, except a cell whose target runs "
+                   "on CUDA under `--device cpu`, which runs only on the "
+                   "pool.  Omit (default) to run cells locally",
+    }
+
     @classmethod
     def from_dict(cls, raw: Mapping[str, Any],
                   base_dir: Optional[str] = None) -> "SweepSpec":
@@ -281,7 +310,7 @@ class SweepSpec:
         return os.path.join(self.report_dir, f"{self.name}.cells")
 
     def expand(self, overrides: Optional[Dict[str, Any]] = None,
-               device: Optional[str] = None) -> List[SweepCell]:
+               device: Optional[str] = None, pool: bool = False) -> List[SweepCell]:
         """Cross product of the axes -> validated child specs, in a
         deterministic order (axes in declaration order, values in list
         order).  ``overrides`` are dotted-key constants applied to every
@@ -289,8 +318,9 @@ class SweepSpec:
         axis (the CLI's ``--trials``/``--workers`` shrink knobs).  A
         child that fails validation raises a :class:`SweepError` naming
         the offending axis values.  With ``device="cpu"`` a cell whose
-        target runs on CUDA is such a failure: nothing moves to the CPU
-        in its place."""
+        target runs on CUDA is such a failure unless a cell ``pool`` of
+        worker daemons will run it: nothing moves to the CPU in its
+        place."""
         keys = list(self.axes)
         cells: List[SweepCell] = []
         seen: Dict[str, Dict[str, str]] = {}
@@ -321,12 +351,13 @@ class SweepSpec:
                 raise SweepError(f"cell [{at}]: {e}") from e
             cell = SweepCell(name=cell_name, axes=labels,
                              axis_values=dict(zip(keys, combo)), spec=spec)
-            if device is not None and cell.device == "cuda" \
+            if device is not None and cell.device == "cuda" and not pool \
                     and torch.device(device).type == "cpu":
                 raise SweepError(
                     f"cell [{at}]: target {spec.target!r} runs its candidates on "
                     f"cuda, but the sweep was asked to run on cpu: drop it from "
-                    f"the axis or run on the card (--device cuda)")
+                    f"the axis, run on the card (--device cuda), or fan the cells "
+                    f"to daemons on a card (workers:, --cell-workers)")
             cells.append(cell)
         return cells
 
@@ -623,7 +654,9 @@ def run_sweep(spec: SweepSpec, resume: bool = True, save_report: bool = True,
     the CPU, and CUDA only with a card).  Each cell runs on its target's
     device (``h100`` on CUDA; ``host_cpu`` and ``edge_npu`` on the CPU); a
     sweep asked to run on the CPU refuses at expansion a cell whose target
-    runs on CUDA.
+    runs on CUDA, unless a pool of worker daemons is given: such a cell
+    then runs only on the pool, and a pool that cannot complete it raises
+    a :class:`SweepError` before any cell runs here.
 
     With ``workers`` (argument wins over ``spec.workers``), cells that
     are not resumed fan out across the worker-daemon pool as independent
@@ -636,9 +669,9 @@ def run_sweep(spec: SweepSpec, resume: bool = True, save_report: bool = True,
     cell order regardless of remote completion order."""
     from repro_torch.explorer.explorer import Explorer
 
-    resolve_device(device)
-    cells = spec.expand(overrides, device=device)
+    host = resolve_device(device)
     pool = workers if workers is not None else spec.workers
+    cells = spec.expand(overrides, device=device, pool=bool(pool))
     summaries: List[Dict[str, Any]] = []
     n_resumed = 0
     t0 = time.perf_counter()
@@ -655,6 +688,12 @@ def run_sweep(spec: SweepSpec, resume: bool = True, save_report: bool = True,
     remote: Dict[str, Dict[str, Any]] = {}
     if pool and pending:
         remote = _dispatch_cells(list(pool), pending)
+    stranded = [c.name for c in pending
+                if c.name not in remote and c.device == "cuda" and host.type == "cpu"]
+    if stranded:
+        raise SweepError(
+            f"cells {stranded} run on cuda, which this host has not, and the pool "
+            f"{list(pool)} did not complete them; they are not run here in its place")
 
     for cell in cells:
         if cell.name in resumed:

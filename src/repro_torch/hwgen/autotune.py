@@ -37,7 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.envvars import read_env
-from repro_torch.hwgen.generator import measurement_gate, meta_forward
+from repro_torch.hwgen.generator import collector_off, measurement_gate, meta_forward
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import schedule as ksched
 from repro_torch.kernels.schedule import KernelSchedule
@@ -201,7 +201,7 @@ class ScheduleTuner:
             # measurements must not overlap a sibling's forwards or timings
             # (same rationale as HardwareManager.benchmark)
             sink: KernelCalls = {}
-            with measurement_gate(self.device), torch.inference_mode():
+            with measurement_gate(self.device), torch.inference_mode(), collector_off():
                 with ksched.record_kernel_calls(sink):
                     run(cand)
                 for _ in range(self.warmup - 1):

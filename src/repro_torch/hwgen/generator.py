@@ -25,6 +25,18 @@ loaded from the store carries that program, and every run of it calls the
 program on the artifact's seed-0 weights instead of the candidate's own
 forward; the kernels it launches are the same.
 
+A sharded program (``generate(fn, args, in_shardings=...)``, the
+reference's ``jax.jit(in_shardings=)`` under the target's mesh) is laid
+out and counted on the host, not run: over the fake process group at the
+target's world, on a ``DeviceMesh`` of its shape, every argument a
+DTensor on ``meta`` (:mod:`repro_torch.hwgen.sharded`, which the dry run
+shares).  Its artifact carries per-device operations, bytes, collective
+bytes, argument and peak bytes and their roofline against the target's
+chip, as the reference's compiled artifact does, and launches nothing.
+:meth:`TorchGenerator.generate_by_units` counts a program at two depths
+and extrapolates, for studies whose candidates are too slow to count
+whole on the host.
+
 ``HardwareManager.benchmark`` times eager forwards: with CUDA events on
 the card, with the host clock on the CPU.  A ``roofline`` target
 (``edge_npu``) is never run: its artifact stays on the host, and its
@@ -42,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import os
 import tempfile
 import threading
@@ -54,7 +67,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch import faults
 from repro_torch.device import resolve_device
 from repro_torch.hwgen.collectives import CollectiveCounter, total_collective_bytes
-from repro_torch.hwgen.roofline import roofline_terms
+from repro_torch.hwgen.roofline import RooflineReport, roofline_terms
 from repro_torch.hwgen.targets import TargetSpec, get_target
 from repro_torch.ioutils import lock_file, unlock_file
 from repro_torch.kernels import ops as kops
@@ -79,6 +92,21 @@ class Artifact:
     # a program of (params, x) loaded from the artifact store; when set,
     # a run calls it on ``fn``'s weights in place of ``fn``'s forward
     program: Optional[Callable] = None
+    # a sharded program counted on the host (``generate(in_shardings=)``):
+    # operations, bytes and collective bytes a device, the collectives by
+    # kind, and their roofline against the target's chip; None otherwise
+    flops: Optional[float] = None
+    bytes_accessed: Optional[float] = None
+    collective_bytes: Optional[float] = None
+    collectives: Optional[Dict[str, Dict[str, float]]] = None
+    roofline: Optional[RooflineReport] = None
+
+    @property
+    def fits_memory(self) -> bool:
+        """Whether the peak a device holds fits the target chip's memory
+        (False where no peak was taken)."""
+        peak = self.memory.get("peak_bytes_per_device")
+        return peak is not None and peak <= self.target.chip.hbm_bytes
 
     def __call__(self, *args):
         """One forward: ``fn``'s own, or the loaded program on its weights."""
@@ -87,10 +115,25 @@ class Artifact:
         return self.program(dict(self.fn.named_parameters()), *args)
 
 
+class GeneratorError(RuntimeError):
+    pass
+
+
 def _on_meta(value):
     if isinstance(value, torch.Tensor):
         return torch.empty_like(value, device="meta")
     return value
+
+
+def _tree_on_meta(tree):
+    """A tree (dicts, lists, tuples) with every tensor as a meta tensor of
+    its shape and dtype."""
+    if isinstance(tree, dict):
+        return {k: _tree_on_meta(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, torch.Size):
+        out = [_tree_on_meta(v) for v in tree]
+        return out if isinstance(tree, list) else tuple(out)
+    return _on_meta(tree)
 
 
 def meta_forward(fn: Callable, example_args: Tuple):
@@ -238,6 +281,8 @@ def program_cost(candidate, example_args: Tuple,
 
 
 _gate_lock = threading.Lock()
+# one process group a process: sharded generates take turns on it
+_sharded_lock = threading.Lock()
 
 _generate_count_lock = threading.Lock()
 _generate_count = 0
@@ -285,6 +330,22 @@ def measurement_gate(device: Optional[torch.device] = None) -> Iterator[None]:
                 unlock_file(f, how)
 
 
+@contextlib.contextmanager
+def collector_off() -> Iterator[None]:
+    """Python's cyclic garbage collector off for a timing, as ``timeit``
+    turns it off.  A full collection with torch loaded takes tens of
+    milliseconds; in a timed window's first forwards the host is not yet
+    that far ahead of the card, so the pause reads as idle device time
+    (``scripts/card_timing_drift.py``)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 @functools.lru_cache(maxsize=None)
 def _start_blas(device: torch.device) -> None:
     """Make cuBLAS's handles and their workspaces (32 MiB on an H100, kept
@@ -326,9 +387,14 @@ class TorchGenerator:
     def __init__(self, target: TargetSpec | str):
         self.target = get_target(target) if isinstance(target, str) else target
 
-    def generate(self, fn: Callable, example_args: Tuple,
+    def generate(self, fn: Callable, example_args: Tuple, in_shardings=None,
                  schedules: Optional[Mapping[str, Any]] = None) -> Artifact:
-        """Place ``fn`` (a module, or a plain function) and the tensors of
+        """With ``in_shardings`` (a tree of ``PartitionSpec`` shaped like
+        ``example_args``, as ``distributed.sharding.shapes_shardings_from_axes``
+        gives them): the sharded program, counted on the host
+        (:meth:`_generate_sharded`).
+
+        Otherwise place ``fn`` (a module, or a plain function) and the tensors of
         ``example_args`` on the target's device, run ``fn`` once under
         ``inference_mode``, and take them off the device again.
 
@@ -346,6 +412,8 @@ class TorchGenerator:
         candidate on the host."""
         global _generate_count
         faults.fault_point("compile", key=self.target.name)
+        if in_shardings is not None:
+            return self._generate_sharded(fn, example_args, in_shardings, schedules)
         example_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
                              for a in example_args)
         memory: Dict[str, int] = {}
@@ -358,6 +426,85 @@ class TorchGenerator:
                             memory=memory, schedules=schedules)
         memory.update(self.run_once(artifact))
         return artifact
+
+    def _generate_sharded(self, fn: Callable, example_args: Tuple, in_shardings,
+                          schedules=None) -> Artifact:
+        """``fn(*example_args)`` laid out on the target's mesh and run once
+        on the host, moving and launching nothing: the fake process group
+        at the target's world for this generate alone (any other group
+        running is refused with :class:`GeneratorError`), a
+        ``cuda``-typed ``DeviceMesh`` of the target's shape and axes (so
+        DTensor issues NCCL's collectives), every tensor of
+        ``example_args`` a DTensor on ``meta`` with the placements of its
+        ``PartitionSpec``, and ``fn`` run once under ``no_grad``, the
+        schedules and :func:`repro_torch.hwgen.sharded.count`'s counters.
+        The artifact's ``memory`` holds ``argument_bytes`` (each device's
+        shards, exact) and ``peak_bytes_per_device`` (``MemTracker``'s
+        peak, arguments included); ``flops``, ``bytes_accessed`` and
+        ``collective_bytes`` are one device's, and ``roofline`` puts them
+        against the target's chip (n_chips 1), as the reference's per-device
+        program analysis does.  Sharded generates in one process take
+        turns; :func:`generate_call_count` does not move (nothing is placed
+        or run on a device)."""
+        from repro_torch.hwgen import sharded
+        from repro_torch.launch.mesh import make_mesh
+
+        with _sharded_lock, contextlib.ExitStack() as stack:
+            try:
+                stack.enter_context(sharded.fake_group(self.target.n_chips))
+            except RuntimeError as e:
+                raise GeneratorError(f"target {self.target.name}: {e}") from e
+            mesh = make_mesh(self.target.mesh_shape, self.target.mesh_axes, "cuda")
+            args = sharded.distribute(_tree_on_meta(tuple(example_args)),
+                                      tuple(in_shardings), mesh)
+            argument_bytes = sharded.local_bytes(args)
+            with torch.no_grad(), ksched.use_schedules(schedules):
+                counted = sharded.count(fn, args, mesh, with_cost=True)
+        return self._counted_artifact(fn, example_args, schedules, counted, argument_bytes,
+                                      counted["peak"])
+
+    def _counted_artifact(self, fn, example_args, schedules, counted, argument_bytes,
+                          peak) -> Artifact:
+        flops = float(counted["cost"]["flops"])
+        nbytes = float(counted["cost"]["bytes_accessed"])
+        coll = float(total_collective_bytes(counted["collectives"]))
+        return Artifact(
+            target=self.target, fn=fn, example_args=example_args,
+            memory={"argument_bytes": int(argument_bytes), "peak_bytes_per_device": int(peak)},
+            schedules=schedules, flops=flops, bytes_accessed=nbytes, collective_bytes=coll,
+            collectives=counted["collectives"],
+            roofline=roofline_terms(hlo_flops=flops, hlo_bytes=nbytes, collective_bytes=coll,
+                                    n_chips=1, chip=self.target.chip))
+
+    def generate_by_units(self, build: Callable[[int], Tuple[Callable, Tuple, Any]],
+                          units: int, schedules: Optional[Mapping[str, Any]] = None
+                          ) -> Artifact:
+        """A sharded program of ``units`` layer units, counted at 1 and 2
+        units and extrapolated, as the dry run extrapolates a cell too slow
+        to count whole on the host (from 1, not 0: a program's first unit
+        may differ from the others).  ``build(n)`` returns ``(fn,
+        example_args, in_shardings)`` for the program cut to ``n`` units.
+        Operations, bytes, collectives by kind and argument bytes add up
+        exactly by unit: q(units) = q(1) + (units - 1) (q(2) - q(1)).  The
+        peak is the 2-unit program's peak plus the arguments the other units
+        add (the dry run's ``peak_mode``), which is the whole program's
+        where every unit holds the same activations at its peak.  The
+        artifact's ``fn`` and ``example_args`` are ``build(units)``'s."""
+        from repro_torch.hwgen import sharded
+
+        lo, hi = (self.generate(*build(n), schedules=schedules) for n in (1, 2))
+
+        def counts(a):
+            return {"collectives": a.collectives,
+                    "cost": {"flops": a.flops, "bytes_accessed": a.bytes_accessed}}
+
+        counted = sharded.extrapolate(counts(lo), counts(hi), units, 1)
+        args_lo, args_hi = lo.memory["argument_bytes"], hi.memory["argument_bytes"]
+        argument_bytes = args_lo + (units - 1) * (args_hi - args_lo)
+        peak = hi.memory["peak_bytes_per_device"] + argument_bytes - args_hi
+        fn, example_args, _ = build(units)
+        return self._counted_artifact(fn, example_args, schedules, counted, argument_bytes,
+                                      peak)
 
     def run_once(self, artifact: Artifact) -> Dict[str, int]:
         """Place ``artifact`` on the target's device, run it once and take
@@ -400,7 +547,8 @@ class HardwareManager:
     def benchmark(self, artifact: Artifact) -> Dict[str, float]:
         """Mean seconds of one eager forward over ``iters`` forwards after
         ``warmup``: CUDA events around them on the card (the device's
-        time), the host clock around them on the CPU.  On a ``roofline``
+        time), the host clock around them on the CPU; the cyclic garbage
+        collector off meanwhile (:func:`collector_off`).  On a ``roofline``
         target, the roofline bound of one forward of the artifact's
         candidate (a ``BuiltModel``), counted by :func:`program_cost` on
         the ``meta`` device against the target's chip: nothing is placed
@@ -416,7 +564,8 @@ class HardwareManager:
         device = resolve_device(artifact.target.device)
         with measurement_gate(device), _placed(artifact.fn, artifact.example_args,
                                                device) as args, \
-                torch.inference_mode(), ksched.use_schedules(artifact.schedules):
+                torch.inference_mode(), ksched.use_schedules(artifact.schedules), \
+                collector_off():
             for _ in range(self.warmup):
                 artifact(*args)
             if device.type == "cuda":

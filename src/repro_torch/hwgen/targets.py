@@ -1,6 +1,7 @@
 """Hardware target specifications (the port's analogue of the paper's
 Raspberry Pi / Pico / FPGA backend descriptors): one H100 card, the
-host's CPU, and an edge NPU that is modelled, never run.
+host's CPU, an edge NPU that is modelled, never run, and two H100 pods
+(256 and 512 cards) that are laid out and counted on the host, never run.
 
 The JAX package's TPU targets (``tpu_v5e``, ``tpu_v5e_pod``,
 ``tpu_v5e_2pod``) have no counterpart: the port carries no TPU rates, and
@@ -25,7 +26,11 @@ class ChipSpec:
 
 
 # NVIDIA H100 SXM data sheet: 989 TFLOP/s dense bf16 on the tensor cores,
-# 3.35 TB/s of HBM3, 80 GB; NVLink 900 GB/s per card, 450 GB/s each way
+# 3.35 TB/s of HBM3, 80 GB; NVLink 900 GB/s per card, 450 GB/s each way.
+# The pod targets take the same constants, as the dry run's roofline does:
+# NVIDIA's NVLink Switch System joins up to 256 H100s at that link rate
+# (h100_pod); h100_2pod's "pod" axis would cross InfiniBand, which this
+# one-rate model, like the reference's, does not tell apart
 H100 = ChipSpec(
     name="h100",
     peak_flops_bf16=989e12,
@@ -125,6 +130,22 @@ TARGETS: Dict[str, TargetSpec] = {
         mesh_shape=(1, 1), mesh_axes=("data", "model"),
         supported_ops=_COMMON_OPS, supports_pallas=True,
         measurement="wallclock", device="cuda",
+    ),
+    # the pods: the JAX package's tpu_v5e_pod and tpu_v5e_2pod meshes on
+    # H100s; like edge_npu, counted on the host (the generator lays a
+    # sharded program out over the fake process group on ``meta``) and
+    # never run, so their device is the host's
+    "h100_pod": TargetSpec(
+        name="h100_pod", chip=H100,
+        mesh_shape=(16, 16), mesh_axes=("data", "model"),
+        supported_ops=_COMMON_OPS, supports_pallas=True,
+        measurement="roofline", device="cpu",
+    ),
+    "h100_2pod": TargetSpec(
+        name="h100_2pod", chip=H100,
+        mesh_shape=(2, 16, 16), mesh_axes=("pod", "data", "model"),
+        supported_ops=_COMMON_OPS, supports_pallas=True,
+        measurement="roofline", device="cpu",
     ),
     # the host's CPU: the kernels' plain versions, timed by the host clock
     "host_cpu": TargetSpec(

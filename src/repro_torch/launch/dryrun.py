@@ -5,9 +5,13 @@ and counted, without a card::
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b \\
         --shape train_4k --mesh single
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--opt]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch dbrx-132b \\
+        --shape train_4k --units 8   # the first 8 of its 40 layers
 
 The reference spoofs 512 host devices and lowers and compiles each cell's
-``jax.jit`` step.  The port compiles nothing: :func:`main` starts the fake
+``jax.jit`` step.  The port compiles nothing (the counting is
+:mod:`repro_torch.hwgen.sharded`, which the generator's sharded path
+shares): :func:`main` starts the fake
 process group (``torch.testing._internal.distributed.fake_pg``, every
 collective returns at once) at 256 or 512 ranks, this process being rank
 0, builds ``make_production_mesh`` on it, lays the model out on the
@@ -57,7 +61,6 @@ How each count of the record is taken, and what it cannot match:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import os
@@ -67,15 +70,13 @@ import time
 import traceback
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import ARCHS, SHAPES, get_arch, input_specs
-from repro_torch.distributed.api import sharding_context
-from repro_torch.distributed.sharding import (default_rules, distribute_model, placements,
+from repro_torch.distributed.sharding import (default_rules, distribute_model,
                                                shapes_shardings_from_axes)
 from repro_torch.evaluation.model_flops import model_flops
-from repro_torch.hwgen.collectives import (CollectiveCounter, on_dtensors, tensor_bytes,
-                                           total_collective_bytes)
+from repro_torch.hwgen.collectives import total_collective_bytes
+from repro_torch.hwgen import sharded
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.lm import LM
 from repro_torch.train.optimizer import Optimizer, OptimizerConfig
@@ -169,35 +170,8 @@ def apply_variant(spec, variant):
 def _distribute(tree, axes_tree, mesh, rules):
     """A tree (dicts, lists) of ``meta`` tensors as DTensors with the
     placements their logical axes resolve to on ``mesh``."""
-    from torch.distributed.tensor import distribute_tensor
-
-    specs = shapes_shardings_from_axes(tree, axes_tree, mesh, rules)
-
-    def one(t, spec):
-        if isinstance(t, dict):
-            return {k: one(t[k], spec[k]) for k in t}
-        if isinstance(t, list):
-            return [one(a, b) for a, b in zip(t, spec, strict=True)]
-        return distribute_tensor(t, mesh, placements(spec, mesh), src_data_rank=None)
-
-    return one(tree, specs)
-
-
-def _locals(tree) -> list:
-    """The local shards of a tree (dicts, lists) of (D)Tensors."""
-    from torch.distributed.tensor import DTensor
-
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _locals(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _locals(v)]
-    if isinstance(tree, torch.Tensor):
-        return [tree.to_local() if isinstance(tree, DTensor) else tree]
-    return []
-
-
-def _local_bytes(tree) -> int:
-    return tensor_bytes(_locals(tree))
+    return sharded.distribute(tree, shapes_shardings_from_axes(tree, axes_tree, mesh, rules),
+                              mesh)
 
 
 def _drawn(t, vocab: int, generator):
@@ -215,7 +189,7 @@ def build_cell(arch_name: str, shape_name: str, multi_pod: bool, *, overrides=No
                n_units=None, variant="", device="meta"):
     """(step_fn, args, mesh, meta): the cell's step and its arguments placed
     on the production mesh as DTensors over ``meta`` tensors.  Needs a
-    process group of at least the mesh's ranks (:func:`start_fake_group`).
+    process group of at least the mesh's ranks (:func:`repro_torch.hwgen.sharded.start_fake_group`).
     Another ``device`` (a card, to hold the counts against it) draws the
     weights and the batch there from a generator seeded 0."""
     arch = get_arch(arch_name)
@@ -250,7 +224,7 @@ def build_cell(arch_name: str, shape_name: str, multi_pod: bool, *, overrides=No
             cache = model.init_cache(cell.batch, cell.seq, torch.bfloat16, enc_out=enc_out)
         cache = _distribute(cache, model.cache_axes(), mesh, rules)
     params = distribute_model(model, mesh, rules)
-    meta["param_bytes_per_device"] = _local_bytes(params)
+    meta["param_bytes_per_device"] = sharded.local_bytes(params)
     batch, batch_axes = input_specs(arch, cell, spec)
     batch = _distribute({k: _drawn(v, spec.vocab, gen) for k, v in batch.items()},
                         batch_axes, mesh, rules)
@@ -262,7 +236,7 @@ def build_cell(arch_name: str, shape_name: str, multi_pod: bool, *, overrides=No
                 microbatches = int(flag[2:])
         opt = Optimizer(OptimizerConfig(name="adamw"))
         opt_state = opt.init(params)
-        meta["opt_bytes_per_device"] = _local_bytes(opt_state)
+        meta["opt_bytes_per_device"] = sharded.local_bytes(opt_state)
         loss_chunk = 1024 if "chunked_loss" in variant else 0
         step = make_train_step(model, opt, microbatches=microbatches, loss_chunk=loss_chunk)
         meta["microbatches"] = microbatches
@@ -276,96 +250,10 @@ def build_cell(arch_name: str, shape_name: str, multi_pod: bool, *, overrides=No
     return step, (params, cache, batch["tokens"], cell.seq - 1), mesh, meta
 
 
-class _LocalCost(TorchDispatchMode):
-    """Operations, bytes and transcendentals of the local ops run inside
-    it; an op on DTensors is passed down (``NotImplemented``) to the local
-    ops DTensor runs for it, which are counted here once."""
-
-    _EMPTY = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
-                        "new_empty_strided"})
-    _TRANSCENDENTAL = frozenset({
-        "exp", "exp2", "expm1", "log", "log1p", "log2", "log10", "tanh", "sigmoid",
-        "rsqrt", "sqrt", "sin", "cos", "erf", "erfinv", "pow", "silu", "gelu",
-        "softplus", "_softmax", "_log_softmax", "logsumexp", "tanh_backward",
-        "sigmoid_backward", "silu_backward", "gelu_backward", "_softmax_backward_data",
-        "_log_softmax_backward_data", "log_sigmoid_forward", "log_sigmoid_backward"})
-
-    def __init__(self):
-        super().__init__()
-        self.flops = 0
-        self.bytes = 0
-        self.transcendentals = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch.utils.flop_counter import flop_registry
-
-        if on_dtensors(types):
-            return NotImplemented
-        kwargs = kwargs or {}
-        if _propagating():
-            return func(*args, **kwargs)
-        packet = func._overloadpacket
-        if packet not in flop_registry and func is not torch.ops.prim.device.default:
-            # as FlopCounterMode: count a decomposable op by its parts
-            with self:
-                out = func.decompose(*args, **kwargs)
-            if out is not NotImplemented:
-                return out
-        out = func(*args, **kwargs)
-        if packet in flop_registry:
-            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
-        ns, _, name = packet._qualified_op_name.partition("::")
-        if ns in ("aten", "prims") and not func.is_view and name not in self._EMPTY:
-            self.bytes += tensor_bytes(args) + tensor_bytes(kwargs) + tensor_bytes(out)
-            if name.rstrip("_") in self._TRANSCENDENTAL:
-                self.transcendentals += _numel(out)
-        return out
-
-
-def _propagating() -> bool:
-    """Inside DTensor's sharding propagation, which runs ops under a
-    ``FakeTensorMode`` on the global shapes to find the outputs' metadata."""
-    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
-
-
-def _numel(x) -> int:
-    if isinstance(x, torch.Tensor):
-        return x.numel()
-    if isinstance(x, (list, tuple)):
-        return sum(_numel(v) for v in x)
-    return 0
-
-
-def _mem_tracker():
-    """A ``MemTracker`` that keeps only the device totals: its per-module
-    statistics hook every module's parameters for their gradients, which
-    a prefill's or decode's parameters (no gradient) refuse.  It passes
-    DTensor ops down and skips DTensor's sharding propagation, as torch
-    2.13's does; torch 2.11's would count the propagation's fake tensors
-    of the global shapes, which its cache keeps alive."""
-    from torch.distributed._tools.mem_tracker import MemTracker
-
-    class _Totals(MemTracker):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if on_dtensors(types):
-                return NotImplemented
-            if _propagating():
-                return func(*args, **(kwargs or {}))
-            return super().__torch_dispatch__(func, types, args, kwargs)
-
-        def _pre_fw_hook(self, module, inputs):
-            pass
-
-        def _post_fw_hook(self, module, inputs, outputs):
-            pass
-
-        def _pre_bw_hook(self, module, args):
-            pass
-
-        def _post_bw_hook(self, module, args):
-            pass
-
-    return _Totals()
+def _count(step, args, mesh, with_cost: bool) -> dict:
+    """:func:`repro_torch.hwgen.sharded.count` as the dry run's records
+    have it: with DTensor's one-time sharding propagation ops (ROADMAP)."""
+    return sharded.count(step, args, mesh, with_cost, _with_propagation=True)
 
 
 def _time_loop(arch_name: str, shape_name: str) -> bool:
@@ -380,27 +268,10 @@ def _time_loop(arch_name: str, shape_name: str) -> bool:
         sub.kind == "slstm" for layer in spec.layers for sub in layer.subs)
 
 
-def _count(step, args, mesh, with_cost: bool) -> dict:
-    """One run of ``step(*args)`` under the counters: the peak bytes, the
-    collectives by kind and (with the cost counter) the local ops' cost."""
-    tracker, counter = _mem_tracker(), CollectiveCounter()
-    tracker.track_external(*_locals(args))
-    cost = _LocalCost() if with_cost else contextlib.nullcontext()
-    with sharding_context(mesh, default_rules(mesh)), tracker, counter, cost:
-        step(*args)
-    peak = tracker.get_tracker_snapshot("peak")
-    out = {"peak": max((int(snap.get("Total", 0)) for snap in peak.values()), default=0),
-           "collectives": counter.stats}
-    if with_cost:
-        out["cost"] = {"flops": float(cost.flops), "bytes_accessed": float(cost.bytes),
-                       "transcendentals": float(cost.transcendentals)}
-    return out
-
-
 def run_cell(arch_name: str, shape_name: str, multi_pod: bool, *, with_cost: bool = True,
              overrides=None, variant: str = "", n_units=None) -> dict:
     """The cell's record (see the module docstring).  Needs a process group
-    of at least the mesh's ranks (:func:`start_fake_group`).
+    of at least the mesh's ranks (:func:`repro_torch.hwgen.sharded.start_fake_group`).
 
     Every layer is counted (``cost_mode: "full"``), but in a cell with an
     sLSTM time loop (:func:`_time_loop`) at full depth: there the step runs
@@ -427,7 +298,7 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool, *, with_cost: boo
     step, args, mesh, meta = build_cell(arch_name, shape_name, multi_pod, n_units=n_units,
                                         **kwargs)
     record.update(meta)
-    argument_bytes = _local_bytes(args)
+    argument_bytes = sharded.local_bytes(args)
     if n_units is not None or not _time_loop(arch_name, shape_name):
         counted = _count(step, args, mesh, with_cost)
         record["cost_mode"] = "full"
@@ -441,18 +312,11 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool, *, with_cost: boo
             step, args, mesh, _ = build_cell(arch_name, shape_name, multi_pod, n_units=k,
                                              **kwargs)
             measures.append(_count(step, args, mesh, with_cost))
-            one_unit_args = _local_bytes(args)
+            one_unit_args = sharded.local_bytes(args)
             del step, args
 
-        def extrap(q0, q1):
-            return q0 + units * (q1 - q0)
-
         m0, m1 = measures
-        counted = {"collectives": {
-            kind: {key: extrap(m0["collectives"][kind][key], m1["collectives"][kind][key])
-                   for key in ("count", "bytes")} for kind in m0["collectives"]}}
-        if with_cost:
-            counted["cost"] = {k: extrap(m0["cost"][k], m1["cost"][k]) for k in m0["cost"]}
+        counted = sharded.extrapolate(m0, m1, units)
         record["cost_mode"] = f"extrapolated(k=(0,1),units={units},unit={unit})"
         peak = m1["peak"] + argument_bytes - one_unit_args
         record["peak_mode"] = "one unit's peak plus the other units' arguments"
@@ -488,26 +352,6 @@ def all_cells():
                 yield arch, shape, mesh
 
 
-def _fake_store():
-    """The fake process group's store; the one place it is imported."""
-    try:
-        from torch.testing._internal.distributed.fake_pg import FakeStore
-    except ImportError as e:
-        raise RuntimeError(
-            f"torch {torch.__version__} has no fake process group "
-            f"(torch.testing._internal.distributed.fake_pg); the dry run needs it") from e
-    return FakeStore()
-
-
-def start_fake_group(world: int, rank: int = 0) -> None:
-    """The fake process group at ``world`` ranks, this process being
-    ``rank``: every collective returns at once, moving nothing."""
-    import torch.distributed as dist
-
-    store = _fake_store()
-    dist.init_process_group("fake", store=store, rank=rank, world_size=world)
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         description="Multi-pod dry run: place and count every (arch x shape x mesh) cell")
@@ -521,6 +365,8 @@ def main(argv=None) -> int:
     p.add_argument("--opt", action="store_true",
                    help="with --all: use the optimized per-kind variant for every cell")
     p.add_argument("--timeout", type=int, default=3600)
+    p.add_argument("--units", type=int, default=None,
+                   help="count only the first N layer-pattern units (a depth cut)")
     args = p.parse_args(argv)
 
     os.makedirs(args.out, exist_ok=True)
@@ -562,14 +408,16 @@ def main(argv=None) -> int:
     if not (args.arch and args.shape):
         p.error("--arch/--shape required (or --all)")
     suffix = f"__{args.variant.replace(',', '+')}" if args.variant else ""
+    suffix += f"__units{args.units}" if args.units is not None else ""
     path = os.path.join(args.out, _cell_id(args.arch, args.shape, args.mesh) + suffix + ".json")
     import torch.distributed as dist
 
     try:
-        start_fake_group(512 if args.mesh == "multi" else 256)
+        sharded.start_fake_group(512 if args.mesh == "multi" else 256)
         try:
             record = run_cell(args.arch, args.shape, args.mesh == "multi",
-                              with_cost=not args.no_cost, variant=args.variant)
+                              with_cost=not args.no_cost, variant=args.variant,
+                              n_units=args.units)
         finally:
             dist.destroy_process_group()
     except Exception:

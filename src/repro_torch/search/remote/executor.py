@@ -28,8 +28,11 @@ connections, dispatch, failure detection, and retries):
   at ``start()``, the executor warns once and delegates the entire
   surface to a local backend (``fallback``, default ``process``) — a
   cluster outage degrades a run to single-host speed, not to a crash.
-  The fallback runs where the trials would have: a candidate of a CUDA
-  target is still measured on this host's card, never on its CPU.
+  The fallback runs where the trials would have (``trial_device``, which
+  the Explorer sets to its target's device): a candidate of a CUDA target
+  is still measured on this host's card, never on its CPU, and a host
+  without a card raises :class:`~repro_torch.device.NoCudaCardError`
+  naming the unreachable workers.
 
 Worker configuration precedence: the ``workers`` constructor argument
 (what ``executor.workers`` in a spec feeds), else the
@@ -85,6 +88,9 @@ class RemoteExecutor(BaseExecutor):
                                  if quarantine_after is not None
                                  else read_env("REPRO_QUARANTINE_DEATHS", 2))
         self.rejoin = rejoin
+        # the device the trials run on, which the local fallback needs here
+        # (None: whatever the fallback's objective asks for)
+        self.trial_device: Optional[str] = None
         self._client: Optional[RemoteClient] = None
         self._delegate: Optional[BaseExecutor] = None
         self._delta = PrunerDeltaLog()
@@ -114,6 +120,7 @@ class RemoteExecutor(BaseExecutor):
         live = client.connect()
         if not live:
             client.close()
+            self._check_fallback_device(list(addrs))
             warnings.warn(
                 f"no remote workers reachable among {list(addrs)}; degrading "
                 f"to local {self.fallback!r} execution for this run",
@@ -122,6 +129,21 @@ class RemoteExecutor(BaseExecutor):
             self._delegate.start(n_workers)
             return
         self._client = client
+
+    def _check_fallback_device(self, addrs: List[str]) -> None:
+        """Raise if this host cannot run the trials the pool would have:
+        a CUDA target's, on a host without a card."""
+        if self.trial_device is None:
+            return
+        from repro_torch.device import NoCudaCardError, resolve_device
+
+        try:
+            resolve_device(self.trial_device)
+        except NoCudaCardError as e:
+            raise NoCudaCardError(
+                f"no remote workers reachable among {addrs}, and this host cannot "
+                f"run the trials in their place ({e}): start the daemons, or run "
+                f"on a host with a card") from e
 
     def shutdown(self) -> None:
         if self._delegate is not None:

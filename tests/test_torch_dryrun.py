@@ -20,6 +20,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro_torch.configs import ARCHS, SHAPES, get_arch  # noqa: E402
+from repro_torch.hwgen import sharded  # noqa: E402
 from repro_torch.hwgen.collectives import COLLECTIVES, CollectiveCounter  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 
@@ -43,7 +44,7 @@ def fake_group():
 
     def start(world):
         assert not dist.is_initialized()
-        dryrun.start_fake_group(world)
+        sharded.start_fake_group(world)
 
     yield start
     if dist.is_initialized():
@@ -291,7 +292,7 @@ def test_flops_are_counted_once_on_local_shards(fake_group, monkeypatch):
                           src_data_rank=None)
     w = distribute_tensor(torch.empty(128, 256, device="meta"), mesh, [Replicate(), Shard(1)],
                           src_data_rank=None)
-    with CollectiveCounter() as counter, dryrun._LocalCost() as cost:
+    with CollectiveCounter() as counter, sharded.LocalCost() as cost:
         y = x @ w
     assert tuple(y.placements) == (Replicate(), Shard(1))
     assert cost.flops == 2 * 64 * 128 * 256 // 4

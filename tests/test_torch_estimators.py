@@ -41,6 +41,29 @@ def test_artifact_is_kept_on_the_host():
     assert artifact.example_args[0].shape == (2, INPUT[1], INPUT[0])
 
 
+def test_timed_forwards_run_with_the_collector_off():
+    """Python's cyclic collector is off for every forward a benchmark
+    runs, warm-ups and timed ones, and on again after it; a collector
+    the caller had turned off stays off."""
+    import gc
+
+    from repro_torch.hwgen.generator import HardwareManager, TorchGenerator
+
+    seen = []
+    model = _candidate(SSM).init(torch.Generator().manual_seed(0), "cpu")
+    model.register_forward_pre_hook(lambda *_: seen.append(gc.isenabled()))
+    artifact = TorchGenerator("host_cpu").generate(model, (torch.zeros(2, INPUT[1], INPUT[0]),))
+    seen.clear()
+    HardwareManager(warmup=2, iters=3).benchmark(artifact)
+    assert seen == [False] * 5 and gc.isenabled()
+    gc.disable()
+    try:
+        HardwareManager(warmup=1, iters=1).benchmark(artifact)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the machine without a card")
 def test_cuda_target_without_a_card_raises():
     """An h100 estimator never runs the candidate on the CPU in its place."""

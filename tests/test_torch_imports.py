@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and none of the kernel variant scripts under ``scripts/``
-imports JAX or the JAX package ``repro``."""
+``chip_smoke.py``, none of the kernel variant scripts under ``scripts/``,
+``scripts/gen_docs_torch.py``, ``scripts/card_timing_drift.py`` and none of the port's examples under
+``examples/torch/`` imports JAX or the JAX package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -10,8 +11,11 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+EXAMPLES = sorted((ROOT / "examples" / "torch").glob("*.py"))
 FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "scripts").glob("*_variants.py")))
+         + sorted((ROOT / "scripts").glob("*_variants.py"))
+         + [ROOT / "scripts" / "gen_docs_torch.py", ROOT / "scripts" / "card_timing_drift.py"]
+         + EXAMPLES)
 
 
 def _imported(tree):
@@ -35,6 +39,7 @@ def test_no_jax_or_repro_imports(path):
 
 def test_scan_covers_the_package():
     assert len(FILES) > 15 and (ROOT / "chip_smoke.py").is_file()
+    assert ROOT / "examples" / "torch" / "hw_in_loop_nas_lm.py" in EXAMPLES
 
 
 def test_nas_loop_imports_without_pyyaml():
