@@ -117,7 +117,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    never; the logits against the same forward with ``impl="xla"`` in
    float64, within 1e-3 of max |logits| plus twice the fp32 ``impl="xla"``
    forward's own error (that forward's reading is printed too); device
-   time by kind of kernel and inside the sLSTM blocks' time loops; then
+   time by kind of kernel (the sLSTM and mLSTM blocks' host ranges are no
+   longer recorded: processing them took ~165 s of the phase's ~185); then
    the same forward with the weights in bf16, which runs the kernel's
    bf16 path: 42 launches, each launch's h against the fp32 plain version
    on that layer's own inputs, finite logits, device time by kind;
@@ -199,10 +200,22 @@ Run from the root of a checkout.  Phases, each of which raises on failure
    the card (sequence 128, batch 2, fp32); the child then runs beside the
    dryrun phase's children.  No kernel is launched (the backbones run the
    plain math);
-15. val_accuracy: the paper's Listing 3 (``examples/nas_conv1d.py``'s
-   space, data and criteria) through the port, training and latency on
-   the card, 6 trials with TPE and successive halving; the best trial
-   trained again on the CPU from the same weights must agree;
+15. val_accuracy: the paper's Listing 3 through the port's
+   ``examples/torch/nas_conv1d.py`` (its space, data, criteria and study),
+   training and latency on the card, 6 trials with TPE and successive
+   halving; the best trial trained again on the CPU from the same weights
+   must agree; then the example's deploy of the winner (measured latency,
+   counted FLOPs, its peak within the card's memory);
+15b. examples: the port's copies of the reference's other examples, in a
+   scratch directory: ``quickstart`` at target h100 and at host_cpu (the
+   same trials and best; the winner's output on the card within 1e-5 of
+   its max of the same weights' on the CPU), ``nas_parallel --tiny
+   --trials 8 --workers 2`` on threads (serial and thread best equal, the
+   candidates sampled at host_cpu), ``train_lm --full`` 100 steps then
+   resumed to 110 (losses at 25, 50, 75 and 100 finite and falling, step
+   ms, tokens/s, allocator peak) and ``elastic_restart`` on a (1, 1) NCCL
+   mesh (the restart at step 10 from parameters equal to those saved, the
+   group destroyed after); no kernel launched;
 16. each phase's wall seconds (``phase_seconds``), a JSON line per
    kernel, the card's name and power limit, and the ``{"ok": true, ...}``
    line last.
@@ -500,27 +513,11 @@ POD_TRIALS = 3
 POD_MEASURED_TRIALS = 2
 POD_CHECK_LAYERS = 2
 POD_BATCH, POD_SEQ = 32, 2048  # the reference's defaults
-# examples/nas_conv1d.py's SPACE_YAML as a dict (the card's machine has no
-# PyYAML; tests/test_torch_train_infra.py holds the two equal)
-LISTING3_SPACE = {
-    "input": [4, 1250],
-    "output": 6,
-    "sequence": [
-        {"block": "features", "op_candidates": "conv-block",
-         "type_repeat": {"type": "vary_all", "depth": [1, 2, 3, 4, 5, 6]}},
-        {"block": "head", "op_candidates": "linear", "linear": {"width": [32, 64, 128]}},
-    ],
-    "default_op_params": {"conv1d": {"kernel_size": [3, 5], "out_channels": [8, 16]}},
-    "composites": {"conv-block": {"sequence": [
-        {"block": "conv", "op_candidates": "conv1d"},
-        {"block": "pool", "op_candidates": ["maxpool", "identity"]},
-    ]}},
-    "preprocessing": {"normalize": {"kind": ["zscore", "minmax"]},
-                      "downsample": {"factor": [1, 2]}},
-}
 LISTING3_TRIALS = 6
 LISTING3_STEPS = 40
 VAL_LOSS_REL = 1e-3  # the best trial's last training loss, card vs CPU (40 fp32 SGD steps)
+# quickstart's winner on the card against the same weights on the CPU (TF32 off)
+QUICKSTART_OUT_REL = 1e-5
 
 
 def profile_window(torch, label, step, warmup=2, steps=3) -> None:
@@ -873,7 +870,14 @@ def xlstm_forward_phase(torch, ops, ref, serve) -> dict:
     Returns the counts and times."""
     from repro_torch.configs import get_arch
     from repro_torch.models.lm import LM
-    from repro_torch.nn import xlstm as xlstm_mod
+
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):  # host seconds of each part of the phase
+        nonlocal t_part
+        torch.cuda.synchronize()
+        parts[name] = round(time.perf_counter() - t_part, 2)
+        t_part = time.perf_counter()
 
     spec = get_arch(XLSTM_ARCH).spec()
     n_mlstm = _sub_count(spec.layers, "mlstm")
@@ -881,25 +885,27 @@ def xlstm_forward_phase(torch, ops, ref, serve) -> dict:
     model.init(torch.Generator(device="cuda").manual_seed(0))
     tokens = _tokens(torch, spec.vocab, XLSTM_SEQ)
     n_params = sum(t.numel() for t in model.state_dict().values())
+    part("init")
     run = _kernel_forward(torch, ops, ref, model, tokens)
     logits, launches = run["logits"], run["launches"]
     del run["logits"]
+    part("kernel_forwards")
 
     # the check: the same weights' forward with impl="xla" in float64
     xla = _xla_forwards(torch, ops, serve, spec, model, tokens)
+    part("xla_forwards")
     readings = _float64_readings(logits, xla["plain"], xla["float64"])
     finite = bool(torch.isfinite(logits).all())
     logits_shape = tuple(logits.shape)
     del logits, xla["plain"], xla["float64"]
+    part("readings")
 
-    # where the time goes: the sLSTM blocks' time loops and the mLSTM blocks
-    with mock.patch.object(xlstm_mod, "slstm_block_apply",
-                           _ranged("slstm_block", xlstm_mod.slstm_block_apply)), \
-            mock.patch.object(xlstm_mod, "mlstm_block_apply",
-                              _ranged("mlstm_block", xlstm_mod.mlstm_block_apply)):
-        prof = profile_by_kind(torch, f"xlstm forward B=1 L={XLSTM_SEQ}",
-                               lambda: float(model(tokens)[0, -1, 0]),
-                               ranges=("slstm_block", "mlstm_block"))
+    # where the time goes: device time by kind.  The host's operators are
+    # not recorded: with the blocks' ranges the profiler took ~165 s to
+    # process the sLSTM loops' ~260,000 launches (parts_s)
+    prof = profile_by_kind(torch, f"xlstm forward B=1 L={XLSTM_SEQ}",
+                           lambda: float(model(tokens)[0, -1, 0]))
+    part("profile")
     summary = {
         "arch": spec.name, "n_params": n_params, "tokens": list(tokens.shape),
         "wall_ms": run["wall_ms"], "device_ms": prof["device_ms"],
@@ -910,7 +916,7 @@ def xlstm_forward_phase(torch, ops, ref, serve) -> dict:
         "plain_impl_kernel_launches": xla["plain_kernel_launches"],
         "max_memory_allocated": run["max_memory_allocated"],
         "logits_shape": list(logits_shape), "finite": finite,
-        "float64_impl_wall_ms": xla["float64_wall_ms"], **readings,
+        "float64_impl_wall_ms": xla["float64_wall_ms"], **readings, "parts_s": parts,
     }
     print("xlstm_forward " + json.dumps(summary))
     if (launches != {"mlstm_scan": n_mlstm} or run["plain_calls"]
@@ -3734,14 +3740,10 @@ def _pod_measured(torch, ops) -> dict:
     """``POD_MEASURED_TRIALS`` trials of the mode-2 search's ``h100`` branch
     on the card (sequence 128, batch 2, fp32 weights from seed 0, each
     placed, run and timed), with the kernels they launched."""
-    import importlib.util
-
-    loader = importlib.util.spec_from_file_location("hw_in_loop_nas_lm", POD_EXAMPLE)
-    example = importlib.util.module_from_spec(loader)
-    loader.loader.exec_module(example)
     from repro_torch.hwgen.generator import TorchGenerator
     from repro_torch.hwgen.targets import get_target
 
+    example = _example("hw_in_loop_nas_lm")
     before = dict(ops.LAUNCHES)
     rows = []
     t0 = time.perf_counter()
@@ -4037,27 +4039,35 @@ def train_resume_phase(torch, ops) -> dict:
     return rows
 
 
+def _example(name: str):
+    """The port's ``examples/torch/<name>.py``, loaded as a module."""
+    import importlib.util
+
+    loader = importlib.util.spec_from_file_location(f"example_{name}",
+                                                    ROOT / "examples" / "torch" / f"{name}.py")
+    module = importlib.util.module_from_spec(loader)
+    loader.loader.exec_module(module)
+    return module
+
+
 def val_accuracy_phase(torch, ops) -> dict:
-    """The paper's Listing 3 (``examples/nas_conv1d.py``) through the port
-    on the card: ``LISTING3_SPACE`` and its data, the param budget (hard,
-    2e6), ``val_accuracy`` (40 steps, objective) and ``latency_s`` at target
-    h100 (batch 8, soft 0.050 s, weight 0.5), TPE (seed 0, 5 startup
-    trials) with successive halving, ``LISTING3_TRIALS`` trials; training
-    and latency on the card.  Then the best trial's estimator again on the
-    CPU from the same initial weights: its accuracy within one validation
-    sample of the card's, its last loss within ``VAL_LOSS_REL``."""
+    """The paper's Listing 3 through ``examples/torch/nas_conv1d.py``'s own
+    wiring on the card: its space and data, the param budget (hard, 2e6),
+    ``val_accuracy`` (``LISTING3_STEPS`` steps, objective) and
+    ``latency_s`` at target h100 (batch 8, soft 0.050 s, weight 0.5), TPE
+    (seed 0, 5 startup trials) with successive halving, ``LISTING3_TRIALS``
+    trials; training and latency on the card.  Then the best trial's
+    estimator again on the CPU from the same initial weights: its accuracy
+    within one validation sample of the card's, its last loss within
+    ``VAL_LOSS_REL``.  Then the example's deploy of the winner (its
+    latency measured on the card, the counted FLOPs, whether its measured
+    peak fits the card).  No kernel may launch."""
     from repro_torch.core.builder import ModelBuilder
     from repro_torch.core.space import parse_search_space
-    from repro_torch.core.translate import sample_architecture
-    from repro_torch.data.pipeline import SyntheticClassificationData
-    from repro_torch.evaluation.api import CriteriaRunner, OptimizationCriteria
-    from repro_torch.evaluation.estimators import (
-        CompiledLatencyEstimator, ParamCountEstimator, TrainedAccuracyEstimator)
-    from repro_torch.hwgen.targets import get_target
-    from repro_torch.search.pruners import SuccessiveHalvingPruner
-    from repro_torch.search.samplers import TPESampler
-    from repro_torch.search.study import Study
+    from repro_torch.evaluation.estimators import TrainedAccuracyEstimator
+    from repro_torch.hwgen.generator import TorchGenerator
 
+    example = _example("nas_conv1d")
     runs = {}  # signature -> the card's initial weights (on the host) and last loss
 
     class Recording(TrainedAccuracyEstimator):
@@ -4073,31 +4083,18 @@ def val_accuracy_phase(torch, ops) -> dict:
             runs[candidate.arch.signature()]["loss"] = loss
             return params, loss
 
-    space = parse_search_space(LISTING3_SPACE)
-    allowed = get_target("h100").supported_ops
+    space = parse_search_space(example.SPACE)
+    generator = TorchGenerator("h100")
     builder = ModelBuilder(space.input_shape, space.output_dim)
-    data = SyntheticClassificationData(n=480, length=1250, channels=4, classes=6).split()
-    runner = CriteriaRunner([
-        OptimizationCriteria(ParamCountEstimator(), kind="hard_constraint", limit=2e6),
-        OptimizationCriteria(Recording(steps=LISTING3_STEPS), kind="objective",
-                             direction="maximize", weight=1.0),
-        OptimizationCriteria(CompiledLatencyEstimator("h100", batch=8),
-                             kind="soft_constraint", limit=0.050, weight=0.5),
-    ])
+    data = example.make_data()
+    runner = example.make_runner("h100", LISTING3_STEPS, "cuda",
+                                 accuracy=Recording(steps=LISTING3_STEPS))
     models = {}
-
-    def objective(trial):
-        arch = sample_architecture(space, trial, allowed_ops=allowed)
-        model = builder.build(arch)
-        models[trial.number] = model
-        trial.set_user_attr("signature", arch.signature())
-        return runner.evaluate(model, context={"data": data, "trial": trial}, trial=trial)
-
-    study = Study(name="nas-conv1d-h100", sampler=TPESampler(seed=0, n_startup=5),
-                  pruner=SuccessiveHalvingPruner(min_resource=20, reduction_factor=2))
     before = dict(ops.LAUNCHES)
     t0 = time.perf_counter()
-    study.optimize(objective, LISTING3_TRIALS)
+    study = example.run_study(space, builder, runner, data, LISTING3_TRIALS,
+                              allowed=generator.supported_ops(), storage=None,
+                              name="nas-conv1d-h100", models=models)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     trials = [{"trial": t.number, "state": t.state.value,
@@ -4120,6 +4117,7 @@ def val_accuracy_phase(torch, ops) -> dict:
     cpu = SameWeights(steps=LISTING3_STEPS, device="cpu")
     params, cpu_loss = cpu.fit(model, data)
     cpu_acc = cpu.accuracy(model, params, data["x_val"], data["y_val"])
+    deployed = example.deploy(space, builder, generator, best)
     launched = _launched_since(ops, before)
     n_val = len(data["y_val"])
     row = {
@@ -4133,13 +4131,157 @@ def val_accuracy_phase(torch, ops) -> dict:
         "loss_rel_diff": abs(card_loss - cpu_loss) / abs(cpu_loss),
         "loss_tol": VAL_LOSS_REL, "kernel_launches": launched}
     print("val_accuracy " + json.dumps(row))
+    print("val_accuracy_deploy " + json.dumps(deployed))
     if len(study.trials) != LISTING3_TRIALS or not any(t["state"] == "complete" for t in trials):
         raise AssertionError(f"val_accuracy: trials {trials}")
     if row["accuracy_diff"] > 1.0 / n_val + 1e-9 or row["loss_rel_diff"] > VAL_LOSS_REL:
         raise AssertionError(f"val_accuracy: the CPU rerun of the best trial disagrees: {row}")
+    if not (deployed["latency_s"] > 0 and deployed["flops"] > 0 and deployed["fits_memory"]):
+        raise AssertionError(f"val_accuracy: the deployed winner {deployed}")
     if launched:
         raise AssertionError(f"val_accuracy: kernels launched: {launched}")
+    return {**row, "deploy": deployed}
+
+
+def _quickstart_example(torch) -> dict:
+    """``examples/torch/quickstart.py`` at target h100 and at host_cpu in
+    this process: the same trials and best trial (the criteria are
+    analytic); the winner's weights drawn on the card, its output there
+    against the same weights' on the CPU."""
+    from repro_torch import Explorer
+
+    example = _example("quickstart")
+    t0 = time.perf_counter()
+    card = Explorer.from_spec(example.experiment("h100"), device="cuda")
+    report = card.run(save_report=False)
+    host = Explorer.from_spec(example.experiment("host_cpu"), device="cpu")
+    host_report = host.run(save_report=False)
+
+    def trials(explorer):
+        return [(t.number, t.state.value, t.values, t.user_attrs.get("signature"))
+                for t in explorer.study.trials]
+
+    model = card.best_model()
+    y = example.run_winner(model, "cuda")
+    y_cpu = example.run_winner(model.to("cpu"), "cpu")
+    err = (y.cpu() - y_cpu).abs().max().item()
+    tol = QUICKSTART_OUT_REL * y_cpu.abs().max().item()
+    row = {"wall_s": time.perf_counter() - t0, "trials": len(card.study.trials),
+           "best": {k: report.best[k] for k in ("number", "values", "signature")},
+           "best_host_cpu": {k: host_report.best[k] for k in ("number", "values", "signature")},
+           "trials_equal": trials(card) == trials(host), "output_shape": list(y.shape),
+           "output_max_abs_err": err, "output_tol": tol, "n_params": model.n_params}
+    print("examples_quickstart " + json.dumps(row))
+    if not row["trials_equal"] or row["best"] != row["best_host_cpu"]:
+        raise AssertionError(f"examples quickstart: h100 and host_cpu disagree: {row}")
+    if tuple(y.shape) != (2, 4) or not bool(torch.isfinite(y).all()) or err > tol:
+        raise AssertionError(f"examples quickstart: the winner's output on the card: {row}")
     return row
+
+
+def _nas_parallel_example(torch) -> dict:
+    """``examples/torch/nas_parallel.py --tiny --trials 8 --workers 2`` with
+    the thread backend on the card (the example asserts that the serial
+    and thread runs find the same best), and again at host_cpu: the same
+    candidates sampled in each run."""
+    example = _example("nas_parallel")
+    argv = ["--tiny", "--trials", "8", "--workers", "2", "--backend", "thread"]
+    out = {}
+    for device in ("cuda", "cpu"):
+        args = example.build_parser().parse_args(argv + ["--device", device])
+        args.target = example.default_target(device)
+        t0 = time.perf_counter()
+        sx, serial, px, par = example.run(args)
+        summary = example.summarize(args, serial, par)
+        out[device] = {"wall_s": time.perf_counter() - t0,
+                       "best": {k: summary["parallel"]["best"][k] for k in ("number", "values")},
+                       "signatures": [[t.user_attrs.get("signature") for t in x.study.trials]
+                                      for x in (sx, px)]}
+    row = {"card": out["cuda"]["best"], "card_wall_s": out["cuda"]["wall_s"],
+           "host_cpu": out["cpu"]["best"],
+           "signatures_equal": out["cuda"]["signatures"] == out["cpu"]["signatures"]}
+    print("examples_nas_parallel " + json.dumps(row))
+    if not row["signatures_equal"]:
+        raise AssertionError(f"examples nas_parallel: the card's runs sampled other "
+                             f"candidates than the CPU's: {out}")
+    return row
+
+
+def _train_lm_example(torch, work: str) -> dict:
+    """``examples/torch/train_lm.py --full --steps 100`` on the card (the
+    ~100M model, fp32), then ``--steps 110`` on the same checkpoint
+    directory, which must resume from step 100."""
+    example = _example("train_lm")
+    ckpt = os.path.join(work, "train_lm_ckpt")
+    first = example.main(["--full", "--steps", "100", "--ckpt-dir", ckpt])
+    lines = []
+
+    def log(line):
+        print(line)
+        lines.append(line)
+
+    resumed = example.train(example.build_parser().parse_args(
+        ["--full", "--steps", "110", "--ckpt-dir", ckpt]), log=log)
+    logged = {r["step"]: r["loss"] for r in first["logged"]}
+    row = {"n_params": first["n_params"], "losses": logged, "step_ms": first["step_ms"],
+           "tokens_per_s": first["tokens_per_s"],
+           "max_memory_allocated": first["max_memory_allocated"],
+           "resumed_from": resumed["start_step"], "resumed_steps": sorted(resumed["losses"]),
+           "resumed_final_loss": resumed["final_loss"], "resumed_step_ms": resumed["step_ms"]}
+    print("examples_train_lm " + json.dumps(row))
+    losses = [logged.get(step, math.nan) for step in (25, 50, 75, 100)]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"examples train_lm: losses {logged}")
+    if ("resumed from step 100" not in lines or resumed["start_step"] != 100
+            or sorted(resumed["losses"]) != list(range(101, 111))
+            or not math.isfinite(resumed["final_loss"])):
+        raise AssertionError(f"examples train_lm: the resumed run {row}")
+    return row
+
+
+def _elastic_example(torch, work: str) -> dict:
+    """``examples/torch/elastic_restart.py`` on the card: both phases on a
+    (1, 1) NCCL mesh, the restart at step 10 with the restored parameters
+    equal to the saved ones bit for bit, and no process group left."""
+    import torch.distributed as dist
+
+    example = _example("elastic_restart")
+    t0 = time.perf_counter()
+    out = example.run("cuda", ckpt_dir=os.path.join(work, "elastic_ckpt"))
+    equal = (out["saved"].keys() == out["restored"].keys()
+             and all(torch.equal(out["saved"][k], out["restored"][k]) for k in out["saved"]))
+    row = {"wall_s": time.perf_counter() - t0, "loss_phase_1": out["loss_a"],
+           "loss_phase_2": out["loss_b"], "restart_step": out["restart_step"],
+           "mesh_a": out["mesh_a"], "mesh_b": out["mesh_b"],
+           "restored_equal_saved": equal, "group_left": dist.is_initialized()}
+    print("examples_elastic_restart " + json.dumps(row))
+    if (out["restart_step"] != 10 or not equal or row["group_left"]
+            or not all(math.isfinite(x) for x in (out["loss_a"], out["loss_b"]))):
+        raise AssertionError(f"examples elastic_restart: {row}")
+    return row
+
+
+def examples_phase(torch, ops) -> dict:
+    """The port's copies of the reference's examples on the card, in a
+    scratch directory (they write ``results/`` and checkpoints): quickstart,
+    ``nas_parallel --tiny``, ``train_lm --full`` and its resume,
+    ``elastic_restart``.  None of their paths reaches a kernel (conv and
+    linear candidates; training on the plain math): no kernel may launch."""
+    import contextlib
+    import tempfile
+
+    before = dict(ops.LAUNCHES)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="examples-") as work, contextlib.chdir(work):
+        rows = {"quickstart": _quickstart_example(torch),
+                "nas_parallel": _nas_parallel_example(torch),
+                "train_lm": _train_lm_example(torch, work),
+                "elastic_restart": _elastic_example(torch, work)}
+    launched = _launched_since(ops, before)
+    if launched:
+        raise AssertionError(f"examples: kernels launched: {launched}")
+    torch.cuda.empty_cache()
+    return {**rows, "kernel_launches": launched}
 
 
 # the phases that drive a whole model, by name
@@ -4166,6 +4308,7 @@ TRAIN_PHASES = {
     "train_mesh": train_mesh_phase,
     "dryrun": dryrun_phase,
     "pod_nas": pod_nas_phase,
+    "examples": examples_phase,
 }
 SUBSET_PHASES = ("flash", "ssm", "nas", "modelled", "explore", "cascade", "sweep",
                  "serving", "report_boot", "remote", "mlstm", *MODEL_PHASES,
@@ -4439,12 +4582,16 @@ def main(argv=None) -> int:
 
     # -- 15. the paper's Listing 3 with val_accuracy on the card ---------------
     listing3 = timed("val_accuracy", val_accuracy_phase, torch, ops)
+
+    # -- 15b. the reference's other examples on the port ----------------------
+    examples = timed("examples", examples_phase, torch, ops)
     trained_paths = {"train": trained["kernel_launches"],
                      "train_check": checked["kernel_launches"],
                      "train_mesh": meshed["kernel_launches"],
                      "dryrun": dried["check"]["kernel_launches"],
                      "pod_nas": pod["kernel_launches"],
-                     "val_accuracy": listing3["kernel_launches"]}
+                     "val_accuracy": listing3["kernel_launches"],
+                     "examples": examples["kernel_launches"]}
 
     # -- 16. result --------------------------------------------------------
     print("phase_seconds " + json.dumps({**spent, "total": round(

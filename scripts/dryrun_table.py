@@ -11,6 +11,13 @@ device, against its data-sheet peaks: modelled, not measured).  A
 ``--walls`` file of ``cell <arch> <shape> <mesh> exit <code> wall <s>``
 lines adds each cell's process wall time.  The failures are listed after
 the table with the last line of their traceback.
+
+    PYTHONPATH=src python scripts/dryrun_table.py NEW_DIR --against OLD_DIR
+
+compares two runs' records instead, one row a record whose counts moved:
+FLOPs, each kind's collective count and bytes, argument bytes (which must
+not move), and the new over the old ``bytes_accessed``, transcendentals
+and peak; then the number of records compared and of those unchanged.
 """
 from __future__ import annotations
 
@@ -117,6 +124,47 @@ def grouped(table) -> None:
     print(f"\nskipped (every mesh and variant): {', '.join(skipped)}")
 
 
+def _counts(rec) -> dict:
+    cost, mem = rec.get("cost") or {}, rec.get("memory") or {}
+    return {"flops": cost.get("flops"), "collectives": rec.get("collectives"),
+            "argument_bytes": mem.get("argument_bytes"),
+            "bytes_accessed": cost.get("bytes_accessed"),
+            "transcendentals": cost.get("transcendentals"),
+            "peak": mem.get("peak_bytes_per_device")}
+
+
+def against(new_dir: str, old_dir: str) -> int:
+    """Print the records of ``new_dir`` whose counts differ from
+    ``old_dir``'s; returns how many moved a count that must not move."""
+    def ratio(a, b):
+        return "" if a is None or b is None else ("1" if a == b else f"{a / b:.6g}" if b else "inf")
+
+    print("| record | FLOPs, collectives, args | bytes_accessed new/old | transcendentals "
+          "new/old | peak new/old |")
+    print("| --- | --- | --- | --- | --- |")
+    compared = unchanged = fixed_moved = 0
+    for path in sorted(glob.glob(os.path.join(new_dir, "*.json"))):
+        old_path = os.path.join(old_dir, os.path.basename(path))
+        if not os.path.exists(old_path):
+            continue
+        with open(path) as f, open(old_path) as g:
+            new, old = _counts(json.load(f)), _counts(json.load(g))
+        compared += 1
+        if new == old:
+            unchanged += 1
+            continue
+        fixed = all(new[k] == old[k] for k in ("flops", "collectives", "argument_bytes"))
+        fixed_moved += not fixed
+        print(f"| {os.path.basename(path)[:-5]} | {'equal' if fixed else 'MOVED'} "
+              f"| {ratio(new['bytes_accessed'], old['bytes_accessed'])} "
+              f"| {ratio(new['transcendentals'], old['transcendentals'])} "
+              f"| {ratio(new['peak'], old['peak'])} |")
+    print(f"\n{compared} records compared: {unchanged} unchanged, "
+          f"{compared - unchanged} moved, {fixed_moved} of them in FLOPs, collectives "
+          f"or argument bytes")
+    return fixed_moved
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("directory")
@@ -124,7 +172,11 @@ def main(argv=None) -> int:
     p.add_argument("--json", action="store_true", help="one JSON object a row")
     p.add_argument("--grouped", action="store_true",
                    help="one row an (arch, shape): single, multi and the --opt variant")
+    p.add_argument("--against", default=None, metavar="OLD_DIR",
+                   help="compare the records with another run's")
     args = p.parse_args(argv)
+    if args.against:
+        return 1 if against(args.directory, args.against) else 0
     table = list(rows(args.directory, _walls(args.walls)))
     if args.json:
         for row in table:

@@ -382,7 +382,9 @@ class TrainedAccuracyEstimator(Estimator):
             x = torch.as_tensor(x, device=self.device)
             y = torch.as_tensor(y, device=self.device)
             pred = torch.argmax(self._apply(candidate, params, x), dim=-1)
-            return float((pred == y).to(torch.float32).mean())
+            # the reference's fp32 mean, which XLA computes as the sum times
+            # fp32(1/n): 20 of 96 is one ulp above the division's rounding
+            return float((pred == y).to(torch.float32).sum() * (1.0 / y.numel()))
 
     def fit(self, candidate: BuiltModel, data, trial=None) -> Tuple[Weights, float]:
         """Train ``candidate`` for ``steps`` steps on ``data``.  Returns the

@@ -387,6 +387,36 @@ class TorchGenerator:
     def __init__(self, target: TargetSpec | str):
         self.target = get_target(target) if isinstance(target, str) else target
 
+    # -- reflection API (paper §VI) -----------------------------------------
+
+    def supported_ops(self) -> frozenset:
+        return self.target.supported_ops
+
+    def capabilities(self) -> Dict[str, Any]:
+        """The reference's five keys.  ``pallas`` means here that the
+        target runs the hand-written kernels (the CUDA counterparts of the
+        reference's Pallas kernels), from the target's ``supports_pallas``.
+        For ``host_cpu`` and ``edge_npu`` every key equals the reference's;
+        the H100 targets' ``pallas`` (True) and ``hbm_bytes`` (80 GiB) are
+        the card's own, as the port has no TPU target to compare them to."""
+        return {
+            "ops": sorted(self.target.supported_ops),
+            "pallas": self.target.supports_pallas,
+            "chips": self.target.n_chips,
+            "hbm_bytes": self.target.chip.hbm_bytes,
+            "measurement": self.target.measurement,
+        }
+
+    def generate_cached(self, cache, key, fn: Callable, example_args: Tuple, **kw) -> Artifact:
+        """Memoized :meth:`generate` through a shared
+        :class:`~repro_torch.evaluation.cache.EvaluationCache`: estimators
+        that need the same candidate's artifact (latency + memory) generate
+        it once; concurrent workers racing on one key generate it once too
+        (single-flight)."""
+        return cache.get_or_compute(key, lambda: self.generate(fn, example_args, **kw))
+
+    # -- generation -----------------------------------------------------------
+
     def generate(self, fn: Callable, example_args: Tuple, in_shardings=None,
                  schedules: Optional[Mapping[str, Any]] = None) -> Artifact:
         """With ``in_shardings`` (a tree of ``PartitionSpec`` shaped like

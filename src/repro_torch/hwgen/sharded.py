@@ -261,7 +261,7 @@ def mem_tracker():
 _counting_lock = threading.Lock()
 
 
-def count(step, args, mesh, with_cost: bool, *, _with_propagation: bool = False) -> dict:
+def count(step, args, mesh, with_cost: bool) -> dict:
     """One run of ``step(*args)`` under the counters, inside
     ``sharding_context`` with the default rules: the peak bytes, the
     collectives by kind and (with the cost counter) the local ops' cost.
@@ -270,14 +270,11 @@ def count(step, args, mesh, with_cost: bool, *, _with_propagation: bool = False)
     decomposition (:func:`_propagating`), which runs the first time a
     process meets the op, are left out: a count is the same whatever the
     process counted before, which a study of many candidates in one
-    process needs.  ``_with_propagation`` keeps them, for the dry run
-    alone, whose records keep them until they are checked cell by cell
-    without them (ROADMAP)."""
+    process and the dry run's records need."""
     tracker, counter = mem_tracker(), CollectiveCounter()
     tracker.track_external(*local_tensors(args))
     cost = LocalCost() if with_cost else contextlib.nullcontext()
-    watch = contextlib.nullcontext() if _with_propagation else _watch_propagation()
-    with _counting_lock, watch, sharding_context(mesh, default_rules(mesh)), \
+    with _counting_lock, _watch_propagation(), sharding_context(mesh, default_rules(mesh)), \
             tracker, counter, cost:
         step(*args)
     peak = tracker.get_tracker_snapshot("peak")

@@ -4,7 +4,7 @@ and counted, without a card::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b \\
         --shape train_4k --mesh single
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--opt]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--opt] [--jobs 8]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch dbrx-132b \\
         --shape train_4k --units 8   # the first 8 of its 40 layers
 
@@ -61,6 +61,7 @@ How each count of the record is taken, and what it cannot match:
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -250,12 +251,6 @@ def build_cell(arch_name: str, shape_name: str, multi_pod: bool, *, overrides=No
     return step, (params, cache, batch["tokens"], cell.seq - 1), mesh, meta
 
 
-def _count(step, args, mesh, with_cost: bool) -> dict:
-    """:func:`repro_torch.hwgen.sharded.count` as the dry run's records
-    have it: with DTensor's one-time sharding propagation ops (ROADMAP)."""
-    return sharded.count(step, args, mesh, with_cost, _with_propagation=True)
-
-
 def _time_loop(arch_name: str, shape_name: str) -> bool:
     """Whether the cell runs an sLSTM time loop over a whole sequence (a
     train or prefill step of a spec with sLSTM blocks): some 20 ops a step
@@ -300,7 +295,7 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool, *, with_cost: boo
     record.update(meta)
     argument_bytes = sharded.local_bytes(args)
     if n_units is not None or not _time_loop(arch_name, shape_name):
-        counted = _count(step, args, mesh, with_cost)
+        counted = sharded.count(step, args, mesh, with_cost)
         record["cost_mode"] = "full"
         peak = counted["peak"]
     else:
@@ -311,7 +306,7 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool, *, with_cost: boo
         for k in (0, 1):
             step, args, mesh, _ = build_cell(arch_name, shape_name, multi_pod, n_units=k,
                                              **kwargs)
-            measures.append(_count(step, args, mesh, with_cost))
+            measures.append(sharded.count(step, args, mesh, with_cost))
             one_unit_args = sharded.local_bytes(args)
             del step, args
 
@@ -365,6 +360,8 @@ def main(argv=None) -> int:
     p.add_argument("--opt", action="store_true",
                    help="with --all: use the optimized per-kind variant for every cell")
     p.add_argument("--timeout", type=int, default=3600)
+    p.add_argument("--jobs", type=int, default=1,
+                   help="with --all: cells counted at once, each in its own process")
     p.add_argument("--units", type=int, default=None,
                    help="count only the first N layer-pattern units (a depth cut)")
     args = p.parse_args(argv)
@@ -372,7 +369,7 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
 
     if args.all:
-        failures = 0
+        cells = []
         for arch, shape, mesh in all_cells():
             if args.opt and mesh == "multi":
                 continue  # optimized table is single-pod (§Roofline)
@@ -392,16 +389,21 @@ def main(argv=None) -> int:
             # the cost counters there.
             if args.no_cost or mesh == "multi":
                 cmd.append("--no-cost")
-            print(f"[dryrun] {arch} x {shape} x {mesh}", flush=True)
+            cells.append(((arch, shape, mesh), path, cmd))
+
+        def count_cell(cell, path, cmd) -> bool:
+            print(f"[dryrun] {' x '.join(cell)}", flush=True)
             try:
-                r = subprocess.run(cmd, timeout=args.timeout)
-                if r.returncode != 0:
-                    failures += 1
+                return subprocess.run(cmd, timeout=args.timeout).returncode == 0
             except subprocess.TimeoutExpired:
-                failures += 1
+                arch, shape, mesh = cell
                 with open(path, "w") as f:
                     json.dump({"arch": arch, "shape": shape, "mesh": mesh,
                                "status": "timeout"}, f)
+                return False
+
+        with concurrent.futures.ThreadPoolExecutor(max(1, args.jobs)) as pool:
+            failures = list(pool.map(lambda c: count_cell(*c), cells)).count(False)
         print(f"[dryrun] complete, failures={failures}")
         return 1 if failures else 0
 

@@ -432,6 +432,38 @@ def test_all_resumes_over_written_cells(tmp_path):
             assert rec == {"status": "ok", "mark": 1}
 
 
+ORDER_CODE = """
+import json, sys
+from repro_torch.hwgen import sharded
+from repro_torch.launch import dryrun
+sharded.start_fake_group(256)
+print(json.dumps({arch: dryrun.run_cell(arch, "train_4k", False, n_units=1)
+                  for arch in sys.argv[1:]}))
+"""
+
+
+def test_records_do_not_depend_on_what_the_process_counted_before():
+    """A MoE cell and a Mamba2 cell at one layer give the same record
+    (every key but the host seconds) counted first in a fresh process or
+    after the other: DTensor's sharding propagation through an op's
+    decomposition, which runs the first time a process meets the op, is
+    not counted."""
+    orders = (["dbrx-132b", "zamba2-2.7b"], ["zamba2-2.7b", "dbrx-132b"])
+    procs = [subprocess.Popen([sys.executable, "-c", ORDER_CODE, *order], env=_env(),
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for order in orders]
+    records = []
+    for proc in procs:
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err[-3000:]
+        records.append({arch: {k: v for k, v in rec.items() if k not in ("trace_s", "total_s")}
+                        for arch, rec in json.loads(out.strip().splitlines()[-1]).items()})
+    first, second = records
+    for arch in orders[0]:
+        assert first[arch]["status"] == "ok"
+        assert first[arch] == second[arch], arch
+
+
 # -- remat ------------------------------------------------------------------------------
 
 def _lm_pair(arch):

@@ -42,6 +42,13 @@ def test_scan_covers_the_package():
     assert ROOT / "examples" / "torch" / "hw_in_loop_nas_lm.py" in EXAMPLES
 
 
+@pytest.mark.parametrize("name", sorted(p.name for p in (ROOT / "examples").glob("*.py")))
+def test_every_reference_example_has_a_port_copy(name):
+    """Each of the JAX package's examples has its copy under
+    ``examples/torch/``, which the scan above covers."""
+    assert ROOT / "examples" / "torch" / name in EXAMPLES
+
+
 def test_nas_loop_imports_without_pyyaml():
     """The machine with the card has no PyYAML: the modules the chip
     smoke's NAS loop runs import, and parse a dict space, with ``yaml``
@@ -137,3 +144,4 @@ def test_trainer_runs_without_pyyaml():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "2"
+

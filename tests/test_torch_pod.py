@@ -13,7 +13,8 @@ counted at 1 and 2 layers and extrapolated equals its full count on the
 256-card pod; the mode-2 study with argument bytes per token as its
 objective gives the same trials and best trial in both packages; the
 generator's group rules, and training on a real group after a generate;
-and a sweep over ``[host_cpu, edge_npu, h100_pod]`` on the CPU."""
+a sweep over ``[host_cpu, edge_npu, h100_pod]`` on the CPU; and the
+generator's reflection API against ``XLAGenerator``'s."""
 import dataclasses
 import importlib.util
 import json
@@ -217,6 +218,42 @@ def jax_pod():
                        text=True, env=env, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
     return json.loads(r.stdout.split("POD ", 1)[1])
+
+
+@pytest.mark.parametrize("target", ["host_cpu", "edge_npu"])
+def test_generator_reflection_matches_the_reference(target):
+    """The reflection API (paper §VI): ``supported_ops()`` and
+    ``capabilities()`` equal ``XLAGenerator``'s key for key on the two
+    targets both packages have (nothing generated)."""
+    pytest.importorskip("jax")
+    from repro.hwgen.generator import XLAGenerator
+
+    ours, ref = TorchGenerator(target), XLAGenerator(target)
+    assert ours.supported_ops() == ref.supported_ops()
+    assert ours.capabilities() == ref.capabilities()
+    assert ours.capabilities()["pallas"] is False
+
+
+def test_generator_reflection_on_the_card_and_generate_cached():
+    """``h100``'s own capabilities (the hand-written kernels, one card of
+    80 GiB, timed); ``generate_cached`` generates once for two equal keys
+    and again for another."""
+    from repro_torch.evaluation.cache import EvaluationCache
+    from repro_torch.hwgen import generator as gen_mod
+
+    caps = TorchGenerator("h100").capabilities()
+    assert caps == {"ops": sorted(get_target("h100").supported_ops), "pallas": True,
+                    "chips": 1, "hbm_bytes": 80 * 1024 ** 3, "measurement": "wallclock"}
+    assert "conv1d" in caps["ops"] and "linear" in caps["ops"]
+    gen, cache = TorchGenerator("host_cpu"), EvaluationCache()
+    model = torch.nn.Linear(4, 2)
+    x = torch.zeros(3, 4)
+    before = gen_mod.generate_call_count()
+    a = gen.generate_cached(cache, ("artifact", "k"), model, (x,))
+    b = gen.generate_cached(cache, ("artifact", "k"), model, (x,))
+    assert a is b and gen_mod.generate_call_count() == before + 1
+    c = gen.generate_cached(cache, ("artifact", "other"), model, (x,))
+    assert c is not a and gen_mod.generate_call_count() == before + 2
 
 
 @pytest.mark.parametrize("kind", list(CANDIDATES))

@@ -237,11 +237,12 @@ def test_val_accuracy_refuses_a_kernel_candidate_before_any_step(monkeypatch):
 
 
 def test_chip_smoke_listing3_is_the_examples():
-    """``chip_smoke.py`` carries Listing 3's space as a dict (the card's
-    machine has no PyYAML): it is the example's."""
+    """``chip_smoke.py`` runs Listing 3 through the port's
+    ``examples/torch/nas_conv1d.py``, which carries the space as a dict
+    (the card's machine has no PyYAML): it is the reference example's."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(ROOT))
-    assert chip_smoke.LISTING3_SPACE == _listing3_space()
+    assert chip_smoke._example("nas_conv1d").SPACE == _listing3_space()
